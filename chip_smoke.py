@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (rustpotter_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py    # needs one card
+
+Phases, each of which raises (non-zero exit) when it fails:
+  1. print the card's name and power limit, build every kernel of the main
+     path from csrc/ with nvcc (in parallel), print the build seconds and
+     the compiler's register/spill report;
+  2. kernel phase: each kernel against its plain PyTorch version on the card,
+     at the unit-test shapes and at the bench shapes, with its time (CUDA
+     events over back-to-back calls, median of 20), the plain version's time
+     and its bound;
+  3. slice phase: BatchedDetector at B=8192 with the bench wakeword runs the
+     bench correctness pass (stream 0 must fire, every chunk must launch K1),
+     streams 0-3 must give the events of a device="cpu" run at B=4 on the same
+     audio, then 5 windows of 34 chunks of noise are timed on the host clock
+     (streams_rt of the median window, and the range), and torch.profiler
+     splits the device kernel time of 5 more chunks into front-end, K1 and
+     the rest, listing the kernels.
+The line before the last is the kernels JSON; the last line is the result
+JSON. Without a CUDA card it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): fp32 on the
+# CUDA cores and HBM3 bandwidth. The card's power limit is printed beside.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+RTOL, ATOL = 3e-6, 2e-4  # K1 vs its plain version: the JAX kernel tests' own
+EV_RTOL, EV_ATOL = 2e-5, 2e-5  # event scores, card vs CPU
+BENCH_STREAMS = 8192  # bench.py's B
+TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
+TIMED_WINDOWS = 5
+PROFILED_CHUNKS = 5
+PROFILE_ROWS = 20
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+# ----------------------------------------------------------------- timing
+
+def time_cuda(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> float:
+    """ms per call: the median over `samples` of the CUDA-event time of `per`
+    back-to-back calls, divided by `per` (the host's enqueue of one call
+    overlaps the device's run of the one before)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(samples):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    return float(np.median(times))
+
+
+def device_kernels(fn, n: int):
+    """torch.profiler over `n` calls of fn: [(ms per call, launches per call,
+    kernel name)] of the device kernels, longest first. Empty when the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(
+        ((e.self_device_time_total / n / 1e3, e.count / n, e.key)
+         for e in prof.key_averages()
+         if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
+        reverse=True,
+    )
+
+
+# ------------------------------------------------------------------ K1
+
+def k1_inputs(rng, B, F, Lm, C, D, K, scale, device):
+    import torch
+
+    P = D * K + D
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)
+    tpl = rng.normal(0, 1, (P, Lm, C)).astype(np.float32)
+    return dict(
+        win=t(rng.normal(0, scale, (F, C, B))),
+        new=t(rng.normal(0, scale, (3, C, B))),
+        means3=t(rng.normal(0, 0.2 * scale, (3, P, C, B))),
+        templates=t(tpl),
+        tnorms=t(np.sum(tpl ** 2, axis=-1)),
+    )
+
+
+def k1_work(lens, w, C, B):
+    """(FLOPs of the cost-band dots, FLOPs of the rest) that the function
+    needs with the gate open: every stream scores every pair at all 3 shifts.
+    Per stream, pair of length n and shift: rwn over n columns (sub + FMA per
+    coefficient, one rsqrt), and per DP row r < n the dotm chain (2C), the
+    mean correction of every valid band cell (sub, mul, 1 -) and the DP (add +
+    min per slot, then the add + min chain). The dot T'[r-1].W[c] does not
+    depend on the shift's mean, and shift s+1's column c is shift s's column
+    c+1, so the dots of row r count once per distinct window column over the 3
+    shifts (2C each)."""
+    dots = rest = 0
+    for n in lens:
+        rest += 3 * n * (3 * C + 1)
+        for r in range(1, n):
+            cols = [r - w + j for j in range(2 * w) if 1 <= r - w + j <= min(n, r + w - 1)]
+            dots += 2 * C * len({c + s for c in cols for s in range(3)})
+            rest += 3 * (2 * C + 3 * len(cols) + 2 * (2 * w) + 2 * (2 * w - 1))
+    return dots * B, rest * B
+
+
+def k1_bytes(F, C, B, P, Lm):
+    return 4 * (F * C * B + 3 * C * B + 3 * P * C * B + P * Lm * C + P * Lm + B * 3 * P)
+
+
+def mid_bound(avg):
+    """A gate bound in the middle of the widest gap between the avg sims of
+    the middle fifth, so that about half the streams pass and none sits near
+    the bound (K1 and its plain version differ in the last bits)."""
+    v = avg.flatten().sort().values
+    lo, hi = v.numel() * 2 // 5, max(v.numel() * 3 // 5, v.numel() * 2 // 5 + 2)
+    i = lo + int((v[lo + 1:hi] - v[lo:hi - 1]).argmax())
+    return ((v[i] + v[i + 1]) / 2).reshape(1)
+
+
+def compare(got, want):
+    """Max |Δ| over finite entries; raises unless the +inf pattern is equal
+    and the finite entries agree within (RTOL, ATOL)."""
+    import torch
+
+    g, w = got.double().cpu(), want.double().cpu()
+    if not torch.equal(torch.isinf(g), torch.isinf(w)):
+        raise AssertionError("K1 and its plain version disagree on which sims are +inf")
+    fin = torch.isfinite(w)
+    if not torch.equal(fin, torch.isfinite(g)):
+        raise AssertionError("K1 and its plain version disagree on finiteness")
+    torch.testing.assert_close(g[fin], w[fin], rtol=RTOL, atol=ATOL)
+    return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
+
+
+def kernel_phase(dev, record):
+    import torch
+
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    # unit-test shapes: F in {Lm, Lm+2, Lm+9}, wrap-around cursor, gates
+    D, K, B, Lm, C, w = 2, 2, 30, 40, 8, 5
+    lens = (40, 31, 28, 37, 35, 40)
+    for F in (Lm, Lm + 2, Lm + 9):
+        x = k1_inputs(rng, B, F, Lm, C, D, K, 1.0, dev)
+        rot0 = torch.tensor(F - 2, dtype=torch.int32, device=dev)
+        args = lambda gate: (x["win"], x["new"], x["means3"], x["templates"],
+                             x["tnorms"], gate, lens, w, D, K, rot0)
+        open_ = torch.full((D,), float("inf"), device=dev)
+        want = fd.fused_dtw_chunk_v4_ref(*args(open_))
+        worst = max(worst, compare(fd.fused_dtw_chunk_v4(*args(open_)), want))
+        avg0 = want[:, :, D * K]
+        closed = torch.stack([avg0.min() - 1.0, open_[1]])
+        got = fd.fused_dtw_chunk_v4(*args(closed))
+        assert torch.isinf(got[:, :, :K]).all(), "closed gate left ww0 templates finite"
+        worst = max(worst, compare(got, fd.fused_dtw_chunk_v4_ref(*args(closed))))
+        mixed = torch.cat([mid_bound(avg0), open_[1:]])
+        got = fd.fused_dtw_chunk_v4(*args(mixed))
+        worst = max(worst, compare(got, fd.fused_dtw_chunk_v4_ref(*args(mixed))))
+        passing = (avg0 <= mixed[0])[..., None].expand(-1, -1, K)
+        assert torch.equal(torch.isfinite(got[:, :, :K]), passing), "mixed gate"
+        log(f"K1 unit shapes F={F}: ok")
+
+    # bench shapes: B=8192, one wakeword of 5 templates + avg, F=Lm=100, C=16
+    D, K, B, Lm, C, w, F = 1, 5, BENCH_STREAMS, 100, 16, 5, 100
+    P = D * K + D
+    lens = (100, 98, 96, 94, 92, 100)
+    x = k1_inputs(rng, B, F, Lm, C, D, K, 5.0, dev)
+    rot0 = torch.tensor(37, dtype=torch.int32, device=dev)
+    args = lambda gate: (x["win"], x["new"], x["means3"], x["templates"],
+                         x["tnorms"], gate, lens, w, D, K, rot0)
+    open_ = torch.full((D,), float("inf"), device=dev)
+    want = fd.fused_dtw_chunk_v4_ref(*args(open_))
+    got = fd.fused_dtw_chunk_v4(*args(open_))
+    err_open = compare(got, want)
+    log(f"K1 bench shapes: max|d| of avg sims {compare(got[:, :, D * K:], want[:, :, D * K:]):.3e}")
+    mixed = mid_bound(want[:, :, D * K])
+    err_mixed = compare(fd.fused_dtw_chunk_v4(*args(mixed)), fd.fused_dtw_chunk_v4_ref(*args(mixed)))
+    worst = max(worst, err_open, err_mixed)
+    log(f"K1 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e}")
+    torch.cuda.synchronize()
+
+    # the kernel alone: T' prepared once, as the serving chunk does
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], lens, w)
+    launch = lambda gate: fd.score_chunk(x["win"], x["new"], x["means3"], tset, gate, D, K, rot0)
+    ms = time_cuda(lambda: launch(open_))
+    plain_ms = time_cuda(lambda: fd.fused_dtw_chunk_v4_ref(*args(open_)), samples=5, per=1,
+                         warmup=1)
+    ms_mixed = time_cuda(lambda: launch(mixed))
+    dots, rest = k1_work(lens, w, C, B)
+    flops = dots + rest
+    nbytes = k1_bytes(F, C, B, P, Lm)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"K1 bench gate open: {ms:.4f} ms (gate mixed {ms_mixed:.4f} ms), plain "
+        f"{plain_ms:.3f} ms; needs {flops / 1e9:.4f} GFLOP (dots {dots / 1e9:.4f}, rest "
+        f"{rest / 1e9:.4f}; {t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) and "
+        f"{nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    record["fused_dtw_v4"] = {
+        "name": "fused_dtw_v4",
+        "route": "cuda",
+        "source": "rustpotter_tpu_torch/csrc/fused_dtw_v4.cu",
+        "replaces": "rustpotter_tpu/ops/fused_dtw.py:431",
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------- slice
+
+def run_correctness(det, stream0, noise):
+    """Bench correctness pass: stream 0 plays `stream0`, the rest noise.
+    Returns events of streams 0-3 per chunk (numpy, (T, 4, ...))."""
+    import torch
+
+    states = det.init_states()
+    evs = []
+    for t in range(stream0.shape[0]):
+        frames = noise.clone()
+        frames[0] = stream0[t]
+        states, ev = det.process_chunk(det.params, states, frames)
+        evs.append([f[:4].clone() for f in ev])
+    return [torch.stack(f).cpu().numpy() for f in zip(*evs)]
+
+
+def slice_phase(dev, record):
+    import torch
+
+    from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch.ops import frontend
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.stream_step import prepare_chunk
+    from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
+
+    B, T = BENCH_STREAMS, TIMED_CHUNKS
+    ww, utterance = build_bench_wakeword(device=dev)
+    cfg = RustpotterConfig()
+    cfg.detector.score_mode = ScoreMode.MAX
+    cfg.detector.avg_threshold = 0.2
+    det = BatchedDetector([("w", ww)], cfg, batch_size=B, device=dev)
+    rng = np.random.default_rng(0)
+    noise_np = rng.normal(0, 0.05, (B, 480)).astype(np.float32)
+    noise = torch.tensor(noise_np, device=dev)
+    stream0_np = correctness_stream(det.static.max_mfcc_frames, utterance)
+    stream0 = torch.tensor(stream0_np, device=dev)
+    n_chunks = stream0_np.shape[0]
+
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    gpu = run_correctness(det, stream0, noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fd.LAUNCHES)
+    fired0 = int(gpu[0][:, 0].sum())
+    log(f"slice: correctness pass {n_chunks} chunks at B={B} in {wall:.3f} s, "
+        f"stream 0 fired {fired0}x, K1 launches {launches['fused_dtw_v4']}")
+    assert fired0 >= 1, "correctness guard: the bench wakeword did not fire on stream 0"
+    assert launches["fused_dtw_v4"] == n_chunks, (launches, n_chunks)
+    record["fused_dtw_v4"]["launches"] = launches["fused_dtw_v4"]
+
+    cpu_det = BatchedDetector([("w", ww)], cfg, batch_size=4, device="cpu")
+    cpu = run_correctness(cpu_det, torch.tensor(stream0_np), torch.tensor(noise_np[:4]))
+    for j, name in ((0, "fired"), (1, "ww"), (4, "counter")):
+        np.testing.assert_array_equal(gpu[j], cpu[j], err_msg=f"event {name}, card vs cpu")
+    fired = cpu[0]
+    worst = 0.0
+    for j, name in ((2, "score"), (3, "avg_score"), (6, "scores")):
+        np.testing.assert_allclose(gpu[j][fired], cpu[j][fired], rtol=EV_RTOL, atol=EV_ATOL,
+                                   err_msg=f"event {name}, card vs cpu")
+        if fired.any():
+            worst = max(worst, float(np.abs(gpu[j][fired] - cpu[j][fired]).max()))
+    log(f"slice: streams 0-3 match the cpu run at B=4 ({int(fired.sum())} events, "
+        f"max|d score| {worst:.3e})")
+
+    # timed loop: windows of 34 chunks of noise with the frames on the card;
+    # the host clock spreads between windows, so the median window is kept
+    states = det.init_states()
+    states, _ = det.process_chunk(det.params, states, noise)  # warm-up
+    windows = []
+    for _ in range(TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(T):
+            states, ev = det.process_chunk(det.params, states, noise)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    elapsed = float(np.median(windows))
+    chunk_ms = elapsed / T * 1e3
+    streams_rt = B * T * 0.03 / elapsed
+    rt_range = (B * T * 0.03 / max(windows), B * T * 0.03 / min(windows))
+
+    # where a chunk's time goes: device kernel time by torch.profiler (CUPTI),
+    # against the host clock of the timed loop
+    C = det.static.mfcc_size
+
+    def front():
+        st, shifts = prepare_chunk(det.static, states, noise)
+        cat = torch.cat([st.ext_buf, shifts.reshape(B, 480)], dim=1)
+        return frontend.mfcc_from_frames(cat.unfold(1, 480, 160)[:, :3], C + 1)
+
+    rows = device_kernels(lambda: det.process_chunk(det.params, states, noise), PROFILED_CHUNKS)
+    front_rows = device_kernels(front, PROFILED_CHUNKS)
+    kernel_ms = sum(r[0] for r in rows)
+    front_ms = sum(r[0] for r in front_rows)
+    k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
+    log(f"slice: {streams_rt:.1f} realtime streams, median of {TIMED_WINDOWS} windows "
+        f"(range {rt_range[0]:.1f}-{rt_range[1]:.1f}; B={B}, {T} chunks per window, "
+        f"median wall {elapsed:.4f} s, {chunk_ms:.4f} ms/chunk host clock)")
+    if not rows:
+        log("slice: the profiler recorded no device time: the breakdown is not measured")
+    else:
+        log(f"slice: device kernels per chunk {kernel_ms:.4f} ms in "
+            f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: front-end "
+            f"{front_ms:.4f} ms, K1 {k1_ms:.4f} ms, rest {kernel_ms - front_ms - k1_ms:.4f} ms; "
+            f"device idle {100 * (1 - kernel_ms / chunk_ms):.1f} % of the host clock")
+    for ms, count, name in rows[:PROFILE_ROWS]:
+        log(f"profile: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {name[:110]}")
+    return {"streams_rt": streams_rt, "streams_rt_min": rt_range[0],
+            "streams_rt_max": rt_range[1], "chunk_ms": chunk_ms, "kernel_ms": kernel_ms,
+            "front_ms": front_ms, "k1_chunk_ms": k1_ms}
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from rustpotter_tpu_torch import _build
+
+    card = card_line()
+    log(card)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    variants = [{"RP_C": 8, "RP_W": 5}, {"RP_C": 16, "RP_W": 5}]
+    with ThreadPoolExecutor(len(variants)) as ex:
+        list(ex.map(lambda d: _build.build("fused_dtw_v4.cu", d), variants))
+    log(f"build: {len(variants)} K1 variants in {time.perf_counter() - t0:.2f} s")
+    for d in variants:
+        for line in _build.build_log("fused_dtw_v4.cu", d).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build {d}: {line.strip()}")
+
+    record = {}
+    kernel_phase(dev, record)
+    summary = slice_phase(dev, record)
+    log(json.dumps({"card": card, **summary}))
+    log(json.dumps({"kernels": list(record.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,456 @@
+"""The batched serving chunk: B streams × 480 samples in → states' + Events.
+
+The counterpart of `rustpotter_tpu.runtime.stream_step.make_batched_chunk`:
+the reference's streaming hot loop (reference src/detector.rs:347-454 —
+process_audio → process_new_mfccs → run_detection) with every data-dependent
+branch a masked update over the stream axis, for one 30 ms chunk (3 MFCC
+shifts) at a time:
+  - the extractor buffer trajectory is data-independent within a chunk (the
+    reference consumes all 480 samples before the find_map short circuit,
+    detector.rs:372-375), so the 3 frames' MFCCs are one batched GEMM chain;
+  - the 3 per-shift windows differ from the pre-chunk window only in the
+    newest rows, so scoring runs against VIRTUAL windows (window + the new
+    rows): the CMN means read the window once per chunk and K1
+    (ops/fused_dtw.py) scores all 3 shifts in one call;
+  - only (B,)-vector bookkeeping (extractor fill count, VAD, win_count,
+    countdown/partial/emit, the in-chunk halt) runs per shift;
+  - the 3 rows are written into the circular window after every read.
+
+Virtual-window validity: scores are consumed only where `run` holds, which
+requires win_count >= F; a stream whose row write is masked off this chunk
+(extractor warm-up or an in-chunk halt) has win_count reset alongside, so its
+virtual-window scores are discarded.
+
+Not ported yet: the per-stream `make_step` (ROADMAP M10), NN heads (M9),
+filters (M7) and in-graph resampling (M8).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import ScoreMode
+from ..constants import SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT
+from ..ops import frontend
+from ..ops.fused_dtw import TemplateSet, prepare_templates, score_chunk
+from ..ops.scoring import cost_to_score
+from .bundle import StepParams, StepStatic
+from .state import Event, StreamState, VAD_VOICE_FRAMES
+
+INF = float("inf")
+
+# optimal compare-exchange networks (Bose-Nelson/Batcher) for tiny K: the
+# same exchanges as the JAX package, so percentile modes see the same order
+_SORT_NETWORKS = {
+    1: [],
+    2: [(0, 1)],
+    3: [(0, 1), (0, 2), (1, 2)],
+    4: [(0, 1), (2, 3), (0, 2), (1, 3), (1, 2)],
+    5: [(0, 1), (3, 4), (2, 4), (2, 3), (1, 4), (0, 3), (0, 2), (1, 3), (1, 2)],
+    6: [(1, 2), (4, 5), (0, 2), (3, 5), (0, 1), (3, 4), (2, 5), (0, 3), (1, 4),
+        (2, 4), (1, 3), (2, 3)],
+    7: [(1, 2), (3, 4), (5, 6), (0, 2), (3, 5), (4, 6), (0, 1), (4, 5), (2, 6),
+        (0, 4), (1, 5), (0, 3), (2, 5), (1, 3), (2, 4), (2, 3)],
+    8: [(0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7), (1, 2),
+        (5, 6), (0, 4), (3, 7), (1, 5), (2, 6), (1, 4), (3, 6), (2, 4), (3, 5),
+        (3, 4)],
+}
+
+_PERCENTILES = {
+    ScoreMode.MEDIAN: 50.0, ScoreMode.P50: 50.0, ScoreMode.P25: 25.0,
+    ScoreMode.P75: 75.0, ScoreMode.P80: 80.0, ScoreMode.P90: 90.0,
+    ScoreMode.P95: 95.0,
+}
+
+
+def sort_last_axis(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort along the last axis; compare-exchange network for K≤8."""
+    pairs = _SORT_NETWORKS.get(x.shape[-1])
+    if pairs is None:
+        return torch.sort(x, dim=-1).values
+    cols = list(x.unbind(-1))
+    for a, b in pairs:
+        cols[a], cols[b] = torch.minimum(cols[a], cols[b]), torch.maximum(cols[a], cols[b])
+    return torch.stack(cols, dim=-1)
+
+
+# ------------------------------------------------------------------ scoring
+
+def _avg_gate_bounds(static: StepStatic, params: StepParams,
+                     a_lens: torch.Tensor) -> torch.Tensor:
+    """Sim-domain avg-gate bounds for K1, (D,).
+
+    score(sim) >= th ⟺ sim <= 2·La·ref·(1 + ln(1/th − 1)) (the logistic
+    cost_to_score is monotone ↓ in sim). A small relative margin keeps the
+    kernel's skip conservative vs the f32 score-domain comparison in
+    _dtw_post, which stays authoritative per stream. +inf disables the gate
+    (no avg template, or avg_threshold == 0). The margin constants are the
+    JAX package's, kept verbatim."""
+    gon = params.dtw_has_avg & (params.dtw_avg_threshold != 0.0)
+    tcl = torch.clamp(params.dtw_avg_threshold, 1e-6, 1.0 - 1e-6)
+    bnd = (
+        2.0 * a_lens.to(torch.float32) * static.score_ref
+        * (1.0 + torch.log(1.0 / tcl - 1.0))
+    )
+    return torch.where(gon, bnd + torch.abs(bnd) * 1e-4 + 1e-4, INF)
+
+
+def _reduce_mode(scores: torch.Tensor, kvalid: torch.Tensor, mode: ScoreMode) -> torch.Tensor:
+    """Score-mode reduction over the (possibly padded) template axis.
+    scores: (..., D, K); kvalid: (D,) actual template counts."""
+    K = scores.shape[-1]
+    ks = torch.arange(K, device=scores.device)
+    valid = ks[None, :] < kvalid[:, None]  # (D, K)
+    if mode == ScoreMode.AVERAGE:
+        return torch.sum(torch.where(valid, scores, 0.0), dim=-1) / kvalid.to(torch.float32)
+    if mode == ScoreMode.MAX:
+        return torch.amax(torch.where(valid, scores, -INF), dim=-1)
+    pct = _PERCENTILES[mode]
+    s = sort_last_axis(torch.where(valid, scores, INF))
+    index = torch.tensor(pct, dtype=torch.float32) / 100.0 * (kvalid.to(torch.float32) - 1.0)
+    ifloor = torch.floor(index)
+    i = ifloor.to(torch.int64)
+    d = index - ifloor
+    lo = torch.sum(torch.where(ks == i[:, None], s, 0.0), dim=-1)
+    hi_i = torch.minimum(i + 1, kvalid.to(torch.int64) - 1)
+    hi = torch.sum(torch.where(ks == hi_i[:, None], s, 0.0), dim=-1)
+    return torch.where(ifloor == index, lo, lo * (1.0 - d) + hi * d)
+
+
+def _dtw_post(static: StepStatic, params: StepParams, sims_all: torch.Tensor):
+    """Per-stream scoring from the (B, P) pair similarities. Parity:
+    wakeword_comp.rs:77-152 — avg-template gate as a mask, score-mode
+    reduction, strict `score > threshold`. Returns (detected (B, D),
+    score (B, D), avg_score (B, D), scores_mat (B, D, smax))."""
+    D, K = static.n_dtw, static.kmax
+    B = sims_all.shape[0]
+    t_lens = params.dtw_lens
+    a_lens = params.dtw_avg_len
+    sims = sims_all[:, : D * K].reshape(B, D, K)
+    a_sims = sims_all[:, D * K:]
+    tscores = cost_to_score(sims / (2.0 * t_lens.to(torch.float32)), static.score_ref)
+    score = _reduce_mode(tscores, params.dtw_kvalid, static.score_mode)
+
+    # averaged-template gate (wakeword_comp.rs:85-94): branch → mask
+    avg_score_raw = cost_to_score(a_sims / (2.0 * a_lens.to(torch.float32)), static.score_ref)
+    gate_on = params.dtw_has_avg & (params.dtw_avg_threshold != 0.0)
+    avg_score = torch.where(gate_on, avg_score_raw, 0.0)
+    gate_pass = torch.where(gate_on, avg_score_raw >= params.dtw_avg_threshold, True)
+
+    detected = gate_pass & (score > params.dtw_threshold)
+    scores_mat = torch.nn.functional.pad(tscores, (0, static.smax - K))
+    return detected, score, avg_score, scores_mat
+
+
+def _chunk_slot_masks(F: int, t_all: torch.Tensor, rot0: torch.Tensor):
+    """Coverage masks for per-shift masked means over the VIRTUAL windows.
+
+    Returns (maskA (3, P, F) f32, maskB (3, P, 3) f32): for shift s
+    (0-based; ns = s+1 new rows), maskA selects the pre-chunk window rows
+    whose logical index at rot_s is < t and which are NOT superseded by a
+    new row; maskB selects new row j (landing at logical F - ns + j) when
+    covered. mean_s = (maskA·win + maskB·new) / t."""
+    dev = t_all.device
+    idx = torch.arange(F, device=dev)
+    ns = torch.arange(1, 4, device=dev)  # (3,)
+    rot = rot0.long()
+    rot_s = (rot + ns) % F
+    lidx = (idx[None, :] - rot_s[:, None] - 1) % F  # (3, F)
+    covered = lidx[:, None, :] < t_all[None, :, None]  # (3, P, F)
+    jn = torch.arange(3, device=dev)
+    slots = (rot + 1 + jn) % F  # (3,)
+    # slot jn (written at shift jn+1, 1-based ns) is superseded at ns >= jn+1
+    superseded = torch.any(
+        (idx[None, None, :] == slots[None, :, None])
+        & (ns[:, None, None] >= (jn + 1)[None, :, None]),
+        dim=1,
+    )  # (3, F)
+    maskA = (covered & ~superseded[:, None, :]).to(torch.float32)
+    lnew = F - ns[:, None] + jn[None, :]  # (3, 3) logical index of new row j
+    maskB = (
+        (jn[None, None, :] < ns[:, None, None])
+        & (lnew[:, None, :] < t_all[None, :, None])
+    ).to(torch.float32)
+    return maskA, maskB
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
+
+
+class ChunkConstants(NamedTuple):
+    """What the chunk's scoring needs from a parameter set and nothing else:
+    built once per StepParams by `chunk_constants`, not per chunk."""
+
+    tset: TemplateSet  # K1's T' (P, Lm, C), padded copy and pair lengths
+    t_all: torch.Tensor  # (P,) pair lengths: CMN coverage of each pair
+    inv_t: torch.Tensor  # (1, P, 1) f32: 1/t, folded into the mean masks
+    gate_bounds: torch.Tensor  # (D,) sim-domain avg-gate bounds
+
+
+def chunk_constants(static: StepStatic, params: StepParams) -> ChunkConstants:
+    D, K, L = static.n_dtw, static.kmax, static.lmax
+    Lm = max(L, static.la_max)
+    C = static.mfcc_size
+    seq_a = torch.cat([
+        _pad_rows(params.dtw_templates.reshape(D * K, L, C), Lm),
+        _pad_rows(params.dtw_avg, Lm),
+    ])  # (P, Lm, C)
+    tnorms = torch.sum(seq_a * seq_a, dim=-1)
+    t_all = torch.cat([params.dtw_lens.reshape(-1), params.dtw_avg_len])
+    return ChunkConstants(
+        tset=prepare_templates(seq_a, tnorms, static.dtw_pair_lens, static.band_size),
+        t_all=t_all,
+        inv_t=(1.0 / t_all.to(torch.float32))[None, :, None],
+        gate_bounds=_avg_gate_bounds(static, params, params.dtw_avg_len).contiguous(),
+    )
+
+
+def _dtw_scores_chunk(static: StepStatic, params: StepParams, consts: ChunkConstants,
+                      win: torch.Tensor, new: torch.Tensor, rot0: torch.Tensor):
+    """DTW det_outs for all 3 shifts of a chunk. win (F, C, B) = PRE-chunk
+    stream-minor circular window; new (3, C, B) = the chunk's new frames.
+    Per-shift CMN means come from one masked GEMM over the window (+ a tiny
+    one over the new rows), then K1 scores every (stream, shift, pair).
+    Returns a list of 3 _dtw_post tuples batched on streams."""
+    maskA, maskB = _chunk_slot_masks(win.shape[0], consts.t_all, rot0)
+    means3 = (
+        torch.einsum("spf,fcb->spcb", maskA * consts.inv_t, win)
+        + torch.einsum("spj,jcb->spcb", maskB * consts.inv_t, new)
+    ).contiguous()  # (3, P, C, B)
+    sims3 = score_chunk(
+        win, new, means3, consts.tset, consts.gate_bounds,
+        static.n_dtw, static.kmax, rot0,
+    )  # (B, 3, P)
+    return [_dtw_post(static, params, sims3[:, s]) for s in range(3)]
+
+
+def _combine_batched(det_list, score_list, avg_list, scores_list):
+    """Best-candidate selection over the wakeword axis, batched on streams
+    (detector.rs:433-447): argmax of the detected scores, first on ties."""
+    detected = torch.cat(det_list, dim=1)  # (B, W)
+    score = torch.cat(score_list, dim=1)
+    avg = torch.cat(avg_list, dim=1)
+    scores = torch.cat(scores_list, dim=1)  # (B, W, smax)
+    masked = torch.where(detected, score, -INF)
+    best = torch.argmax(masked, dim=1)  # (B,)
+    any_det = torch.any(detected, dim=1)
+    onehot = torch.arange(score.shape[1], device=score.device)[None, :] == best[:, None]
+    score_best = torch.amax(masked, dim=1)
+    avg_best = torch.sum(torch.where(onehot, avg, 0.0), dim=1)
+    scores_best = torch.sum(torch.where(onehot[:, :, None], scores, 0.0), dim=1)
+    return any_det, best.to(torch.int32), score_best, avg_best, scores_best
+
+
+def run_wakeword_detectors_chunk(static: StepStatic, params: StepParams,
+                                 consts: ChunkConstants, win: torch.Tensor,
+                                 new: torch.Tensor, rot0: torch.Tensor):
+    """All wakewords × all 3 shifts → 3 per-shift det_out tuples
+    (parity: detector.rs:433-447 per shift)."""
+    return [
+        _combine_batched([d], [sc], [a], [m])
+        for d, sc, a, m in _dtw_scores_chunk(static, params, consts, win, new, rot0)
+    ]
+
+
+# ----------------------------------------------------------- shift stages
+
+def vad_is_voice(static: StepStatic, state: StreamState, mfcc: torch.Tensor,
+                 update: torch.Tensor):
+    """Energy VAD (vad.rs:11-36) for (B, C) MFCCs. `update` (B,) masks all
+    state writes (the reference short-circuits is_voice when a partial is
+    active). The reference's 50-slot ring is a shift register here: only the
+    multiset of the last 50 values matters (min + over-threshold count)."""
+    value = torch.mean(torch.abs(mfcc), dim=-1)  # (B,)
+    vwin = torch.where(
+        update[:, None],
+        torch.cat([state.vad_win[:, 1:], value[:, None]], dim=1),
+        state.vad_win,
+    )
+    nan = torch.isnan(vwin)
+    # min over non-NaN entries, floored at 0.01 (vad.rs:19-26)
+    mn = torch.clamp(torch.amin(torch.where(nan, INF, vwin), dim=-1), min=0.01)
+    th = mn * static.vad_factor
+    n_high = torch.sum(~nan & (vwin > th[:, None]), dim=-1)
+    vcount = torch.where(update & (n_high > 10), VAD_VOICE_FRAMES, state.vad_countdown)
+    voice = vcount > 0
+    vcount = torch.where(update & voice, vcount - 1, vcount).to(torch.int32)
+    return state._replace(vad_win=vwin, vad_countdown=vcount), voice
+
+
+def shift_count_vad(static: StepStatic, state: StreamState, mfcc: torch.Tensor,
+                    active: torch.Tensor):
+    """Extractor fill-count advance + emit flag + VAD gate for one shift.
+    Returns (state, emit_frame (B,), should_run (B,))."""
+    full = state.ext_count >= SAMPLES_PER_FRAME
+    new_count = torch.clamp(state.ext_count + SAMPLES_PER_SHIFT, max=SAMPLES_PER_FRAME)
+    state = state._replace(ext_count=torch.where(active, new_count, state.ext_count))
+    emit_frame = active & full
+    # --- process_new_mfccs VAD gate (detector.rs:377-383)
+    if static.vad_enabled:
+        state, voice = vad_is_voice(
+            static, state, mfcc, emit_frame & ~state.partial_active
+        )
+        should_run = state.partial_active | voice
+    else:
+        should_run = torch.ones_like(emit_frame)
+    return state, emit_frame, should_run
+
+
+def detection_bookkeeping(static: StepStatic, params: StepParams,
+                          state: StreamState, run: torch.Tensor, det_out):
+    """detector.rs:398-432, fully masked by `run` (B,). det_out = the
+    wakeword detectors' (any_det, best, score, avg, scores_vec) for this
+    window — computed unconditionally (masked semantics)."""
+    F = static.max_mfcc_frames
+    i32 = torch.int32
+    # countdown decrement (:399-401)
+    countdown = torch.where(run & (state.countdown != 0), state.countdown - 1, state.countdown)
+    done = run & state.partial_active & (
+        (countdown == 0)
+        | (static.eager & (state.partial_counter >= static.min_scores))
+    )
+    emit = done & (state.partial_counter >= static.min_scores)
+    # partial is taken whenever done (:405), dropped silently if under min
+    partial_active = state.partial_active & ~done
+    event = Event(
+        fired=emit,
+        ww=state.partial_ww,
+        score=state.partial_score,
+        avg_score=state.partial_avg,
+        counter=state.partial_counter,
+        gain=state.partial_gain,
+        scores=state.partial_scores,
+    )
+    # on emit: full reset (detector.rs:406-408,290-302) and return —
+    # detectors do NOT run this frame
+    run_detectors = run & ~emit
+    any_det, best, score, avg, scores_vec = det_out
+    cand = run_detectors & any_det
+    counter = torch.where(partial_active, state.partial_counter + 1, 1)
+    replace = cand & (~partial_active | (state.partial_score < score))
+    new_partial_active = partial_active | cand
+    state = state._replace(
+        partial_active=new_partial_active & ~emit,
+        partial_ww=torch.where(replace, best, state.partial_ww),
+        partial_score=torch.where(replace, score, state.partial_score),
+        partial_avg=torch.where(replace, avg, state.partial_avg),
+        partial_scores=torch.where(replace[:, None], scores_vec, state.partial_scores),
+        partial_gain=torch.where(replace, state.gain, state.partial_gain),
+        # counter bumps on every candidate, replacing or not (:425-428)
+        partial_counter=torch.where(cand, counter, state.partial_counter).to(i32),
+        countdown=torch.where(cand, F // 2, countdown).to(i32),
+    )
+    # reset-on-emit: clear window, extractor, vad — not filters (:290-302)
+    state = state._replace(
+        win_count=torch.where(emit, 0, state.win_count).to(i32),
+        ext_count=torch.where(emit, 0, state.ext_count).to(i32),
+        vad_win=torch.where(emit[:, None], float("nan"), state.vad_win),
+        vad_countdown=torch.where(emit, 0, state.vad_countdown).to(i32),
+        partial_active=state.partial_active & ~emit,
+    )
+    return state, event
+
+
+def prepare_chunk(static: StepStatic, state: StreamState, samples: torch.Tensor):
+    """Per-chunk front-end without filters or resampling: rms, then the 3
+    shifts with per-shift pre-emphasis reset (extractor.rs:87-97).
+    samples (B, 480) → (state, shifts (B, 3, 160))."""
+    state = state._replace(rms_level=frontend.rms_level(samples))
+    shifts = frontend.pre_emphasis(samples.reshape(-1, 3, SAMPLES_PER_SHIFT))
+    return state, shifts
+
+
+def _no_event(static: StepStatic, B: int, device: torch.device) -> Event:
+    def z(dtype, fill=0):
+        return torch.full((B,), fill, dtype=dtype, device=device)
+
+    return Event(
+        fired=z(torch.bool, False),
+        ww=z(torch.int32),
+        score=z(torch.float32),
+        avg_score=z(torch.float32),
+        counter=z(torch.int32),
+        gain=z(torch.float32, float("nan")),
+        scores=torch.zeros((B, static.smax), device=device),
+    )
+
+
+def _commit(states: StreamState, new: StreamState) -> StreamState:
+    """Write every field that changed into the caller's tensors in place."""
+    for old_t, new_t in zip(states, new):
+        if new_t is not old_t:
+            old_t.copy_(new_t)
+    return states
+
+
+def make_batched_chunk(static: StepStatic):
+    """Build chunk(params, states, frames (B, 480)) -> (states, Event (B,)).
+
+    `states` is updated in place and returned. The window is stream-minor
+    (F, C, B), K1's native layout. `params` is immutable (a frozen
+    dataclass): its ChunkConstants are built when a parameter set is first
+    seen and reused while the same object is passed."""
+    F = static.max_mfcc_frames
+    if F < 3:
+        raise ValueError(f"batched runtime requires max_mfcc_frames >= 3 (got {F})")
+    if static.gain_enabled or static.bp_enabled:
+        raise NotImplementedError(
+            "gain normalizer and band-pass filters in the batched chunk: ROADMAP M7"
+        )
+    if static.input_samples != SAMPLES_PER_FRAME:
+        raise NotImplementedError("in-graph resampling: ROADMAP M8")
+    C = static.mfcc_size
+    last = []  # [(params, its ChunkConstants)] of the last parameter set seen
+
+    def constants(params: StepParams) -> ChunkConstants:
+        if not last or last[0][0] is not params:
+            last[:] = [(params, chunk_constants(static, params))]
+        return last[0][1]
+
+    def chunk(params: StepParams, states: StreamState, frames: torch.Tensor):
+        B = frames.shape[0]
+        dev = frames.device
+        st, shifts = prepare_chunk(static, states, frames)  # (B, 3, 160)
+        rot0 = states.rot
+        slots = (rot0.long() + 1 + torch.arange(3, device=dev)) % F
+        # extractor trajectory + all 3 MFCCs in one GEMM chain: the buffer
+        # advances unconditionally (warm-up masking lives in ext_count)
+        cat = torch.cat([st.ext_buf, shifts.reshape(B, 3 * SAMPLES_PER_SHIFT)], dim=1)
+        frames3 = cat.unfold(1, SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT)[:, :3]  # (B, 3, 480)
+        mfcc3 = frontend.mfcc_from_frames(frames3, C + 1)  # (B, 3, C)
+        st = st._replace(ext_buf=cat[:, SAMPLES_PER_FRAME:])
+        new = mfcc3.permute(1, 2, 0).contiguous()  # (3, C, B)
+
+        # whole-chunk scoring against the virtual windows
+        det_outs = run_wakeword_detectors_chunk(
+            static, params, constants(params), st.win, new, rot0
+        )
+
+        # (B,)-vector shift loop: fill counts, VAD, bookkeeping, halt
+        event = _no_event(static, B, dev)
+        halted = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for s in range(3):
+            active = ~halted
+            st, emit_b, should_run_b = shift_count_vad(static, st, mfcc3[:, s], active)
+            win_count = torch.where(
+                emit_b, torch.clamp(st.win_count + 1, max=F), st.win_count
+            ).to(torch.int32)
+            st = st._replace(win_count=win_count)
+            run = emit_b & (win_count >= F) & should_run_b
+            st, ev = detection_bookkeeping(static, params, st, run, det_outs[s])
+            fired = ev.fired & active
+            ev = ev._replace(fired=fired)
+            event = Event(*[
+                torch.where(event.fired.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(event, ev)
+            ])
+            halted = halted | fired
+
+        # the 3 circular-window writes, after every read of the old window
+        st.win.index_copy_(0, slots, new)
+        st = st._replace(rot=slots[2].to(torch.int32))
+        return _commit(states, st), event
+
+    return chunk
