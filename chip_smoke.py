@@ -5,19 +5,28 @@
 
 Phases, each of which raises (non-zero exit) when it fails:
   1. print the card's name and power limit, build every kernel of the main
-     path from csrc/ with nvcc (in parallel), print the build seconds and
-     the compiler's register/spill report;
-  2. kernel phase: each kernel against its plain PyTorch version on the card,
-     at the unit-test shapes and at the bench shapes, with its time (CUDA
-     events over back-to-back calls, median of 20), the plain version's time
-     and its bound;
-  3. slice phase: BatchedDetector at B=8192 with the bench wakeword runs the
-     bench correctness pass (stream 0 must fire, every chunk must launch K1),
-     streams 0-3 must give the events of a device="cpu" run at B=4 on the same
-     audio, then 5 windows of 34 chunks of noise are timed on the host clock
-     (streams_rt of the median window, and the range), and torch.profiler
-     splits the device kernel time of 5 more chunks into front-end, K1 and
-     the rest, listing the kernels.
+     paths from csrc/ with nvcc (one nvcc per source and variant, all at
+     once), print the build seconds and the compiler's register/spill report;
+  2. kernel phase: each kernel (K1 fused_dtw_v4, K2 fused_dtw_v3, K3
+     banded_dtw, K4 fused_dtw_v2) against its plain PyTorch version on the
+     card, at the unit-test shapes and at the bench shapes, with its time
+     (CUDA events over back-to-back launches, median of 20), the plain
+     version's time and its bound;
+  3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
+     wakeword runs the bench correctness pass (stream 0 must fire, every
+     chunk must launch K1), streams 0-3 must give the events of a
+     device="cpu" run at B=4 on the same audio, then 5 windows of 34 chunks
+     of noise are timed on the host clock (streams_rt of the median window,
+     and the range), and torch.profiler splits the device kernel time of 5
+     more chunks into front-end, K1 and the rest, listing the kernels;
+  4. per-shift slice phase (K2, K3, K4): the single-stream Rustpotter on the
+     card plays the correctness stream (it must fire, launch K2 3 times per
+     frame and give the detections of a device="cpu" run), then make_step
+     at B=8192 runs the correctness pass in each kernel mode (K2 by default,
+     K4 with dtw_fused_variant=2, K3 with dtw_fused=False: stream 0 must
+     fire, every shift must launch the mode's kernel, streams 0-3 must give
+     the events of a device="cpu" run at B=4), and the K2 mode is timed as in
+     phase 3 and split by torch.profiler.
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -38,13 +47,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # CUDA cores and HBM3 bandwidth. The card's power limit is printed beside.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-RTOL, ATOL = 3e-6, 2e-4  # K1 vs its plain version: the JAX kernel tests' own
+# kernels vs their plain versions: the JAX kernel tests' own tolerances (K3,
+# adds and mins only, must be bit-exact)
+RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 EV_RTOL, EV_ATOL = 2e-5, 2e-5  # event scores, card vs CPU
 BENCH_STREAMS = 8192  # bench.py's B
 TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
 TIMED_WINDOWS = 5
 PROFILED_CHUNKS = 5
 PROFILE_ROWS = 20
+# kernel sources built per MFCC size (C = 8 for the unit shapes, 16 for the
+# bench wakeword); banded_dtw.cu depends on the band only
+SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu")
 
 
 def log(*a):
@@ -152,18 +166,18 @@ def mid_bound(avg):
     return ((v[i] + v[i + 1]) / 2).reshape(1)
 
 
-def compare(got, want):
+def compare(got, want, name="K1", atol=ATOL):
     """Max |Δ| over finite entries; raises unless the +inf pattern is equal
-    and the finite entries agree within (RTOL, ATOL)."""
+    and the finite entries agree within (RTOL, atol)."""
     import torch
 
     g, w = got.double().cpu(), want.double().cpu()
     if not torch.equal(torch.isinf(g), torch.isinf(w)):
-        raise AssertionError("K1 and its plain version disagree on which sims are +inf")
+        raise AssertionError(f"{name} and its plain version disagree on which sims are +inf")
     fin = torch.isfinite(w)
     if not torch.equal(fin, torch.isfinite(g)):
-        raise AssertionError("K1 and its plain version disagree on finiteness")
-    torch.testing.assert_close(g[fin], w[fin], rtol=RTOL, atol=ATOL)
+        raise AssertionError(f"{name} and its plain version disagree on finiteness")
+    torch.testing.assert_close(g[fin], w[fin], rtol=RTOL, atol=atol)
     return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
 
 
@@ -246,21 +260,242 @@ def kernel_phase(dev, record):
     }
 
 
-# ---------------------------------------------------------------- slice
+# ------------------------------------------------------------ K2, K3, K4
 
-def run_correctness(det, stream0, noise):
-    """Bench correctness pass: stream 0 plays `stream0`, the rest noise.
-    Returns events of streams 0-3 per chunk (numpy, (T, 4, ...))."""
+def dp_work(n, w, C, dotm):
+    """FLOPs one (stream, pair) of length n needs in the per-shift kernels:
+    rwn over n columns (sub + FMA per coefficient, one rsqrt), and per DP row
+    r < n the dot of every valid band cell (2C), its mean correction (sub,
+    mul, 1 -) and the DP (add + min per slot, then the add + min chain);
+    `dotm` adds the T'[r-1].m chain (2C) per row, which K4 computes and K2
+    reads from its input."""
+    f = n * (3 * C + 1) if n >= 2 else 0
+    for r in range(1, n):
+        cells = sum(1 for j in range(2 * w) if 1 <= r - w + j <= min(n, r + w - 1))
+        f += 2 * C * cells + 3 * cells + 2 * (2 * w) + 2 * (2 * w - 1) + (2 * C if dotm else 0)
+    return f
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it) at the data-sheet peaks."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, flops, nbytes):
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"{name} bench: {ms:.4f} ms, plain {plain_ms:.3f} ms; needs {flops / 1e9:.4f} GFLOP "
+        f"and {nbytes / 1e6:.2f} MB: bound {bound_ms:.4f} ms by {bound_by}")
+    return {"name": name, "route": "cuda", "source": f"rustpotter_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def v3_inputs(rng, B, F, Lm, C, P, scale, device):
     import torch
 
-    states = det.init_states()
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)
+    tpl = rng.normal(0, 1, (P, Lm, C)).astype(np.float32)
+    return dict(win=t(rng.normal(0, scale, (F, C, B))),
+                means=t(rng.normal(0, 0.2 * scale, (P, C, B))),
+                templates=t(tpl), tnorms=t(np.sum(tpl ** 2, axis=-1)))
+
+
+def k2_phase(dev, record):
+    """K2 (fused_dtw_batch_v3_t) against fused_dtw_batch_v3_ref."""
+    import torch
+
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    D, K, Lm, C, w = 2, 2, 40, 8, 5
+    lens = (40, 31, 28, 37, 35, 40)
+    for F, B in ((Lm, 30), (Lm + 2, 33), (Lm + 9, 1)):
+        x = v3_inputs(rng, B, F, Lm, C, D * K + D, 1.0, dev)
+        rot = torch.tensor(F - 2, dtype=torch.int32, device=dev)  # wraps around
+        args = lambda gate: (x["win"], x["means"], x["templates"], x["tnorms"], gate,
+                             lens, w, D, K, rot)
+        open_ = torch.full((D,), float("inf"), device=dev)
+        want = fd.fused_dtw_batch_v3_ref(*args(open_))
+        worst = max(worst, compare(fd.fused_dtw_batch_v3_t(*args(open_)), want, "K2"))
+        avg0 = want[:, D * K]
+        closed = torch.stack([avg0.min() - 1.0, open_[1]])
+        got = fd.fused_dtw_batch_v3_t(*args(closed))
+        assert torch.isinf(got[:, :K]).all(), "K2: closed gate left ww0 templates finite"
+        worst = max(worst, compare(got, fd.fused_dtw_batch_v3_ref(*args(closed)), "K2"))
+        mixed = torch.cat([mid_bound(avg0) if B > 1 else avg0 + 1.0, open_[1:]])
+        got = fd.fused_dtw_batch_v3_t(*args(mixed))
+        worst = max(worst, compare(got, fd.fused_dtw_batch_v3_ref(*args(mixed)), "K2"))
+        passing = (avg0 <= mixed[0])[:, None].expand(-1, K)
+        assert torch.equal(torch.isfinite(got[:, :K]), passing), "K2: mixed gate"
+        log(f"K2 unit shapes F={F} B={B}: ok")
+
+    D, K, B, Lm, C, w, F = 1, 5, BENCH_STREAMS, 100, 16, 5, 100
+    P = D * K + D
+    lens = (100, 98, 96, 94, 92, 100)
+    x = v3_inputs(rng, B, F, Lm, C, P, 5.0, dev)
+    rot = torch.tensor(37, dtype=torch.int32, device=dev)
+    args = lambda gate: (x["win"], x["means"], x["templates"], x["tnorms"], gate,
+                         lens, w, D, K, rot)
+    open_ = torch.full((D,), float("inf"), device=dev)
+    want = fd.fused_dtw_batch_v3_ref(*args(open_))
+    err_open = compare(fd.fused_dtw_batch_v3_t(*args(open_)), want, "K2")
+    mixed = mid_bound(want[:, D * K])
+    err_mixed = compare(fd.fused_dtw_batch_v3_t(*args(mixed)),
+                        fd.fused_dtw_batch_v3_ref(*args(mixed)), "K2")
+    worst = max(worst, err_open, err_mixed)
+    log(f"K2 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e}")
+    # the launch alone: T' and dotm prepared, as the per-shift step has them
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], lens, w)
+    dotm = torch.einsum("plc,pcb->plb", tset.tp, x["means"]).contiguous()
+    ms = time_cuda(lambda: fd.launch_v3(x["win"], x["means"], dotm, tset, open_, D, K, rot))
+    ms_mixed = time_cuda(lambda: fd.launch_v3(x["win"], x["means"], dotm, tset, mixed, D, K, rot))
+    plain_ms = time_cuda(lambda: fd.fused_dtw_batch_v3_ref(*args(open_)), samples=5, per=1,
+                         warmup=1)
+    log(f"K2 bench gate mixed: {ms_mixed:.4f} ms")
+    flops = B * sum(dp_work(n, w, C, False) for n in lens)
+    nbytes = 4 * (Lm * C * B + P * C * B + P * Lm * B + P * Lm * C + P + D + P * B)
+    record["fused_dtw_v3"] = kernel_row("fused_dtw_v3", "fused_dtw_v3.cu",
+                                        "rustpotter_tpu/ops/fused_dtw.py:273", worst, ms,
+                                        plain_ms, flops, nbytes)
+
+
+def k4_phase(dev, record):
+    """K4 (fused_dtw_batch, variant 2) against fused_dtw_batch_ref."""
+    import torch
+
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+
+    rng = np.random.default_rng(8)
+    worst = 0.0
+    Lm, C, w = 60, 8, 5
+    lens = (60, 41, 33, 55)
+    for B in (50, 33, 1):
+        x = v3_inputs(rng, B, Lm, Lm, C, len(lens), 1.0, dev)
+        win, means = x["win"].permute(2, 0, 1), x["means"].permute(2, 0, 1)  # (B, Lm, C), (B, P, C)
+        args = (win, means, x["templates"], x["tnorms"], lens, w)
+        worst = max(worst, compare(fd.fused_dtw_batch(*args), fd.fused_dtw_batch_ref(*args),
+                                   "K4", ATOL_V2))
+        log(f"K4 unit shapes B={B}: ok")
+
+    B, Lm, C, w = BENCH_STREAMS, 100, 16, 5
+    lens = (100, 98, 96, 94, 92, 100)
+    P = len(lens)
+    x = v3_inputs(rng, B, Lm, Lm, C, P, 5.0, dev)
+    args = (x["win"].permute(2, 0, 1), x["means"].permute(2, 0, 1), x["templates"],
+            x["tnorms"], lens, w)
+    err = compare(fd.fused_dtw_batch(*args), fd.fused_dtw_batch_ref(*args), "K4", ATOL_V2)
+    worst = max(worst, err)
+    log(f"K4 bench shapes: max|d| {err:.3e}")
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], lens, w)
+    ms = time_cuda(lambda: fd.score_linear(x["win"], x["means"], tset))
+    plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
+    flops = B * sum(dp_work(n, w, C, True) for n in lens)
+    nbytes = 4 * (Lm * C * B + P * C * B + P * Lm * C + P + P * B)
+    record["fused_dtw_v2"] = kernel_row("fused_dtw_v2", "fused_dtw_v2.cu",
+                                        "rustpotter_tpu/ops/fused_dtw.py:167", worst, ms,
+                                        plain_ms, flops, nbytes)
+
+
+def k3_phase(dev, record):
+    """K3 (banded_dtw_kernel) against banded_dtw_batch: bit for bit."""
+    import torch
+
+    from rustpotter_tpu_torch.ops import banded_dtw as bd
+    from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
+
+    rng = np.random.default_rng(9)
+    w = 5
+    # unit shapes (tests/test_dtw_and_scoring.py's), one entry, then the
+    # per-shift step's: N = B*P DPs of the bench pairs
+    bench_lens = np.tile(np.array([100, 98, 96, 94, 92, 100], np.int32), BENCH_STREAMS)
+    for lens in (rng.integers(20, 61, 37), np.array([2]), bench_lens):
+        N, L = len(lens), int(lens.max())
+        costs = torch.tensor(rng.uniform(0, 2, (N, L, 2 * w)).astype(np.float32), device=dev)
+        lens_t = torch.tensor(lens.astype(np.int32), device=dev)
+        got = bd.banded_dtw_kernel(costs, lens_t, w)
+        want = banded_dtw_batch(costs, lens_t, w)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"K3 is not bit-exact at N={N}, L={L}: {bad} entries differ")
+        log(f"K3 shapes N={N} L={L}: bit-exact")
+    ms = time_cuda(lambda: bd.banded_dtw_kernel(costs, lens_t, w))
+    plain_ms = time_cuda(lambda: banded_dtw_batch(costs, lens_t, w), samples=5, per=1, warmup=1)
+    rows = int((bench_lens.astype(np.int64) - 1).clip(min=0).sum())
+    flops = rows * (2 * (2 * w) + 2 * (2 * w - 1))
+    nbytes = 4 * (rows * 2 * w + 2 * len(bench_lens))  # costs of the rows needed, lens, out
+    record["banded_dtw"] = kernel_row("banded_dtw", "banded_dtw.cu",
+                                      "rustpotter_tpu/ops/pallas_dtw.py:31", 0.0, ms, plain_ms,
+                                      flops, nbytes)
+
+
+# ---------------------------------------------------------------- slice
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from rustpotter_tpu_torch.ops import banded_dtw as bd
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+
+    for counts in (fd.LAUNCHES, bd.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    from rustpotter_tpu_torch.ops import banded_dtw as bd
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+
+    return {**fd.LAUNCHES, **bd.LAUNCHES}
+
+
+def timed_windows(process, states, noise):
+    """Host-clock seconds of TIMED_WINDOWS windows of TIMED_CHUNKS chunks of
+    noise through process(states, frames), after one warm-up chunk."""
+    import torch
+
+    states, _ = process(states, noise)
+    windows = []
+    for _ in range(TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_CHUNKS):
+            states, _ = process(states, noise)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    return states, windows
+
+
+def run_correctness(process, states, stream0, noise):
+    """Bench correctness pass through process(states, frames) -> (states,
+    Event): stream 0 plays `stream0`, the rest noise. Returns events of
+    streams 0-3 per chunk (numpy, (T, 4, ...))."""
+    import torch
+
     evs = []
     for t in range(stream0.shape[0]):
         frames = noise.clone()
         frames[0] = stream0[t]
-        states, ev = det.process_chunk(det.params, states, frames)
+        states, ev = process(states, frames)
         evs.append([f[:4].clone() for f in ev])
     return [torch.stack(f).cpu().numpy() for f in zip(*evs)]
+
+
+def match_events(gpu, cpu, what):
+    """Raises unless the card's events of streams 0-3 equal the CPU run's:
+    fired, ww and counter exactly, scores within (EV_RTOL, EV_ATOL) where an
+    event fired. Returns (events, max |d| of the scores)."""
+    for j, name in ((0, "fired"), (1, "ww"), (4, "counter")):
+        np.testing.assert_array_equal(gpu[j], cpu[j], err_msg=f"{what}: event {name}, card vs cpu")
+    fired = cpu[0]
+    worst = 0.0
+    for j, name in ((2, "score"), (3, "avg_score"), (6, "scores")):
+        np.testing.assert_allclose(gpu[j][fired], cpu[j][fired], rtol=EV_RTOL, atol=EV_ATOL,
+                                   err_msg=f"{what}: event {name}, card vs cpu")
+        if fired.any():
+            worst = max(worst, float(np.abs(gpu[j][fired] - cpu[j][fired]).max()))
+    return int(fired.sum()), worst
 
 
 def slice_phase(dev, record):
@@ -268,7 +503,6 @@ def slice_phase(dev, record):
 
     from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
     from rustpotter_tpu_torch.ops import frontend
-    from rustpotter_tpu_torch.ops import fused_dtw as fd
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
     from rustpotter_tpu_torch.runtime.stream_step import prepare_chunk
     from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
@@ -286,13 +520,14 @@ def slice_phase(dev, record):
     stream0 = torch.tensor(stream0_np, device=dev)
     n_chunks = stream0_np.shape[0]
 
-    for k in fd.LAUNCHES:
-        fd.LAUNCHES[k] = 0
+    states = det.init_states()
+    reset_counts()
     t0 = time.perf_counter()
-    gpu = run_correctness(det, stream0, noise)
+    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), states,
+                          stream0, noise)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fd.LAUNCHES)
+    launches = read_counts()
     fired0 = int(gpu[0][:, 0].sum())
     log(f"slice: correctness pass {n_chunks} chunks at B={B} in {wall:.3f} s, "
         f"stream 0 fired {fired0}x, K1 launches {launches['fused_dtw_v4']}")
@@ -301,31 +536,17 @@ def slice_phase(dev, record):
     record["fused_dtw_v4"]["launches"] = launches["fused_dtw_v4"]
 
     cpu_det = BatchedDetector([("w", ww)], cfg, batch_size=4, device="cpu")
-    cpu = run_correctness(cpu_det, torch.tensor(stream0_np), torch.tensor(noise_np[:4]))
-    for j, name in ((0, "fired"), (1, "ww"), (4, "counter")):
-        np.testing.assert_array_equal(gpu[j], cpu[j], err_msg=f"event {name}, card vs cpu")
-    fired = cpu[0]
-    worst = 0.0
-    for j, name in ((2, "score"), (3, "avg_score"), (6, "scores")):
-        np.testing.assert_allclose(gpu[j][fired], cpu[j][fired], rtol=EV_RTOL, atol=EV_ATOL,
-                                   err_msg=f"event {name}, card vs cpu")
-        if fired.any():
-            worst = max(worst, float(np.abs(gpu[j][fired] - cpu[j][fired]).max()))
-    log(f"slice: streams 0-3 match the cpu run at B=4 ({int(fired.sum())} events, "
+    cpu = run_correctness(lambda s, f: cpu_det.process_chunk(cpu_det.params, s, f),
+                          cpu_det.init_states(), torch.tensor(stream0_np),
+                          torch.tensor(noise_np[:4]))
+    n_events, worst = match_events(gpu, cpu, "batched")
+    log(f"slice: streams 0-3 match the cpu run at B=4 ({n_events} events, "
         f"max|d score| {worst:.3e})")
 
     # timed loop: windows of 34 chunks of noise with the frames on the card;
     # the host clock spreads between windows, so the median window is kept
-    states = det.init_states()
-    states, _ = det.process_chunk(det.params, states, noise)  # warm-up
-    windows = []
-    for _ in range(TIMED_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(T):
-            states, ev = det.process_chunk(det.params, states, noise)
-        torch.cuda.synchronize()
-        windows.append(time.perf_counter() - t0)
+    states, windows = timed_windows(lambda s, f: det.process_chunk(det.params, s, f),
+                                    det.init_states(), noise)
     elapsed = float(np.median(windows))
     chunk_ms = elapsed / T * 1e3
     streams_rt = B * T * 0.03 / elapsed
@@ -362,6 +583,135 @@ def slice_phase(dev, record):
             "front_ms": front_ms, "k1_chunk_ms": k1_ms}
 
 
+
+# ------------------------------------------------------- per-shift slice
+
+def play_single_stream(rp, frames):
+    """Detections [(frame index, RustpotterDetection)] and host seconds per
+    process_samples call."""
+    dets, secs = [], []
+    for i, frame in enumerate(frames):
+        t0 = time.perf_counter()
+        d = rp.process_samples(frame)
+        secs.append(time.perf_counter() - t0)
+        if d is not None:
+            dets.append((i, d))
+    return dets, secs
+
+
+def per_shift_phase(dev, record):
+    """The single-stream Rustpotter and make_step at B=8192, in each of the
+    three DTW kernel modes, against device="cpu" runs."""
+    import dataclasses
+
+    import torch
+
+    from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch.runtime.bundle import build_bundle
+    from rustpotter_tpu_torch.runtime.state import init_state
+    from rustpotter_tpu_torch.runtime.stream_step import make_step
+    from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
+
+    B = BENCH_STREAMS
+    ww, utterance = build_bench_wakeword(device=dev)
+    cfg = RustpotterConfig()
+    cfg.detector.score_mode = ScoreMode.MAX
+    cfg.detector.avg_threshold = 0.2
+
+    # (a) one stream through the public API, K2 (the default mode)
+    rp = Rustpotter(cfg, device=dev)
+    rp.add_wakeword_ref("w", ww)
+    frames_np = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
+    n = len(frames_np)
+    reset_counts()
+    gpu_dets, secs = play_single_stream(rp, frames_np)
+    launches = read_counts()
+    rp_cpu = Rustpotter(cfg, device="cpu")
+    rp_cpu.add_wakeword_ref("w", ww)
+    cpu_dets, _ = play_single_stream(rp_cpu, frames_np)
+    log(f"per-shift: Rustpotter on the card fired at frames {[i for i, _ in gpu_dets]}, "
+        f"the cpu run at {[i for i, _ in cpu_dets]}; K2 launches {launches['fused_dtw_v3']} "
+        f"for {n} frames")
+    assert gpu_dets, "correctness guard: the single-stream Rustpotter did not fire"
+    assert launches["fused_dtw_v3"] == 3 * n, (launches, n)
+    assert [i for i, _ in gpu_dets] == [i for i, _ in cpu_dets]
+    worst = 0.0
+    for (_, g), (_, c) in zip(gpu_dets, cpu_dets):
+        assert (g.name, g.counter, g.gain) == (c.name, c.counter, c.gain), (g, c)
+        gv = np.array([g.score, g.avg_score, *g.scores.values()])
+        cv = np.array([c.score, c.avg_score, *c.scores.values()])
+        np.testing.assert_allclose(gv, cv, rtol=EV_RTOL, atol=EV_ATOL)
+        worst = max(worst, float(np.abs(gv - cv).max()))
+    rp_ms = float(np.median(secs)) * 1e3
+    log(f"per-shift: Rustpotter detections match the cpu run (max|d score| {worst:.3e}); "
+        f"{rp_ms:.4f} ms per process_audio, median of {n} (range "
+        f"{min(secs) * 1e3:.4f}-{max(secs) * 1e3:.4f}) host clock")
+
+    # (b) make_step at B=8192 in each mode, streams 0-3 against a cpu run
+    rng = np.random.default_rng(0)
+    noise_np = rng.normal(0, 0.05, (B, 480)).astype(np.float32)
+    noise = torch.tensor(noise_np, device=dev)
+    stream0 = torch.tensor(frames_np, device=dev)
+    static, params = build_bundle([("w", ww)], cfg, dev)
+    _, params_cpu = build_bundle([("w", ww)], cfg, "cpu")
+    modes = (("fused_dtw_v3", static),
+             ("fused_dtw_v2", dataclasses.replace(static, dtw_fused_variant=2)),
+             ("banded_dtw", dataclasses.replace(static, dtw_fused=False)))
+    summary = {"rp_ms": rp_ms, "rp_ms_min": min(secs) * 1e3, "rp_ms_max": max(secs) * 1e3}
+    for name, st in modes:
+        step = make_step(st)
+        states = init_state(st, B, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        gpu = run_correctness(lambda s, f: step(params, s, f), states, stream0, noise)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        fired0 = int(gpu[0][:, 0].sum())
+        log(f"per-shift {name}: correctness pass {n} chunks at B={B} in {wall:.3f} s, "
+            f"stream 0 fired {fired0}x, launches {launches}")
+        assert fired0 >= 1, f"correctness guard: stream 0 did not fire in mode {name}"
+        assert launches[name] == 3 * n, (name, launches, n)
+        assert sum(launches.values()) == launches[name], f"{name}: other kernels launched"
+        record[name]["launches"] = launches[name]
+        cpu_step = make_step(st)
+        cpu = run_correctness(lambda s, f: cpu_step(params_cpu, s, f), init_state(st, 4, "cpu"),
+                              torch.tensor(frames_np), torch.tensor(noise_np[:4]))
+        n_events, worst = match_events(gpu, cpu, name)
+        log(f"per-shift {name}: streams 0-3 match the cpu run at B=4 ({n_events} events, "
+            f"max|d score| {worst:.3e})")
+        summary[f"{name}_pass_s"] = wall
+
+    # (c) the K2 mode on the host clock, and its device time by kernel
+    step = make_step(static)
+    states, windows = timed_windows(lambda s, f: step(params, s, f), init_state(static, B, dev),
+                                    noise)
+    elapsed = float(np.median(windows))
+    chunk_ms = elapsed / TIMED_CHUNKS * 1e3
+    streams_rt = B * TIMED_CHUNKS * 0.03 / elapsed
+    rt_range = (B * TIMED_CHUNKS * 0.03 / max(windows), B * TIMED_CHUNKS * 0.03 / min(windows))
+    rows = device_kernels(lambda: step(params, states, noise), PROFILED_CHUNKS)
+    kernel_ms = sum(r[0] for r in rows)
+    k2_ms = sum(r[0] for r in rows if "score_pairs_v3" in r[2])
+    gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower())
+    log(f"per-shift K2 mode: {streams_rt:.1f} realtime streams, median of {TIMED_WINDOWS} "
+        f"windows (range {rt_range[0]:.1f}-{rt_range[1]:.1f}; B={B}, {TIMED_CHUNKS} chunks per "
+        f"window, {chunk_ms:.4f} ms/chunk host clock)")
+    if not rows:
+        log("per-shift: the profiler recorded no device time: the breakdown is not measured")
+    else:
+        log(f"per-shift K2 mode: device kernels per chunk {kernel_ms:.4f} ms in "
+            f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: K2 {k2_ms:.4f} ms, "
+            f"GEMMs {gemm_ms:.4f} ms, rest {kernel_ms - k2_ms - gemm_ms:.4f} ms; device idle "
+            f"{100 * (1 - kernel_ms / chunk_ms):.1f} % of the host clock")
+    for ms, count, kname in rows[:PROFILE_ROWS]:
+        log(f"profile step: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
+    summary.update({"step_streams_rt": streams_rt, "step_streams_rt_min": rt_range[0],
+                    "step_streams_rt_max": rt_range[1], "step_chunk_ms": chunk_ms,
+                    "step_kernel_ms": kernel_ms, "step_k2_ms": k2_ms})
+    return summary
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -377,18 +727,23 @@ def main() -> int:
     log(card)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    variants = [{"RP_C": 8, "RP_W": 5}, {"RP_C": 16, "RP_W": 5}]
-    with ThreadPoolExecutor(len(variants)) as ex:
-        list(ex.map(lambda d: _build.build("fused_dtw_v4.cu", d), variants))
-    log(f"build: {len(variants)} K1 variants in {time.perf_counter() - t0:.2f} s")
-    for d in variants:
-        for line in _build.build_log("fused_dtw_v4.cu", d).splitlines():
+    builds = [(src, {"RP_C": c, "RP_W": 5}) for src in SOURCES_C for c in (8, 16)]
+    builds.append(("banded_dtw.cu", {"RP_W": 5}))
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda b: _build.build(*b), builds))
+    log(f"build: {len(builds)} kernel variants in {time.perf_counter() - t0:.2f} s")
+    for src, d in builds:
+        for line in _build.build_log(src, d).splitlines():
             if "registers" in line or "spill" in line:
-                log(f"build {d}: {line.strip()}")
+                log(f"build {src} {d}: {line.strip()}")
 
     record = {}
     kernel_phase(dev, record)
+    k2_phase(dev, record)
+    k3_phase(dev, record)
+    k4_phase(dev, record)
     summary = slice_phase(dev, record)
+    summary.update(per_shift_phase(dev, record))
     log(json.dumps({"card": card, **summary}))
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ package is written in PyTorch for one NVIDIA H100; its kernels are written by
 hand for Hopper (csrc/) and built at first use. It imports neither `jax` nor
 the JAX package, which stays the reference it is held against.
 
-Ported so far (ROADMAP.md): the batched serving chunk for DTW wakewords
-(`runtime.batch.BatchedDetector`) with its kernel K1 (`ops.fused_dtw`).
+Ported so far (ROADMAP.md), for DTW wakewords: the batched serving chunk
+(`runtime.batch.BatchedDetector`) with its kernel K1 (`ops.fused_dtw`); the
+per-shift stream step (`runtime.stream_step.make_step`) with K2 and K4
+(`ops.fused_dtw`) and K3 (`ops.banded_dtw`); the single-stream `Rustpotter`
+API on it; and the wakeword builder from 16 kHz WAV files.
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """
@@ -35,6 +38,11 @@ from .config import (  # noqa: E402
     VADMode,
 )
 from .runtime.batch import BatchedDetector  # noqa: E402
+from .runtime.detector import Rustpotter, RustpotterDetection  # noqa: E402
+from .wakewords.builder import (  # noqa: E402
+    build_wakeword_ref_from_buffers,
+    build_wakeword_ref_from_files,
+)
 from .wakewords.files import (  # noqa: E402
     ModelType,
     TensorData,
@@ -56,7 +64,9 @@ __all__ = [
     "FiltersConfig",
     "GainNormalizationConfig",
     "ModelType",
+    "Rustpotter",
     "RustpotterConfig",
+    "RustpotterDetection",
     "SampleFormat",
     "ScoreMode",
     "TensorData",
@@ -64,6 +74,8 @@ __all__ = [
     "WakewordModel",
     "WakewordRef",
     "WakewordV2",
+    "build_wakeword_ref_from_buffers",
+    "build_wakeword_ref_from_files",
     "load_wakeword",
     "save_wakeword",
     "__version__",

@@ -1,13 +1,17 @@
-"""K1: the whole-chunk fused band-cost + banded-DTW scorer.
+"""The fused band-cost + banded-DTW scorers: K1, K2 and K4.
 
-`fused_dtw_chunk_v4` scores all 3 MFCC shifts of a 30 ms chunk for every
+`fused_dtw_chunk_v4` (K1) scores all 3 MFCC shifts of a 30 ms chunk for every
 stream against every template pair: the function of the TPU kernel
 `rustpotter_tpu/ops/fused_dtw.py::_kernel_v4` (called through `fused_dtw_chunk_v4`),
-in the port's stream-minor layout. On a CUDA tensor it launches the Hopper
-kernel in csrc/fused_dtw_v4.cu (built at first use) or raises; on a CPU
-tensor it runs the plain version `fused_dtw_chunk_v4_ref`.
+in the port's stream-minor layout. `fused_dtw_batch_v3_t` (K2, `_kernel_v3`)
+scores one shift's circular window, and `fused_dtw_batch` (K4, `_kernel_v2`)
+one linear window with no gate; both sit further down. On a CUDA tensor each
+wrapper launches its Hopper kernel from csrc/ (built at first use) or raises;
+on a CPU tensor it runs its plain version (`*_ref`). The three compute one
+function, `_band_sims`, on differently made windows.
 
-Per stream and shift s (ns = s+1 new rows visible):
+K1, per stream and shift s (ns = s+1 new rows visible); K2 and K4 take steps
+2-6 on their one window, K4 without step 6:
   1. the virtual window is linearized: logical column i is new row
      i-(F-ns) when that index is >= 0, else win[(rot0+ns+1+i) % F];
   2. templates are pre-normalized, T' = T·rsqrt(|T|²), zero rows kept zero;
@@ -42,12 +46,12 @@ import torch
 
 from .. import _build
 
-SOURCE = "fused_dtw_v4.cu"
+SOURCE = "fused_dtw_v4.cu"  # K1; K2 and K4 name theirs beside their wrappers
 INF = float("inf")
 
 # Launch count of every kernel wrapper in this module: one per launch of the
 # kernel, nowhere else (chip_smoke.py resets and reads it).
-LAUNCHES = {"fused_dtw_v4": 0}
+LAUNCHES = {"fused_dtw_v4": 0, "fused_dtw_v3": 0, "fused_dtw_v2": 0}
 
 
 def _check_band(band: int) -> None:
@@ -116,7 +120,7 @@ def _check_tnorms(templates: torch.Tensor, tnorms: torch.Tensor) -> None:
 
 
 class TemplateSet(NamedTuple):
-    """K1's template operand, built once per parameter set by
+    """The fused kernels' template operand, built once per parameter set by
     `prepare_templates` (it depends on no stream)."""
 
     tp: torch.Tensor  # (P, Lm, C) T' = T·rsqrt(|T|²), zero rows kept zero
@@ -167,40 +171,51 @@ def fused_dtw_chunk_v4_ref(
 
 
 def _plain(win, new, means3, tp, gate_bounds, lens, band, D, K, rot0):
-    """K1's function on T' (P, Lm, C): shifts, pairs and streams are tensor
-    dimensions, and the Python loop runs over DP rows only."""
+    """K1's function on T' (P, Lm, C). Returns (B, 3, P)."""
+    lin = virtual_windows(win, new, rot0, tp.shape[1])  # (3, Lm, C, B)
+    return _band_sims(lin, means3, tp, lens, band, (gate_bounds, D, K)).permute(2, 0, 1)
+
+
+def _band_sims(lin, means, tp, lens, band, gate=None):
+    """The function every fused kernel computes, on linear windows: lin
+    (S, Lm, C, B), CMN means (S, P, C, B) and T' (P, Lm, C) → sims (S, P, B).
+    gate = (gate_bounds (D,), D, K) gates each wakeword's template pairs on
+    its avg pair (+inf where avg > bound or NaN); None scores every pair.
+    Windows, pairs and streams are tensor dimensions; the Python loop runs
+    over DP rows only."""
     w, W2 = band, 2 * band
     P, Lm, C = tp.shape
-    B = win.shape[2]
-    dev = win.device
-    lin = virtual_windows(win, new, rot0, Lm)  # (3, Lm, C, B)
-    diff = lin[:, None] - means3[:, :, None]  # (3, P, Lm, C, B)
-    wn2 = torch.sum(diff * diff, dim=3)  # (3, P, Lm, B)
+    S, B = lin.shape[0], lin.shape[3]
+    dev = lin.device
+    diff = lin[:, None] - means[:, :, None]  # (S, P, Lm, C, B)
+    wn2 = torch.sum(diff * diff, dim=3)  # (S, P, Lm, B)
     rwn = torch.where(wn2 == 0.0, 0.0, torch.rsqrt(wn2))
-    dotm = torch.einsum("plc,spcb->splb", tp, means3)  # (3, P, Lm, B)
+    dotm = torch.einsum("plc,spcb->splb", tp, means)  # (S, P, Lm, B)
     n = torch.tensor([int(x) for x in lens], device=dev)  # (P,)
     js = torch.arange(W2, device=dev)
-    prev = torch.full((3, P, W2, B), INF, device=dev)
-    prev[:, :, w] = 0.0
-    result = torch.full((3, P, B), INF, device=dev)
-    inf_col = torch.full((3, P, 1, B), INF, device=dev)
+    # the DP frontier as 2w band slots of (S, P, B) each
+    inf = torch.full((S, P, B), INF, device=dev)
+    prev = [torch.zeros_like(inf) if j == w else inf for j in range(W2)]
+    result = inf
     for r in range(1, max(int(x) for x in lens)):
         cdp = r - w + js  # (2w,) DP column of each band slot
         valid = (cdp[None, :] >= 1) & (cdp[None, :] <= n.clamp(max=r + w - 1)[:, None])
         wc = (cdp - 1).clamp(0, Lm - 1)
-        dot = torch.einsum("pc,sjcb->spjb", tp[:, r - 1], lin[:, wc])  # (3, P, 2w, B)
+        dot = torch.einsum("pc,sjcb->spjb", tp[:, r - 1], lin[:, wc])  # (S, P, 2w, B)
         cost = 1.0 - (dot - dotm[:, :, r - 1, None]) * rwn[:, :, wc]
-        cost = torch.where(valid[None, :, :, None], cost, INF)
-        ins = torch.cat([prev[:, :, 1:], inf_col], dim=2)
-        cur = cost + torch.minimum(ins, prev)
+        cost = torch.where(valid[None, :, :, None], cost, INF).unbind(2)
+        cur = [cost[j] + torch.minimum(prev[j + 1] if j + 1 < W2 else inf, prev[j])
+               for j in range(W2)]
         for j in range(1, W2):
-            cur[:, :, j] = torch.minimum(cur[:, :, j], cost[:, :, j] + cur[:, :, j - 1])
-        result = torch.where((n == r + 1)[None, :, None], cur[:, :, w + 1], result)
+            cur[j] = torch.minimum(cur[j], cost[j] + cur[j - 1])
+        result = torch.where((n == r + 1)[None, :, None], cur[w + 1], result)
         prev = cur
-    avg = result[:, D * K:]  # (3, D, B)
+    if gate is None:
+        return result
+    gate_bounds, D, K = gate
+    avg = result[:, D * K:]  # (S, D, B)
     gate_open = (avg <= gate_bounds[None, :, None]).repeat_interleave(K, dim=1)
-    out = torch.cat([torch.where(gate_open, result[:, : D * K], INF), avg], dim=1)
-    return out.permute(2, 0, 1)
+    return torch.cat([torch.where(gate_open, result[:, : D * K], INF), avg], dim=1)
 
 
 @lru_cache(maxsize=None)
@@ -285,3 +300,323 @@ def fused_dtw_chunk_v4(
         )
     return score_chunk(win, new, means3, prepare_templates(templates, tnorms, lens, band),
                        gate_bounds, D, K, rot0)
+
+
+# ------------------------------------------------------------------ common
+
+def linear_window(win: torch.Tensor, rot: torch.Tensor, Lm: int) -> torch.Tensor:
+    """(Lm, C, B): the first Lm logical columns of the circular window win
+    (F, C, B) with cursor rot (0-d integer tensor; logical column i lives at
+    physical row (rot + 1 + i) % F). A gather on the device: no host sync."""
+    phys = (rot.long() + 1 + torch.arange(Lm, device=win.device)) % win.shape[0]
+    return win[phys]
+
+
+def _launch_operands(dev: torch.device, **tensors) -> None:
+    """Kernel operands must be contiguous float32 tensors on `dev`."""
+    for name, t in tensors.items():
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
+
+
+def _stream_handle(dev: torch.device) -> int:
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------- K2
+#
+# `fused_dtw_batch_v3_t` scores ONE shift's circular window for every stream
+# against every template pair: the function of the TPU kernel
+# `rustpotter_tpu/ops/fused_dtw.py::_kernel_v3` (called through
+# `fused_dtw_batch_v3_t`). dotm = T'·m is a true-fp32 einsum outside the
+# kernel, as in the JAX wrapper. The gate is decided per stream, as K1's.
+
+SOURCE_V3 = "fused_dtw_v3.cu"
+
+
+def _check_args_v3(win_t, means_t, tp, gate_bounds, lens, band, D, K, rot):
+    """Shapes of K2's arguments; tp is the (P, Lm, C) template set."""
+    _check_band(band)
+    if win_t.dim() != 3:
+        raise ValueError(f"win_t must be (F, C, B), got {tuple(win_t.shape)}")
+    F, C, B = win_t.shape
+    P, Lm = tp.shape[0], tp.shape[1]
+    for name, t, shape in (("means_t", means_t, (P, C, B)), ("templates", tp, (P, Lm, C)),
+                           ("gate_bounds", gate_bounds, (D,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if P != D * K + D:
+        raise ValueError(f"P={P} pairs but D={D}, K={K} need {D * K + D}")
+    if len(lens) != P or not all(1 <= int(n) <= Lm for n in lens):
+        raise ValueError(f"lens must be {P} pair lengths in [1, {Lm}], got {lens}")
+    if F < Lm:
+        raise ValueError(f"window length F={F} must be >= Lm={Lm}")
+    if rot.dim() != 0 or rot.dtype not in (torch.int32, torch.int64):
+        raise ValueError("rot must be a 0-d integer tensor")
+
+
+def fused_dtw_batch_v3_ref(
+    win_t: torch.Tensor,
+    means_t: torch.Tensor,
+    templates: torch.Tensor,
+    tnorms: torch.Tensor,
+    gate_bounds: torch.Tensor,
+    lens: tuple,
+    band: int,
+    D: int,
+    K: int,
+    rot: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of K2 (same arguments, any device). Returns
+    sims (B, P)."""
+    _check_args_v3(win_t, means_t, templates, gate_bounds, lens, band, D, K, rot)
+    _check_tnorms(templates, tnorms)
+    return _plain_v3(win_t, means_t, normalize_templates(templates, tnorms),
+                     gate_bounds, lens, band, D, K, rot)
+
+
+def _plain_v3(win_t, means_t, tp, gate_bounds, lens, band, D, K, rot):
+    lin = linear_window(win_t, rot, tp.shape[1])
+    return _band_sims(lin[None], means_t[None], tp, lens, band, (gate_bounds, D, K))[0].T
+
+
+@lru_cache(maxsize=None)
+def _library_v3(C: int, band: int) -> ctypes.CDLL:
+    lib = _build.load(SOURCE_V3, {"RP_C": C, "RP_W": band})
+    fn = lib.rp_fused_dtw_v3
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def score_shift(
+    win_t: torch.Tensor,
+    means_t: torch.Tensor,
+    tset: TemplateSet,
+    gate_bounds: torch.Tensor,
+    D: int,
+    K: int,
+    rot: torch.Tensor,
+) -> torch.Tensor:
+    """K2 on a prepared template set (see `fused_dtw_batch_v3_t` for the
+    arguments). CPU tensors run the plain version; CUDA tensors compute dotm
+    and launch the kernel (a failed build or launch raises). The per-shift
+    step calls this with a TemplateSet built once per parameter set."""
+    _check_args_v3(win_t, means_t, tset.tp, gate_bounds, tset.lens, tset.band, D, K, rot)
+    if win_t.device.type == "cpu":
+        return _plain_v3(win_t, means_t, tset.tp, gate_bounds, tset.lens, tset.band, D, K, rot)
+    if win_t.device.type != "cuda":
+        raise ValueError(f"fused_dtw_batch_v3: unsupported device {win_t.device}")
+    # T'[t]·m per (pair, row, stream): true fp32 (TF32 is off), stream-minor
+    dotm = torch.einsum("plc,pcb->plb", tset.tp, means_t).contiguous()
+    return launch_v3(win_t, means_t, dotm, tset, gate_bounds, D, K, rot)
+
+
+def launch_v3(
+    win_t: torch.Tensor,
+    means_t: torch.Tensor,
+    dotm: torch.Tensor,
+    tset: TemplateSet,
+    gate_bounds: torch.Tensor,
+    D: int,
+    K: int,
+    rot: torch.Tensor,
+) -> torch.Tensor:
+    """The K2 launch alone, on CUDA tensors: `score_shift` with dotm
+    (P, Lm, B) = T'·m given. Returns sims (B, P)."""
+    dev = win_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_v3 launches the CUDA kernel: {dev} is not a CUDA device")
+    F, C, B = win_t.shape
+    P, Lm, _ = tset.tp.shape
+    _launch_operands(dev, win_t=win_t, means_t=means_t, dotm=dotm, templates=tset.padded,
+                     gate_bounds=gate_bounds)
+    if tuple(dotm.shape) != (P, Lm, B):
+        raise ValueError(f"dotm must be {(P, Lm, B)}, got {tuple(dotm.shape)}")
+    if rot.device != dev or tset.lens_t.device != dev:
+        raise ValueError(f"rot and the template set must be on {dev}")
+    rot32 = rot.to(torch.int32)  # a no-op for the stream state's int32 cursor
+    out = torch.empty((P, B), dtype=torch.float32, device=dev)
+    err = _library_v3(C, tset.band).rp_fused_dtw_v3(
+        win_t.data_ptr(), means_t.data_ptr(), dotm.data_ptr(), tset.padded.data_ptr(),
+        tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot32.data_ptr(),
+        out.data_ptr(), _stream_handle(dev), B, F, Lm, D, K,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_dtw_v3 kernel launch failed: CUDA error {err}")
+    LAUNCHES["fused_dtw_v3"] += 1
+    return out.T
+
+
+def fused_dtw_batch_v3_t(
+    win_t: torch.Tensor,
+    means_t: torch.Tensor,
+    templates: torch.Tensor,
+    tnorms: torch.Tensor,
+    gate_bounds: torch.Tensor,
+    lens: tuple,
+    band: int,
+    D: int,
+    K: int,
+    rot: torch.Tensor,
+) -> torch.Tensor:
+    """K2, stream-minor. win_t (F, C, B) = circular window with cursor rot
+    (0-d integer tensor, read on the device: no host sync), F >= Lm;
+    means_t (P, C, B) = per-pair CMN means; templates (P, Lm, C) raw, tnorms
+    (P, Lm) their squared row norms; gate_bounds (D,) sim-domain avg-gate
+    bounds (+inf = open); lens the P pair lengths, templates (D*K) then avg
+    pairs (D). Returns sims (B, P).
+
+    CPU tensors run `fused_dtw_batch_v3_ref`; CUDA tensors prepare T' and
+    launch the kernel through `score_shift`."""
+    _check_args_v3(win_t, means_t, templates, gate_bounds, lens, band, D, K, rot)
+    if win_t.device.type == "cpu":
+        return fused_dtw_batch_v3_ref(win_t, means_t, templates, tnorms, gate_bounds,
+                                      lens, band, D, K, rot)
+    return score_shift(win_t, means_t, prepare_templates(templates, tnorms, lens, band),
+                       gate_bounds, D, K, rot)
+
+
+def fused_dtw_batch_v3(
+    win: torch.Tensor,
+    means: torch.Tensor,
+    templates: torch.Tensor,
+    tnorms: torch.Tensor,
+    gate_bounds: torch.Tensor,
+    lens: tuple,
+    band: int,
+    D: int,
+    K: int,
+    rot=None,
+) -> torch.Tensor:
+    """K2 for the (B, F, C) layout: win (B, F, C), means (B, P, C). `rot` is
+    the circular cursor; None means the window is linear (oldest first),
+    i.e. rot = F - 1. Returns sims (B, P)."""
+    if rot is None:
+        rot = torch.tensor(win.shape[1] - 1, dtype=torch.int32, device=win.device)
+    return fused_dtw_batch_v3_t(
+        win.permute(1, 2, 0).contiguous(), means.permute(1, 2, 0).contiguous(),
+        templates, tnorms, gate_bounds, lens, band, D, K, torch.as_tensor(rot),
+    )
+
+
+# ---------------------------------------------------------------------- K4
+#
+# `fused_dtw_batch(variant=2)` scores a LINEAR window for every stream
+# against every pair, with no gate: the function of the TPU kernel
+# `rustpotter_tpu/ops/fused_dtw.py::_kernel_v2` (called through
+# `fused_dtw_batch`). rwn and dotm are computed in the kernel.
+
+SOURCE_V2 = "fused_dtw_v2.cu"
+
+
+def _check_args_v2(win_t, means_t, tp, lens, band):
+    """Shapes of K4's stream-minor arguments: win_t (Lm, C, B), means_t
+    (P, C, B), tp the (P, Lm, C) template set."""
+    _check_band(band)
+    if win_t.dim() != 3:
+        raise ValueError(f"win must be (Lm, C, B), got {tuple(win_t.shape)}")
+    Lm, C, B = win_t.shape
+    P = tp.shape[0]
+    for name, t, shape in (("means", means_t, (P, C, B)), ("templates", tp, (P, Lm, C))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} (stream-minor), got {tuple(t.shape)}")
+    if len(lens) != P or not all(1 <= int(n) <= Lm for n in lens):
+        raise ValueError(f"lens must be {P} pair lengths in [1, {Lm}], got {lens}")
+
+
+def _variant(variant: int) -> None:
+    if variant == 1:
+        raise NotImplementedError(
+            "fused_dtw_batch variant 1 (the TPU kernel _kernel, K5) is not ported yet: "
+            "ROADMAP queue 2"
+        )
+    if variant != 2:
+        raise ValueError(f"fused_dtw_batch: unknown variant {variant}")
+
+
+def _stream_minor(win: torch.Tensor, means: torch.Tensor):
+    if win.dim() != 3 or means.dim() != 3:
+        raise ValueError("win must be (B, Lm, C) and means (B, P, C)")
+    return win.permute(1, 2, 0).contiguous(), means.permute(1, 2, 0).contiguous()
+
+
+def fused_dtw_batch_ref(
+    win: torch.Tensor,
+    means: torch.Tensor,
+    templates: torch.Tensor,
+    tnorms: torch.Tensor,
+    lens: tuple,
+    band: int,
+) -> torch.Tensor:
+    """The plain PyTorch version of K4 (any device): win (B, Lm, C), means
+    (B, P, C). Returns sims (B, P)."""
+    win_t, means_t = _stream_minor(win, means)
+    _check_args_v2(win_t, means_t, templates, lens, band)
+    _check_tnorms(templates, tnorms)
+    return _plain_v2(win_t, means_t, normalize_templates(templates, tnorms), lens, band)
+
+
+def _plain_v2(win_t, means_t, tp, lens, band):
+    return _band_sims(win_t[None], means_t[None], tp, lens, band)[0].T
+
+
+@lru_cache(maxsize=None)
+def _library_v2(C: int, band: int) -> ctypes.CDLL:
+    lib = _build.load(SOURCE_V2, {"RP_C": C, "RP_W": band})
+    fn = lib.rp_fused_dtw_v2
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def score_linear(win_t: torch.Tensor, means_t: torch.Tensor, tset: TemplateSet) -> torch.Tensor:
+    """K4 on a prepared template set, stream-minor: win_t (Lm, C, B) linear
+    window, means_t (P, C, B). Returns sims (B, P). CPU tensors run the plain
+    version; CUDA tensors launch the kernel (a failed build or launch
+    raises)."""
+    _check_args_v2(win_t, means_t, tset.tp, tset.lens, tset.band)
+    if win_t.device.type == "cpu":
+        return _plain_v2(win_t, means_t, tset.tp, tset.lens, tset.band)
+    if win_t.device.type != "cuda":
+        raise ValueError(f"fused_dtw_batch: unsupported device {win_t.device}")
+    dev = win_t.device
+    _launch_operands(dev, win=win_t, means=means_t, templates=tset.padded)
+    if tset.lens_t.device != dev:
+        raise ValueError(f"the template set must be on {dev}")
+    Lm, C, B = win_t.shape
+    P = tset.tp.shape[0]
+    out = torch.empty((P, B), dtype=torch.float32, device=dev)
+    err = _library_v2(C, tset.band).rp_fused_dtw_v2(
+        win_t.data_ptr(), means_t.data_ptr(), tset.padded.data_ptr(),
+        tset.lens_t.data_ptr(), out.data_ptr(), _stream_handle(dev), B, Lm, P,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_dtw_v2 kernel launch failed: CUDA error {err}")
+    LAUNCHES["fused_dtw_v2"] += 1
+    return out.T
+
+
+def fused_dtw_batch(
+    win: torch.Tensor,
+    means: torch.Tensor,
+    templates: torch.Tensor,
+    tnorms: torch.Tensor,
+    lens: tuple,
+    band: int,
+    variant: int = 2,
+) -> torch.Tensor:
+    """K4. win (B, Lm, C) = linear window (oldest first); means (B, P, C);
+    templates (P, Lm, C) raw, tnorms (P, Lm) their squared row norms; lens
+    the P pair lengths. Returns sims (B, P).
+
+    variant 2 is K4; variant 1 (K5) is not ported and raises
+    NotImplementedError on every device. CPU tensors run
+    `fused_dtw_batch_ref`; CUDA tensors take the window stream-minor,
+    prepare T' and launch the kernel through `score_linear`."""
+    _variant(variant)
+    if win.device.type == "cpu":
+        return fused_dtw_batch_ref(win, means, templates, tnorms, lens, band)
+    win_t, means_t = _stream_minor(win, means)
+    return score_linear(win_t, means_t, prepare_templates(templates, tnorms, lens, band))

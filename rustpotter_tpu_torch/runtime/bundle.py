@@ -9,8 +9,9 @@ DTW wakewords only: NN wakewords (ROADMAP M9) and in-graph resampling
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, fields
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +54,13 @@ class StepStatic:
     dtw_template_names: Tuple[Tuple[str, ...], ...] = ()
     input_samples: int = 480
     input_rate: int = DETECTOR_INTERNAL_SAMPLE_RATE
+    # DTW kernel selection, resolved at bundle build. None or True = fused:
+    # K1 in the batched chunk, and in the per-shift step K2 (variant >= 3)
+    # or K4 (variant 2); False = band_costs then the banded DP, K3. The
+    # tensor's device picks kernel or plain version, so None means fused on
+    # every device.
+    dtw_fused: Optional[bool] = None
+    dtw_fused_variant: int = 3
 
 
 @dataclass(frozen=True)
@@ -95,12 +103,19 @@ def build_bundle(
     config: RustpotterConfig,
     device: DeviceLike = None,
     in_graph_resample: bool = False,
+    dtw_fused: Optional[bool] = None,
 ) -> Tuple[StepStatic, StepParams]:
-    """(StepStatic, StepParams on `device`) for DTW wakewords."""
+    """(StepStatic, StepParams on `device`) for DTW wakewords. With
+    dtw_fused None, RUSTPOTTER_FUSED ("1" or "0") decides if it is set;
+    RUSTPOTTER_FUSED_VARIANT sets the fused variant (default 3), as in the
+    JAX package."""
     if in_graph_resample:
         raise NotImplementedError("in-graph resampling: ROADMAP M8")
     if any(isinstance(w, WakewordModel) for _, w in wakewords):
         raise NotImplementedError("NN wakewords: ROADMAP M9")
+    if dtw_fused is None and "RUSTPOTTER_FUSED" in os.environ:
+        dtw_fused = os.environ["RUSTPOTTER_FUSED"] == "1"
+    fused_variant = int(os.environ.get("RUSTPOTTER_FUSED_VARIANT", "3"))
     det = config.detector
     refs = list(wakewords)
     if not refs:
@@ -183,6 +198,8 @@ def build_bundle(
         smax=int(d_kvalid.max()),
         names=tuple(k for k, _ in refs),
         dtw_template_names=tuple(template_names),
+        dtw_fused=dtw_fused,
+        dtw_fused_variant=fused_variant,
     )
     fixed_gain_ref = config.filters.gain_normalizer.gain_ref
     gain_ref = fixed_gain_ref if fixed_gain_ref is not None else target_rms

@@ -1,10 +1,15 @@
-"""The batched serving chunk: B streams × 480 samples in → states' + Events.
+"""The stream steps: B streams × 480 samples in → states' + Events.
 
-The counterpart of `rustpotter_tpu.runtime.stream_step.make_batched_chunk`:
-the reference's streaming hot loop (reference src/detector.rs:347-454 —
-process_audio → process_new_mfccs → run_detection) with every data-dependent
+Two counterparts of `rustpotter_tpu.runtime.stream_step`: the per-shift step
+`make_step` (one shift at a time, as the reference runs; the single-stream
+`Rustpotter` runs it at B = 1) and the batched serving chunk
+`make_batched_chunk`. Both are the reference's streaming hot loop (reference
+src/detector.rs:347-454 — process_audio → process_new_mfccs → run_detection) with every data-dependent
 branch a masked update over the stream axis, for one 30 ms chunk (3 MFCC
-shifts) at a time:
+shifts) at a time. The per-shift step writes each shift's row into the
+circular window and scores it (`_dtw_scores`: K2, K4, or band costs then K3,
+as `dtw_fused` and its variant select). The batched chunk hoists the work
+out of the shift loop:
   - the extractor buffer trajectory is data-independent within a chunk (the
     reference consumes all 480 samples before the find_map short circuit,
     detector.rs:372-375), so the 3 frames' MFCCs are one batched GEMM chain;
@@ -21,8 +26,12 @@ requires win_count >= F; a stream whose row write is masked off this chunk
 (extractor warm-up or an in-chunk halt) has win_count reset alongside, so its
 virtual-window scores are discarded.
 
-Not ported yet: the per-stream `make_step` (ROADMAP M10), NN heads (M9),
-filters (M7) and in-graph resampling (M8).
+With `dtw_fused` False or a variant below 3, the batched chunk scores each
+shift's virtual window through `_dtw_scores` instead of K1, as the JAX
+package's fallback does.
+
+Not ported yet: NN heads (ROADMAP M9), filters (M7) and in-graph resampling
+(M8).
 """
 from __future__ import annotations
 
@@ -33,7 +42,16 @@ import torch
 from ..config import ScoreMode
 from ..constants import SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT
 from ..ops import frontend
-from ..ops.fused_dtw import TemplateSet, prepare_templates, score_chunk
+from ..ops.dtw import band_costs
+from ..ops.dtw_dispatch import get_banded_dtw
+from ..ops.fused_dtw import (
+    TemplateSet,
+    linear_window,
+    prepare_templates,
+    score_chunk,
+    score_linear,
+    score_shift,
+)
 from ..ops.scoring import cost_to_score
 from .bundle import StepParams, StepStatic
 from .state import Event, StreamState, VAD_VOICE_FRAMES
@@ -180,10 +198,11 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 class ChunkConstants(NamedTuple):
-    """What the chunk's scoring needs from a parameter set and nothing else:
-    built once per StepParams by `chunk_constants`, not per chunk."""
+    """What DTW scoring needs from a parameter set and nothing else: built
+    once per StepParams by `chunk_constants`, not per chunk or shift."""
 
-    tset: TemplateSet  # K1's T' (P, Lm, C), padded copy and pair lengths
+    seq_a: torch.Tensor  # (P, Lm, C) raw templates, then the avg templates
+    tset: TemplateSet  # the kernels' T' (P, Lm, C), padded copy and pair lengths
     t_all: torch.Tensor  # (P,) pair lengths: CMN coverage of each pair
     inv_t: torch.Tensor  # (1, P, 1) f32: 1/t, folded into the mean masks
     gate_bounds: torch.Tensor  # (D,) sim-domain avg-gate bounds
@@ -200,6 +219,7 @@ def chunk_constants(static: StepStatic, params: StepParams) -> ChunkConstants:
     tnorms = torch.sum(seq_a * seq_a, dim=-1)
     t_all = torch.cat([params.dtw_lens.reshape(-1), params.dtw_avg_len])
     return ChunkConstants(
+        seq_a=seq_a,
         tset=prepare_templates(seq_a, tnorms, static.dtw_pair_lens, static.band_size),
         t_all=t_all,
         inv_t=(1.0 / t_all.to(torch.float32))[None, :, None],
@@ -207,13 +227,62 @@ def chunk_constants(static: StepStatic, params: StepParams) -> ChunkConstants:
     )
 
 
+def _fused_v3(static: StepStatic) -> bool:
+    """True for the fused variant-3 kernels (K1 in the chunk, K2 per shift):
+    dtw_fused None means fused here, on every device."""
+    return static.dtw_fused is not False and static.dtw_fused_variant >= 3
+
+
+def _dtw_scores(static: StepStatic, params: StepParams, consts: ChunkConstants,
+                win: torch.Tensor, rot: torch.Tensor):
+    """Score the live circular window (F, C, B) of every stream against every
+    DTW wakeword; rot = physical index of the newest frame (logical frame i
+    lives at (rot + 1 + i) % F). Returns the _dtw_post tuple batched on
+    streams. Parity: wakeword_comp.rs:77-152, as `rustpotter_tpu`'s
+    `_dtw_scores`: per-pair CMN means over the pair's first t logical frames
+    (a masked fp32 GEMM), then K2 (fused, variant >= 3), K4 (fused, variant
+    2: on the linear window, gathered outside the kernel as jnp.roll does),
+    or band costs then K3 (not fused)."""
+    F = win.shape[0]
+    w = static.band_size
+    Lm = consts.seq_a.shape[1]
+    lidx = (torch.arange(F, device=win.device) - rot.long() - 1) % F  # logical index
+    tmask = (lidx[None, :] < consts.t_all[:, None]).to(torch.float32)  # (P, F)
+    means_t = (
+        torch.einsum("pf,fcb->pcb", tmask, win)
+        / consts.t_all.to(torch.float32)[:, None, None]
+    )  # (P, C, B)
+    if _fused_v3(static):
+        sims = score_shift(win, means_t, consts.tset, consts.gate_bounds,
+                           static.n_dtw, static.kmax, rot)
+    elif static.dtw_fused is not False:
+        sims = score_linear(linear_window(win, rot, Lm), means_t, consts.tset)
+    else:
+        lin = linear_window(win, rot, Lm).permute(2, 0, 1)  # (B, Lm, C)
+        B, P = lin.shape[0], consts.seq_a.shape[0]
+        normwin = lin[:, None] - means_t.permute(2, 0, 1)[:, :, None]  # (B, P, Lm, C)
+        costs = band_costs(consts.seq_a, normwin, w).reshape(B * P, Lm, 2 * w)
+        sims = get_banded_dtw(w)(costs, consts.t_all.repeat(B)).reshape(B, P)
+    return _dtw_post(static, params, sims)
+
+
 def _dtw_scores_chunk(static: StepStatic, params: StepParams, consts: ChunkConstants,
                       win: torch.Tensor, new: torch.Tensor, rot0: torch.Tensor):
     """DTW det_outs for all 3 shifts of a chunk. win (F, C, B) = PRE-chunk
     stream-minor circular window; new (3, C, B) = the chunk's new frames.
-    Per-shift CMN means come from one masked GEMM over the window (+ a tiny
-    one over the new rows), then K1 scores every (stream, shift, pair).
+    Fused (variant >= 3): per-shift CMN means come from one masked GEMM
+    over the window (+ a tiny one over the new rows), then K1 scores every
+    (stream, shift, pair). Otherwise each shift's virtual window is
+    materialized and scored by `_dtw_scores`, as the JAX fallback does.
     Returns a list of 3 _dtw_post tuples batched on streams."""
+    if not _fused_v3(static):
+        virt = win.clone()
+        slots = (rot0.long() + 1 + torch.arange(3, device=win.device)) % win.shape[0]
+        outs = []
+        for s in range(3):
+            virt.index_copy_(0, slots[s:s + 1], new[s:s + 1])
+            outs.append(_dtw_scores(static, params, consts, virt, slots[s]))
+        return outs
     maskA, maskB = _chunk_slot_masks(win.shape[0], consts.t_all, rot0)
     means3 = (
         torch.einsum("spf,fcb->spcb", maskA * consts.inv_t, win)
@@ -241,6 +310,15 @@ def _combine_batched(det_list, score_list, avg_list, scores_list):
     avg_best = torch.sum(torch.where(onehot, avg, 0.0), dim=1)
     scores_best = torch.sum(torch.where(onehot[:, :, None], scores, 0.0), dim=1)
     return any_det, best.to(torch.int32), score_best, avg_best, scores_best
+
+
+def run_wakeword_detectors(static: StepStatic, params: StepParams,
+                           consts: ChunkConstants, win: torch.Tensor, rot: torch.Tensor):
+    """All wakewords → best candidate per stream (parity:
+    detector.rs:433-447). DTW wakewords only: bundles with NN wakewords are
+    refused at build (ROADMAP M9)."""
+    d, sc, a, m = _dtw_scores(static, params, consts, win, rot)
+    return _combine_batched([d], [sc], [a], [m])
 
 
 def run_wakeword_detectors_chunk(static: StepStatic, params: StepParams,
@@ -296,6 +374,20 @@ def shift_count_vad(static: StepStatic, state: StreamState, mfcc: torch.Tensor,
     else:
         should_run = torch.ones_like(emit_frame)
     return state, emit_frame, should_run
+
+
+def shift_front(static: StepStatic, state: StreamState, shift: torch.Tensor,
+                active: torch.Tensor):
+    """Extractor buffer + MFCC + VAD for one shift (everything before the
+    window write): shift (B, 160) pre-emphasized samples, active (B,).
+    Returns (state, mfcc (B, C), emit_frame (B,), should_run (B,)). The
+    buffer is a shift register that always rolls (where active): during
+    warm-up its stale prefix is never read (extractor.rs:69-79)."""
+    new_buf = torch.cat([state.ext_buf[:, SAMPLES_PER_SHIFT:], shift], dim=1)
+    state = state._replace(ext_buf=torch.where(active[:, None], new_buf, state.ext_buf))
+    mfcc = frontend.mfcc_from_frames(state.ext_buf, static.mfcc_size + 1)  # (B, C)
+    state, emit_frame, should_run = shift_count_vad(static, state, mfcc, active)
+    return state, mfcc, emit_frame, should_run
 
 
 def detection_bookkeeping(static: StepStatic, params: StepParams,
@@ -385,6 +477,85 @@ def _commit(states: StreamState, new: StreamState) -> StreamState:
     return states
 
 
+def _check_supported(static: StepStatic) -> None:
+    if static.gain_enabled or static.bp_enabled:
+        raise NotImplementedError(
+            "gain normalizer and band-pass filters in the stream steps: ROADMAP M7"
+        )
+    if static.input_samples != SAMPLES_PER_FRAME:
+        raise NotImplementedError("in-graph resampling: ROADMAP M8")
+
+
+def _constants_for(static: StepStatic):
+    """constants(params) -> ChunkConstants, built when a parameter set is
+    first seen and reused while the same (immutable) object is passed."""
+    last = []  # [(params, its ChunkConstants)] of the last parameter set seen
+
+    def constants(params: StepParams) -> ChunkConstants:
+        if not last or last[0][0] is not params:
+            last[:] = [(params, chunk_constants(static, params))]
+        return last[0][1]
+
+    return constants
+
+
+def _merge_event(event: Event, ev: Event) -> Event:
+    """find_map: a stream keeps the event of the shift that fired first."""
+    B = event.fired.shape[0]
+    return Event(*[
+        torch.where(event.fired.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
+        for a, b in zip(event, ev)
+    ])
+
+
+def make_step(static: StepStatic):
+    """Build step(params, states, samples (B, 480)) -> (states, Event (B,)):
+    the per-shift stream step (`rustpotter_tpu.runtime.stream_step.make_step`)
+    on a batch of B >= 1 streams. The window is stream-minor (F, C, B) with
+    one shared cursor `rot`, as in the batched chunk (the JAX package's vmap
+    rule keeps `rot` unbatched too).
+
+    For each of the 3 shifts: extractor buffer, MFCC and VAD; the masked row
+    write at the shift's global slot (the cursor advances every shift, the
+    write only where a frame was emitted); then the window is scored
+    (`run_wakeword_detectors`) and the detection bookkeeping runs. A fire
+    halts the rest of that stream's shifts in this chunk (find_map,
+    detector.rs:374-375). `states` is updated in place and returned."""
+    F = static.max_mfcc_frames
+    _check_supported(static)
+    constants = _constants_for(static)
+
+    def step(params: StepParams, states: StreamState, samples: torch.Tensor):
+        B = samples.shape[0]
+        dev = samples.device
+        consts = constants(params)
+        st, shifts = prepare_chunk(static, states, samples)  # (B, 3, 160)
+        slots = (states.rot.long() + 1 + torch.arange(3, device=dev)) % F
+        event = _no_event(static, B, dev)
+        halted = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for s in range(3):
+            active = ~halted
+            st, mfcc, emit, should_run = shift_front(static, st, shifts[:, s], active)
+            # push frame: circular write at the global slot, masked per
+            # stream; the circular buffer then holds the last F pushed frames
+            # (detector.rs:384-395)
+            slot = slots[s:s + 1]
+            old = st.win.index_select(0, slot)  # (1, C, B)
+            st.win.index_copy_(0, slot, torch.where(emit[None, None, :], mfcc.T[None], old))
+            win_count = torch.where(emit, torch.clamp(st.win_count + 1, max=F), st.win_count)
+            st = st._replace(win_count=win_count.to(torch.int32),
+                             rot=slots[s].to(torch.int32))
+            det_out = run_wakeword_detectors(static, params, consts, st.win, st.rot)
+            run = emit & (st.win_count >= F) & should_run
+            st, ev = detection_bookkeeping(static, params, st, run, det_out)
+            ev = ev._replace(fired=ev.fired & active)
+            event = _merge_event(event, ev)
+            halted = halted | ev.fired
+        return _commit(states, st), event
+
+    return step
+
+
 def make_batched_chunk(static: StepStatic):
     """Build chunk(params, states, frames (B, 480)) -> (states, Event (B,)).
 
@@ -395,19 +566,9 @@ def make_batched_chunk(static: StepStatic):
     F = static.max_mfcc_frames
     if F < 3:
         raise ValueError(f"batched runtime requires max_mfcc_frames >= 3 (got {F})")
-    if static.gain_enabled or static.bp_enabled:
-        raise NotImplementedError(
-            "gain normalizer and band-pass filters in the batched chunk: ROADMAP M7"
-        )
-    if static.input_samples != SAMPLES_PER_FRAME:
-        raise NotImplementedError("in-graph resampling: ROADMAP M8")
+    _check_supported(static)
     C = static.mfcc_size
-    last = []  # [(params, its ChunkConstants)] of the last parameter set seen
-
-    def constants(params: StepParams) -> ChunkConstants:
-        if not last or last[0][0] is not params:
-            last[:] = [(params, chunk_constants(static, params))]
-        return last[0][1]
+    constants = _constants_for(static)
 
     def chunk(params: StepParams, states: StreamState, frames: torch.Tensor):
         B = frames.shape[0]
@@ -441,11 +602,7 @@ def make_batched_chunk(static: StepStatic):
             run = emit_b & (win_count >= F) & should_run_b
             st, ev = detection_bookkeeping(static, params, st, run, det_outs[s])
             fired = ev.fired & active
-            ev = ev._replace(fired=fired)
-            event = Event(*[
-                torch.where(event.fired.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
-                for a, b in zip(event, ev)
-            ])
+            event = _merge_event(event, ev._replace(fired=fired))
             halted = halted | fired
 
         # the 3 circular-window writes, after every read of the old window

@@ -1,24 +1,28 @@
-"""The port on a CUDA card: K1 (csrc/fused_dtw_v4.cu) against its plain
-version, and the batched detector on the card against the same detector on
-the CPU. Every test here needs a card (and nvcc, which builds K1 at first
-use); without one they skip. The file imports no JAX, so it runs where only
-PyTorch is installed:
+"""The port on a CUDA card: K1 (csrc/fused_dtw_v4.cu), K2 (fused_dtw_v3.cu),
+K3 (banded_dtw.cu) and K4 (fused_dtw_v2.cu) against their plain versions,
+and the batched detector and the single-stream Rustpotter on the card against
+the same on the CPU. Every test here needs a card (and nvcc, which builds the
+kernels at first use); without one they skip. The file imports no JAX, so it
+runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: sims rtol 3e-6 / atol 2e-4 (the JAX kernel tests' own); event
-scores rtol 2e-5 / atol 2e-5 (the CPU slice test's).
+Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 (the
+JAX kernel tests' own); K3 is adds and mins only, so bit-exact; event scores
+rtol 2e-5 / atol 2e-5 (the CPU slice test's).
 """
 import numpy as np
 import pytest
 import torch
 
-from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
+from rustpotter_tpu_torch.ops import banded_dtw as bd
 from rustpotter_tpu_torch.ops import fused_dtw as fd
+from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
 from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
 
-RTOL, ATOL = 3e-6, 2e-4
+RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 D, K = 2, 2
 P = D * K + D
 B, LM, C, W = 30, 40, 8, 5
@@ -28,7 +32,7 @@ LENS = (40, 31, 28, 37) + (35, 40)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is a CUDA kernel with no CPU build")
+        pytest.skip("needs a CUDA card: the kernels are CUDA kernels with no CPU build")
     return torch.device("cuda")
 
 
@@ -92,3 +96,94 @@ def test_batched_detector_on_card_matches_cpu(cuda_device):
                                    rtol=2e-5, atol=2e-5, err_msg=f)
     fired0 = int(cpu.fired[:, 0].sum())
     assert fired0 >= 1
+
+
+def _v3_args(F: int, nb: int, device, gate=(np.inf, np.inf)):
+    rng = np.random.default_rng(16 + F + nb)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    templates = rng.normal(0, 1, (P, LM, C))
+    return (
+        t(rng.normal(0, 1, (F, C, nb))), t(rng.normal(0, 0.2, (P, C, nb))), t(templates),
+        t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), t(gate), LENS, W, D, K,
+        torch.tensor(F - 2, dtype=torch.int32, device=device),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,nb", [(LM, 1), (LM + 2, 33), (LM + 9, B)])
+def test_k2_matches_plain_version_on_card(cuda_device, F, nb):
+    args = _v3_args(F, nb, cuda_device)
+    avg = fd.fused_dtw_batch_v3_ref(*args)[:, D * K].sort().values
+    # one stream: a bound well above its avg, so that the gate passes
+    mid = float((avg[nb // 2 - 1] + avg[nb // 2]) / 2) if nb > 1 else float(avg[0]) + 1.0
+    for gate in ((np.inf, np.inf), (float(avg[0]) - 1.0, np.inf), (mid, np.inf)):
+        args = _v3_args(F, nb, cuda_device, gate)
+        before = fd.LAUNCHES["fused_dtw_v3"]
+        got = fd.fused_dtw_batch_v3_t(*args)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES["fused_dtw_v3"] == before + 1
+        _assert_sims_close(got, fd.fused_dtw_batch_v3_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 33, 50])
+def test_k4_matches_plain_version_on_card(cuda_device, nb):
+    rng = np.random.default_rng(3 + nb)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    templates = rng.normal(0, 1, (P, LM, C))
+    args = (t(rng.normal(0, 1, (nb, LM, C))), t(rng.normal(0, 0.2, (nb, P, C))), t(templates),
+            t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), LENS, W)
+    before = fd.LAUNCHES["fused_dtw_v2"]
+    got = fd.fused_dtw_batch(*args)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["fused_dtw_v2"] == before + 1
+    want = fd.fused_dtw_batch_ref(*args).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL_V2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 300])
+def test_k3_is_bit_exact_against_plain_version_on_card(cuda_device, n):
+    rng = np.random.default_rng(n)
+    L = 60
+    costs = torch.tensor(rng.uniform(0, 2, (n, L, 2 * W)).astype(np.float32), device=cuda_device)
+    lens = torch.tensor(rng.integers(1, L + 1, n).astype(np.int32), device=cuda_device)
+    before = bd.LAUNCHES["banded_dtw"]
+    got = bd.banded_dtw_kernel(costs, lens, W)
+    torch.cuda.synchronize()
+    assert bd.LAUNCHES["banded_dtw"] == before + 1
+    want = banded_dtw_batch(costs, lens, W)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v3", "v2", "unfused"])
+def test_rustpotter_on_card_matches_cpu(cuda_device, mode, monkeypatch):
+    """The single-stream API on the card launches its mode's kernel 3 times
+    per frame and gives the CPU run's detections."""
+    if mode == "v2":
+        monkeypatch.setenv("RUSTPOTTER_FUSED_VARIANT", "2")
+    if mode == "unfused":
+        monkeypatch.setenv("RUSTPOTTER_FUSED", "0")
+    counts = {"v3": (fd.LAUNCHES, "fused_dtw_v3"), "v2": (fd.LAUNCHES, "fused_dtw_v2"),
+              "unfused": (bd.LAUNCHES, "banded_dtw")}[mode]
+    ww, utterance = build_bench_wakeword(device=cuda_device)
+    cfg = RustpotterConfig()
+    cfg.detector.score_mode = ScoreMode.MAX
+    cfg.detector.avg_threshold = 0.2
+    frames = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        rp = Rustpotter(cfg, device=dev)
+        rp.add_wakeword_ref("w", ww)
+        before = counts[0][counts[1]]
+        dets = [(i, d) for i, d in enumerate(map(rp.process_samples, frames)) if d is not None]
+        runs.append((dets, counts[0][counts[1]] - before))
+    (gpu, launches), (cpu, cpu_launches) = runs
+    assert (launches, cpu_launches) == (3 * len(frames), 0)
+    assert len(cpu) >= 1 and [i for i, _ in gpu] == [i for i, _ in cpu]
+    for (_, g), (_, c) in zip(gpu, cpu):
+        assert (g.name, g.counter, g.gain) == (c.name, c.counter, c.gain)
+        np.testing.assert_allclose([g.score, g.avg_score, *g.scores.values()],
+                                   [c.score, c.avg_score, *c.scores.values()],
+                                   rtol=2e-5, atol=2e-5)
