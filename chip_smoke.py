@@ -5,13 +5,17 @@
 
 Phases, each of which raises (non-zero exit) when it fails:
   1. print the card's name and power limit, build every kernel of the main
-     paths from csrc/ with nvcc (one nvcc per source and variant, all at
-     once), print the build seconds and the compiler's register/spill report;
+     paths from csrc/ with nvcc, and the host ingest library with the host
+     C++ compiler (one compiler per source and variant, all at once), print
+     the build seconds and the compiler's register/spill report;
   2. kernel phase: each kernel (K1 fused_dtw_v4, K2 fused_dtw_v3, K3
-     banded_dtw, K4 fused_dtw_v2) against its plain PyTorch version on the
-     card, at the unit-test shapes and at the bench shapes, with its time
-     (CUDA events over back-to-back launches, median of 20), the plain
-     version's time and its bound;
+     banded_dtw, K4 fused_dtw_v2, K5 fused_dtw_v1) against its plain PyTorch
+     version on the card, at the unit-test shapes and at the bench shapes,
+     with its time (CUDA events over back-to-back launches, median of 20;
+     K5's from kernel_probe --v1 in phase 5), the plain version's time and
+     its bound; then the fp32 probes V1-V6 (tools/fma_probe.py) against
+     their plain versions at reps = 16 and in each timed run at reps = 2000,
+     with the plain versions' time there;
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
      wakeword runs the bench correctness pass (stream 0 must fire, every
      chunk must launch K1), streams 0-3 must give the events of a
@@ -26,7 +30,14 @@ Phases, each of which raises (non-zero exit) when it fails:
      K4 with dtw_fused_variant=2, K3 with dtw_fused=False: stream 0 must
      fire, every shift must launch the mode's kernel, streams 0-3 must give
      the events of a device="cpu" run at B=4), and the K2 mode is timed as in
-     phase 3 and split by torch.profiler.
+     phase 3 and split by torch.profiler;
+  5. tools phase (K5, V1-V6): the kernel tooling path with the counts reset
+     before it: kernel_parity's seven checks at B=8192, kernel_probe in its
+     four modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, default
+     K2), fma_probe timing
+     V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
+     peak), and the host ingest library's decode; K5 and every probe must
+     have launched.
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -42,14 +53,30 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): fp32 on the
-# CUDA cores and HBM3 bandwidth. The card's power limit is printed beside.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
+    H100,
+    bound,
+    device_kernels,
+    dp_work,
+    k1_bytes,
+    k1_work,
+    linear_bytes,
+    shift_bytes,
+    time_cuda,
+)
+
 # kernels vs their plain versions: the JAX kernel tests' own tolerances (K3,
 # adds and mins only, must be bit-exact)
 RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
+# the fp32 probes vs their plain versions, by reps: V1-V4 add exact halves in
+# the plain version's order (bit-exact, rtol 0). V5 and V6 fuse into one FMA
+# the product s*x that the plain version rounds first. At reps = 2000, S = 8
+# their largest |d|/|plain| on an NVIDIA H100 80GB HBM3 (700 W) is 1.947e-6
+# (the inputs are fixed, so it repeats); rtol is about twice that, far under
+# the worst case of 2*reps*S*2^-24 = 1.9e-3 for sums of terms of one sign.
+PROBE_RTOL = {16: 1e-6, 2000: 4e-6}
 EV_RTOL, EV_ATOL = 2e-5, 2e-5  # event scores, card vs CPU
 BENCH_STREAMS = 8192  # bench.py's B
 TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
@@ -58,7 +85,7 @@ PROFILED_CHUNKS = 5
 PROFILE_ROWS = 20
 # kernel sources built per MFCC size (C = 8 for the unit shapes, 16 for the
 # bench wakeword); banded_dtw.cu depends on the band only
-SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu")
+SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw_v1.cu")
 
 
 def log(*a):
@@ -70,49 +97,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-
-
-# ----------------------------------------------------------------- timing
-
-def time_cuda(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> float:
-    """ms per call: the median over `samples` of the CUDA-event time of `per`
-    back-to-back calls, divided by `per` (the host's enqueue of one call
-    overlaps the device's run of the one before)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(samples):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per)
-    return float(np.median(times))
-
-
-def device_kernels(fn, n: int):
-    """torch.profiler over `n` calls of fn: [(ms per call, launches per call,
-    kernel name)] of the device kernels, longest first. Empty when the
-    profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sorted(
-        ((e.self_device_time_total / n / 1e3, e.count / n, e.key)
-         for e in prof.key_averages()
-         if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
-        reverse=True,
-    )
 
 
 # ------------------------------------------------------------------ K1
@@ -130,30 +114,6 @@ def k1_inputs(rng, B, F, Lm, C, D, K, scale, device):
         templates=t(tpl),
         tnorms=t(np.sum(tpl ** 2, axis=-1)),
     )
-
-
-def k1_work(lens, w, C, B):
-    """(FLOPs of the cost-band dots, FLOPs of the rest) that the function
-    needs with the gate open: every stream scores every pair at all 3 shifts.
-    Per stream, pair of length n and shift: rwn over n columns (sub + FMA per
-    coefficient, one rsqrt), and per DP row r < n the dotm chain (2C), the
-    mean correction of every valid band cell (sub, mul, 1 -) and the DP (add +
-    min per slot, then the add + min chain). The dot T'[r-1].W[c] does not
-    depend on the shift's mean, and shift s+1's column c is shift s's column
-    c+1, so the dots of row r count once per distinct window column over the 3
-    shifts (2C each)."""
-    dots = rest = 0
-    for n in lens:
-        rest += 3 * n * (3 * C + 1)
-        for r in range(1, n):
-            cols = [r - w + j for j in range(2 * w) if 1 <= r - w + j <= min(n, r + w - 1)]
-            dots += 2 * C * len({c + s for c in cols for s in range(3)})
-            rest += 3 * (2 * C + 3 * len(cols) + 2 * (2 * w) + 2 * (2 * w - 1))
-    return dots * B, rest * B
-
-
-def k1_bytes(F, C, B, P, Lm):
-    return 4 * (F * C * B + 3 * C * B + 3 * P * C * B + P * Lm * C + P * Lm + B * 3 * P)
 
 
 def mid_bound(avg):
@@ -240,11 +200,11 @@ def kernel_phase(dev, record):
     dots, rest = k1_work(lens, w, C, B)
     flops = dots + rest
     nbytes = k1_bytes(F, C, B, P, Lm)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops, t_bytes = bound(flops, 0)[0], bound(0, nbytes)[0]
     log(f"K1 bench gate open: {ms:.4f} ms (gate mixed {ms_mixed:.4f} ms), plain "
         f"{plain_ms:.3f} ms; needs {flops / 1e9:.4f} GFLOP (dots {dots / 1e9:.4f}, rest "
-        f"{rest / 1e9:.4f}; {t_ops:.4f} ms at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) and "
-        f"{nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+        f"{rest / 1e9:.4f}; {t_ops:.4f} ms at {H100.fp32_tflops:.0f} TFLOP/s) and "
+        f"{nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {H100.hbm_gbps / 1e3:.2f} TB/s)")
     record["fused_dtw_v4"] = {
         "name": "fused_dtw_v4",
         "route": "cuda",
@@ -261,26 +221,6 @@ def kernel_phase(dev, record):
 
 
 # ------------------------------------------------------------ K2, K3, K4
-
-def dp_work(n, w, C, dotm):
-    """FLOPs one (stream, pair) of length n needs in the per-shift kernels:
-    rwn over n columns (sub + FMA per coefficient, one rsqrt), and per DP row
-    r < n the dot of every valid band cell (2C), its mean correction (sub,
-    mul, 1 -) and the DP (add + min per slot, then the add + min chain);
-    `dotm` adds the T'[r-1].m chain (2C) per row, which K4 computes and K2
-    reads from its input."""
-    f = n * (3 * C + 1) if n >= 2 else 0
-    for r in range(1, n):
-        cells = sum(1 for j in range(2 * w) if 1 <= r - w + j <= min(n, r + w - 1))
-        f += 2 * C * cells + 3 * cells + 2 * (2 * w) + 2 * (2 * w - 1) + (2 * C if dotm else 0)
-    return f
-
-
-def bound(flops, nbytes):
-    """(bound ms, what bounds it) at the data-sheet peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, flops, nbytes):
     bound_ms, bound_by = bound(flops, nbytes)
@@ -356,7 +296,7 @@ def k2_phase(dev, record):
                          warmup=1)
     log(f"K2 bench gate mixed: {ms_mixed:.4f} ms")
     flops = B * sum(dp_work(n, w, C, False) for n in lens)
-    nbytes = 4 * (Lm * C * B + P * C * B + P * Lm * B + P * Lm * C + P + D + P * B)
+    nbytes = shift_bytes(Lm, C, B, P, D)
     record["fused_dtw_v3"] = kernel_row("fused_dtw_v3", "fused_dtw_v3.cu",
                                         "rustpotter_tpu/ops/fused_dtw.py:273", worst, ms,
                                         plain_ms, flops, nbytes)
@@ -393,7 +333,7 @@ def k4_phase(dev, record):
     ms = time_cuda(lambda: fd.score_linear(x["win"], x["means"], tset))
     plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
     flops = B * sum(dp_work(n, w, C, True) for n in lens)
-    nbytes = 4 * (Lm * C * B + P * C * B + P * Lm * C + P + P * B)
+    nbytes = linear_bytes(Lm, C, B, P)
     record["fused_dtw_v2"] = kernel_row("fused_dtw_v2", "fused_dtw_v2.cu",
                                         "rustpotter_tpu/ops/fused_dtw.py:167", worst, ms,
                                         plain_ms, flops, nbytes)
@@ -431,23 +371,160 @@ def k3_phase(dev, record):
                                       flops, nbytes)
 
 
+def k5_phase(dev, record):
+    """K5 (fused_dtw_batch, variant 1) against fused_dtw_batch_ref, and the
+    plain version's time. The kernel's time and bound come from kernel_probe
+    --v1 in the tools phase, on the same inputs."""
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+    from rustpotter_tpu_torch.tools import kernel_probe
+
+    rng = np.random.default_rng(10)
+    worst = 0.0
+    Lm, C, w = 60, 8, 5
+    lens = (60, 41, 33, 55)
+    for B in (50, 33, 1):
+        x = v3_inputs(rng, B, Lm, Lm, C, len(lens), 1.0, dev)
+        win, means = x["win"].permute(2, 0, 1), x["means"].permute(2, 0, 1)
+        args = (win, means, x["templates"], x["tnorms"], lens, w)
+        worst = max(worst, compare(fd.fused_dtw_batch(*args, variant=1),
+                                   fd.fused_dtw_batch_ref(*args), "K5", ATOL_V2))
+        log(f"K5 unit shapes B={B}: ok")
+
+    # the kernel probe's bench shapes and inputs
+    x = kernel_probe.inputs(BENCH_STREAMS, 1, dev)
+    args = (x["win"], x["means"], x["templates"], x["tnorms"], kernel_probe.LENS,
+            kernel_probe.W)
+    err = compare(fd.fused_dtw_batch(*args, variant=1), fd.fused_dtw_batch_ref(*args), "K5",
+                  ATOL_V2)
+    worst = max(worst, err)
+    plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
+    log(f"K5 bench shapes: max|d| {err:.3e}; plain {plain_ms:.3f} ms")
+    record["fused_dtw_v1"] = {
+        "name": "fused_dtw_v1", "route": "cuda",
+        "source": "rustpotter_tpu_torch/csrc/fused_dtw_v1.cu",
+        "replaces": "rustpotter_tpu/ops/fused_dtw.py:78", "launches": None,
+        "max_abs_err": worst, "ms": None, "plain_ms": plain_ms, "bound_ms": None,
+        "bound_by": None, "library_ms": None}
+
+
+def probe_phase(dev, record):
+    """V1-V6 (tools/fma_probe.py) against their plain versions: at reps = 16
+    with S in {8, 32}, and at reps = 2000 in each of fma_probe's timed runs,
+    where the plain version is timed too. The kernels' times come from the
+    tools phase, which repeats those runs on the same inputs."""
+    import torch
+
+    from rustpotter_tpu_torch.tools import fma_probe
+
+    x, s = fma_probe.inputs(dev)
+    tiles = fma_probe.default_tiles(dev)
+    worst, plain_ms = {}, {}
+
+    def hold(name, reps, S):
+        """Kernel against plain version; (plain ms, max |d| / |plain|)."""
+        got = fma_probe.probe(name, x, s, reps, S, tiles)
+        out = []
+        ms = time_cuda(lambda: out.append(fma_probe.plain(name, x, s, reps, S)), samples=1,
+                       per=1, warmup=0)
+        want = out[0].expand_as(got)
+        rtol = PROBE_RTOL[reps] if name in ("sload", "smemload") else 0.0
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0,
+                                   msg=lambda m: f"{name} reps={reps} S={S}: {m}")
+        d = (got - want).abs()
+        worst[name] = max(worst.get(name, 0.0), float(d.max()))
+        return ms, float((d / want.abs()).max())
+
+    for name in fma_probe.KERNELS:
+        for S in (8, 32):
+            hold(name, 16, S)
+    for label, name, S in fma_probe.RUNS:
+        ms, rel = hold(name, fma_probe.REPS, S)
+        plain_ms[name] = ms  # the run the kernels line reads is the last one of each probe
+        log(f"probe {label}: matches its plain version at reps=16 (S=8 and 32) and at "
+            f"reps={fma_probe.REPS}, S={S}: max|d| {worst[name]:.3e}, max|d|/|plain| at "
+            f"reps={fma_probe.REPS} {rel:.3e}; plain {ms:.1f} ms")
+    for name, (_, replaces) in fma_probe.KERNELS.items():
+        record[f"fma_probe_{name}"] = {
+            "name": f"fma_probe_{name}", "route": "cuda",
+            "source": "rustpotter_tpu_torch/csrc/fma_probe.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": worst[name], "ms": None,
+            "plain_ms": plain_ms[name], "bound_ms": None, "bound_by": None,
+            "library_ms": None}
+
+
+def tools_phase(dev, record):
+    """The kernel tooling path: kernel_parity's seven checks at B=8192, the
+    kernel probe in each of its 4 modes, the fp32 probes timed at reps=2000,
+    and the host ingest library; counts reset before and read after."""
+    import torch
+
+    from rustpotter_tpu_torch import native
+    from rustpotter_tpu_torch.audio.encoder import decode_bytes
+    from rustpotter_tpu_torch.config import Endianness, SampleFormat
+    from rustpotter_tpu_torch.tools import fma_probe, kernel_parity, kernel_probe
+
+    reset_counts()
+    t0 = time.perf_counter()
+    kernel_parity.run(BENCH_STREAMS, dev)
+    log(f"tools: kernel_parity passed all {len(kernel_parity.CHECKS)} checks at "
+        f"B={BENCH_STREAMS} in {time.perf_counter() - t0:.2f} s")
+    probes = {}
+    for argv in (["--v1"], ["--v2"], ["--v4"], []):
+        B, iters, variant, gate = kernel_probe.parse([str(BENCH_STREAMS), "20", *argv])
+        probes[variant] = kernel_probe.measure(B, iters, variant, gate, dev)
+        for line in kernel_probe.report(probes[variant]):
+            log(f"kernel_probe {' '.join(argv) or '(default)'}: {line}")
+    log(f"tools: K5 {probes[1]['ms']:.4f} ms beside K4 {probes[2]['ms']:.4f} ms on the same "
+        "inputs")
+    rows, chip = fma_probe.measure(dev)
+    for r in rows:
+        log(f"fma_probe {r['label']:10s} {r['ms'] * 1e3:10.1f} us  {r['steps_per_us']:12.1f} "
+            f"steps/us  {r['flops_per_step']} FLOP/step  {r['tflops']:7.3f} TFLOP/s  SASS "
+            f"{r['sass']}")
+    log(f"fma_probe: measured fp32 FMA rate {chip.fp32_fma_tflops_measured:.3f} TFLOP/s "
+        f"(V1, 32 chains) beside the data-sheet peak {chip.fp32_tflops:.0f} TFLOP/s")
+    pcm = np.random.default_rng(1).integers(-32768, 32768, 4800).astype("<i2").tobytes()
+    if not np.array_equal(native.decode_pcm(pcm, "i16"),
+                          decode_bytes(pcm, SampleFormat.I16, Endianness.LITTLE)):
+        raise AssertionError("native decode_pcm differs from the encoder")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"tools: launches {launches}; native ingest library built and decodes exactly")
+    if launches["fused_dtw_v1"] == 0:
+        raise AssertionError("the tools phase did not launch K5")
+    record["fused_dtw_v1"].update(launches=launches["fused_dtw_v1"], ms=probes[1]["ms"],
+                                  bound_ms=probes[1]["bound_ms"],
+                                  bound_by=probes[1]["bound_by"])
+    for name in fma_probe.KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"the tools phase did not launch probe {name}")
+        S = 32 if name == "fma" else fma_probe.STREAMS
+        r = next(r for r in rows if r["probe"] == name and r["S"] == S)
+        bound_ms, bound_by = bound(r["flops"], r["bytes"])
+        record[f"fma_probe_{name}"].update(launches=launches[name], ms=r["ms"],
+                                           bound_ms=bound_ms, bound_by=bound_by)
+    return {"fp32_fma_tflops_measured": chip.fp32_fma_tflops_measured}
+
+
 # ---------------------------------------------------------------- slice
+
+def _counts():
+    from rustpotter_tpu_torch.ops import banded_dtw as bd
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
+    from rustpotter_tpu_torch.tools import fma_probe
+
+    return fd.LAUNCHES, bd.LAUNCHES, fma_probe.LAUNCHES
+
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
-    from rustpotter_tpu_torch.ops import banded_dtw as bd
-    from rustpotter_tpu_torch.ops import fused_dtw as fd
-
-    for counts in (fd.LAUNCHES, bd.LAUNCHES):
+    for counts in _counts():
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
-    from rustpotter_tpu_torch.ops import banded_dtw as bd
-    from rustpotter_tpu_torch.ops import fused_dtw as fd
-
-    return {**fd.LAUNCHES, **bd.LAUNCHES}
+    return {k: v for counts in _counts() for k, v in counts.items()}
 
 
 def timed_windows(process, states, noise):
@@ -720,7 +797,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from rustpotter_tpu_torch import _build
 
     card = card_line()
@@ -728,10 +804,11 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     builds = [(src, {"RP_C": c, "RP_W": 5}) for src in SOURCES_C for c in (8, 16)]
-    builds.append(("banded_dtw.cu", {"RP_W": 5}))
+    builds += [("banded_dtw.cu", {"RP_W": 5}), ("fma_probe.cu", {}), ("ingest.cpp", {})]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _build.build(*b), builds))
-    log(f"build: {len(builds)} kernel variants in {time.perf_counter() - t0:.2f} s")
+    log(f"build: {len(builds)} libraries (kernel variants and the host ingest library) in "
+        f"{time.perf_counter() - t0:.2f} s")
     for src, d in builds:
         for line in _build.build_log(src, d).splitlines():
             if "registers" in line or "spill" in line:
@@ -742,8 +819,11 @@ def main() -> int:
     k2_phase(dev, record)
     k3_phase(dev, record)
     k4_phase(dev, record)
+    k5_phase(dev, record)
+    probe_phase(dev, record)
     summary = slice_phase(dev, record)
     summary.update(per_shift_phase(dev, record))
+    summary.update(tools_phase(dev, record))
     log(json.dumps({"card": card, **summary}))
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""Build the package's CUDA sources at first use.
+"""Build the package's native sources at first use.
 
-Each source under csrc/ is compiled by `nvcc` into a shared library with a
-plain C interface and loaded with ctypes. Compile-time constants (-D) are part
-of a build: a library is keyed by a hash of the source text and the flags, and
-lands in _build/ (listed in .gitignore). Nothing here runs at import, and
-nothing falls back: a failed build raises.
+Each source under csrc/ is compiled into a shared library with a plain C
+interface and loaded with ctypes: a CUDA source (.cu) by `nvcc` for sm_90a,
+a host C++ source (.cpp) by the host compiler. Compile-time constants (-D)
+are part of a build: a library is keyed by a hash of the source text, the
+flags and the compiler's identity (its path and its `--version`), so a
+library built by another toolkit is never loaded. It lands in _build/
+(listed in .gitignore). Nothing here runs at
+import, and nothing falls back: a failed build raises.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -41,33 +45,64 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(defines: dict) -> list:
-    return list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in sorted(defines.items())]
+def cxx() -> str:
+    """The host C++ compiler: $CXX, then g++ on PATH."""
+    cand = os.environ.get("CXX") or shutil.which("g++")
+    if not cand:
+        raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH")
+    return cand
+
+
+def _is_cuda(source: str) -> bool:
+    return source.endswith(".cu")
+
+
+def _compiler(source: str) -> str:
+    return nvcc() if _is_cuda(source) else cxx()
+
+
+_identities: dict = {}
+
+
+def compiler_identity(compiler: str) -> str:
+    """The compiler's path and `--version` text, read once per process."""
+    ident = _identities.get(compiler)
+    if ident is None:
+        res = subprocess.run([compiler, "--version"], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{compiler} --version failed:\n{res.stderr}")
+        ident = _identities[compiler] = f"{compiler}\n{res.stdout}"
+    return ident
+
+
+def _flags(source: str, defines: dict) -> list:
+    base = NVCC_FLAGS if _is_cuda(source) else CXX_FLAGS
+    return list(base) + [f"-D{k}={v}" for k, v in sorted(defines.items())]
 
 
 def library_path(source: str, defines: dict) -> Path:
     src = CSRC / source
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(_flags(defines)).encode()
-    ).hexdigest()[:16]
+    stamp = compiler_identity(_compiler(source)) + " ".join(_flags(source, defines))
+    key = hashlib.sha256(src.read_bytes() + stamp.encode()).hexdigest()[:16]
     return BUILD / f"{src.stem}-{key}.so"
 
 
 def build(source: str, defines: dict) -> Path:
     """Compile csrc/<source> with the given -D constants unless a library of
-    the same source and flags exists. The compiler's report (ptxas registers,
-    spills) is kept beside it as a .log file."""
+    the same source and flags exists. The compiler's report (for CUDA, ptxas
+    registers and spills) is kept beside it as a .log file."""
     out = library_path(source, defines)
     if out.exists():
         return out
     BUILD.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
+    compiler = _compiler(source)
     res = subprocess.run(
-        [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / source)],
+        [compiler, *_flags(source, defines), "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True,
     )
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source} {defines}:\n{res.stderr}")
+        raise RuntimeError(f"{compiler} failed for {source} {defines}:\n{res.stderr}")
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out

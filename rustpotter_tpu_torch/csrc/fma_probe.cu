@@ -1,0 +1,174 @@
+// V1-V6: microbenchmarks of the primitives the DTW kernels are built from,
+// for Hopper (sm_90a).
+//
+// Replace the six TPU probe kernels of tools/vpu_probe.py (k_fma, k_fma_dep,
+// k_dynload, k_dynload_cheap, k_sload, k_smemload). Each computes its TPU
+// kernel's function lane by lane: thread `lane` of tile g computes lane
+// `lane` of the TPU kernel's (1, 8, 128) output for the same x, and writes it
+// to out[g]. A grid of G tiles (the caller sizes it to fill the card) writes
+// (G, 8, 128); every tile is the same. The plain versions are in
+// rustpotter_tpu_torch/tools/fma_probe.py.
+//
+// Operands (fp32): x (rows = 64, 8 * 128), s (32, 16), out (G, 8 * 128).
+// S (the TPU probe's `streams`, 8 or 32) is a template constant; reps, the
+// row count of x and the 0.5 factor are run-time values, so that the
+// compiler keeps every step: fmaf(half, wt, acc) with a run-time `half`
+// cannot be split or folded, and it equals the TPU's acc + 0.5 * wt exactly
+// (0.5 * wt is exact). The reps loop is not unrolled, as the TPU's
+// fori_loop; the S steps inside it are.
+//
+// What each measures:
+//   V1 fma            S independent FMA chains (the fp32 issue rate);
+//   V2 fma_dep        one dependent chain of reps * S FMAs (its latency);
+//   V3 dynload        FMAs fed by x rows at a dynamic row index from global
+//                     memory, the index a real integer remainder
+//                     rem(r * S + i, rows) (the DTW kernels' coalesced column
+//                     loads, with costly index math);
+//   V4 dynload_cheap  the same with index (r & 31) + i;
+//   V5 sload          FMAs fed by s at a dynamic row from shared memory (all
+//                     lanes one address: a broadcast);
+//   V6 smemload       V5's function with s read by a warp-uniform global
+//                     load, the T' pattern of K1-K5.
+// Bound: operations (reps * S FMAs per lane); the bytes are x, s and out.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 8 * 128;  // lanes of a TPU (8, 128) tile
+constexpr int BLOCK = 256;     // threads per block; a tile is 4 blocks
+
+struct Args {
+  const float* x;
+  const float* s;
+  float* out;
+  int reps, rows;
+  float half;
+};
+
+__device__ __forceinline__ int lane_of() { return (blockIdx.x % (TILE / BLOCK)) * BLOCK + threadIdx.x; }
+
+__device__ __forceinline__ void store(const Args& a, float v) {
+  a.out[(size_t)(blockIdx.x / (TILE / BLOCK)) * TILE + lane_of()] = v;
+}
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_fma(Args a) {
+  const int l = lane_of();
+  float acc[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) acc[i] = a.x[i * TILE + l] * (1.0f + i);
+  const float wt = a.x[S * TILE + l];
+#pragma unroll 1
+  for (int r = 0; r < a.reps; ++r) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc[i] = fmaf(a.half, wt, acc[i]);
+  }
+  float o = acc[0];
+#pragma unroll
+  for (int i = 1; i < S; ++i) o += acc[i];
+  store(a, o);
+}
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_fma_dep(Args a) {
+  const int l = lane_of();
+  float acc = a.x[l];
+  const float wt = a.x[TILE + l];
+#pragma unroll 1
+  for (int r = 0; r < a.reps; ++r) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc = fmaf(a.half, wt, acc);
+  }
+  store(a, acc);
+}
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_dynload(Args a) {
+  const int l = lane_of();
+  float acc = a.x[l] * 0.0f;
+#pragma unroll 1
+  for (int r = 0; r < a.reps; ++r) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int idx = (r * S + i) % a.rows;
+      acc = fmaf(a.half, __ldg(a.x + idx * TILE + l), acc);
+    }
+  }
+  store(a, acc);
+}
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_dynload_cheap(Args a) {
+  const int l = lane_of();
+  float acc = a.x[l] * 0.0f;
+#pragma unroll 1
+  for (int r = 0; r < a.reps; ++r) {
+    const int base = r & 31;
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc = fmaf(a.half, __ldg(a.x + (base + i) * TILE + l), acc);
+  }
+  store(a, acc);
+}
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_sload(Args a) {
+  __shared__ float s[32 * 16];
+  for (int i = threadIdx.x; i < 32 * 16; i += BLOCK) s[i] = a.s[i];
+  __syncthreads();
+  const int l = lane_of();
+  float acc = a.x[l] * 0.0f;
+  const float wt = a.x[TILE + l];
+#pragma unroll 1
+  for (int r = 0; r < a.reps; ++r) {
+    const int row = r & 31;
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc = fmaf(s[row * 16 + i % 16], wt, acc);
+  }
+  store(a, acc);
+}
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_smemload(Args a) {
+  const int l = lane_of();
+  float acc = a.x[l] * 0.0f;
+  const float wt = a.x[TILE + l];
+#pragma unroll 1
+  for (int r = 0; r < a.reps; ++r) {
+    const int row = r & 31;
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc = fmaf(__ldg(a.s + row * 16 + i % 16), wt, acc);
+  }
+  store(a, acc);
+}
+
+template <int S>
+int launch(int kernel, const Args& a, int tiles, cudaStream_t stream) {
+  const dim3 grid((unsigned)(tiles * (TILE / BLOCK))), block(BLOCK);
+  switch (kernel) {
+    case 0: probe_fma<S><<<grid, block, 0, stream>>>(a); break;
+    case 1: probe_fma_dep<S><<<grid, block, 0, stream>>>(a); break;
+    case 2: probe_dynload<S><<<grid, block, 0, stream>>>(a); break;
+    case 3: probe_dynload_cheap<S><<<grid, block, 0, stream>>>(a); break;
+    case 4: probe_sload<S><<<grid, block, 0, stream>>>(a); break;
+    case 5: probe_smemload<S><<<grid, block, 0, stream>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch probe `kernel` (0 fma, 1 fma_dep, 2 dynload, 3 dynload_cheap,
+// 4 sload, 5 smemload) with S in {8, 32} chains or steps per rep, on
+// `stream`. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for an unknown kernel or S): a refused launch never runs, so the caller
+// must check this value.
+extern "C" int rp_fma_probe(int kernel, int S, const void* x, const void* s, void* out,
+                            void* stream, int tiles, int reps, int rows, float half) {
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(s),
+               static_cast<float*>(out), reps, rows, half};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S == 8) return launch<8>(kernel, a, tiles, st);
+  if (S == 32) return launch<32>(kernel, a, tiles, st);
+  return (int)cudaErrorInvalidValue;
+}

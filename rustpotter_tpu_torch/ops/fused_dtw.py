@@ -1,17 +1,18 @@
-"""The fused band-cost + banded-DTW scorers: K1, K2 and K4.
+"""The fused band-cost + banded-DTW scorers: K1, K2, K4 and K5.
 
 `fused_dtw_chunk_v4` (K1) scores all 3 MFCC shifts of a 30 ms chunk for every
 stream against every template pair: the function of the TPU kernel
 `rustpotter_tpu/ops/fused_dtw.py::_kernel_v4` (called through `fused_dtw_chunk_v4`),
 in the port's stream-minor layout. `fused_dtw_batch_v3_t` (K2, `_kernel_v3`)
-scores one shift's circular window, and `fused_dtw_batch` (K4, `_kernel_v2`)
-one linear window with no gate; both sit further down. On a CUDA tensor each
+scores one shift's circular window, and `fused_dtw_batch` one linear window
+with no gate: variant 2 is K4 (`_kernel_v2`), variant 1 K5 (`_kernel`, the
+same function in one row loop); both sit further down. On a CUDA tensor each
 wrapper launches its Hopper kernel from csrc/ (built at first use) or raises;
-on a CPU tensor it runs its plain version (`*_ref`). The three compute one
+on a CPU tensor it runs its plain version (`*_ref`). They all compute one
 function, `_band_sims`, on differently made windows.
 
-K1, per stream and shift s (ns = s+1 new rows visible); K2 and K4 take steps
-2-6 on their one window, K4 without step 6:
+K1, per stream and shift s (ns = s+1 new rows visible); K2, K4 and K5 take
+steps 2-6 on their one window, K4 and K5 without step 6:
   1. the virtual window is linearized: logical column i is new row
      i-(F-ns) when that index is >= 0, else win[(rot0+ns+1+i) % F];
   2. templates are pre-normalized, T' = T·rsqrt(|T|²), zero rows kept zero;
@@ -46,12 +47,12 @@ import torch
 
 from .. import _build
 
-SOURCE = "fused_dtw_v4.cu"  # K1; K2 and K4 name theirs beside their wrappers
+SOURCE = "fused_dtw_v4.cu"  # K1; K2, K4 and K5 name theirs beside their wrappers
 INF = float("inf")
 
 # Launch count of every kernel wrapper in this module: one per launch of the
 # kernel, nowhere else (chip_smoke.py resets and reads it).
-LAUNCHES = {"fused_dtw_v4": 0, "fused_dtw_v3": 0, "fused_dtw_v2": 0}
+LAUNCHES = {"fused_dtw_v4": 0, "fused_dtw_v3": 0, "fused_dtw_v2": 0, "fused_dtw_v1": 0}
 
 
 def _check_band(band: int) -> None:
@@ -501,19 +502,26 @@ def fused_dtw_batch_v3(
     )
 
 
-# ---------------------------------------------------------------------- K4
+# ------------------------------------------------------------------ K4, K5
 #
-# `fused_dtw_batch(variant=2)` scores a LINEAR window for every stream
-# against every pair, with no gate: the function of the TPU kernel
-# `rustpotter_tpu/ops/fused_dtw.py::_kernel_v2` (called through
-# `fused_dtw_batch`). rwn and dotm are computed in the kernel.
+# `fused_dtw_batch` scores a LINEAR window for every stream against every
+# pair, with no gate: variant 2 (K4) is the function of the TPU kernel
+# `rustpotter_tpu/ops/fused_dtw.py::_kernel_v2`, variant 1 (K5) that of
+# `_kernel` (both called through `fused_dtw_batch`). The two TPU kernels
+# compute one function in different loop orders, so K4 and K5 share their
+# plain version and their C interface; rwn and dotm are computed in the
+# kernel.
 
-SOURCE_V2 = "fused_dtw_v2.cu"
+# variant: (source, C entry point, launch count key)
+_LINEAR = {
+    2: ("fused_dtw_v2.cu", "rp_fused_dtw_v2", "fused_dtw_v2"),
+    1: ("fused_dtw_v1.cu", "rp_fused_dtw_v1", "fused_dtw_v1"),
+}
 
 
 def _check_args_v2(win_t, means_t, tp, lens, band):
-    """Shapes of K4's stream-minor arguments: win_t (Lm, C, B), means_t
-    (P, C, B), tp the (P, Lm, C) template set."""
+    """Shapes of K4's and K5's stream-minor arguments: win_t (Lm, C, B),
+    means_t (P, C, B), tp the (P, Lm, C) template set."""
     _check_band(band)
     if win_t.dim() != 3:
         raise ValueError(f"win must be (Lm, C, B), got {tuple(win_t.shape)}")
@@ -527,13 +535,8 @@ def _check_args_v2(win_t, means_t, tp, lens, band):
 
 
 def _variant(variant: int) -> None:
-    if variant == 1:
-        raise NotImplementedError(
-            "fused_dtw_batch variant 1 (the TPU kernel _kernel, K5) is not ported yet: "
-            "ROADMAP queue 2"
-        )
-    if variant != 2:
-        raise ValueError(f"fused_dtw_batch: unknown variant {variant}")
+    if variant not in _LINEAR:
+        raise ValueError(f"fused_dtw_batch: unknown variant {variant} (1 or 2)")
 
 
 def _stream_minor(win: torch.Tensor, means: torch.Tensor):
@@ -550,8 +553,8 @@ def fused_dtw_batch_ref(
     lens: tuple,
     band: int,
 ) -> torch.Tensor:
-    """The plain PyTorch version of K4 (any device): win (B, Lm, C), means
-    (B, P, C). Returns sims (B, P)."""
+    """The plain PyTorch version of K4 and K5 (any device): win (B, Lm, C),
+    means (B, P, C). Returns sims (B, P)."""
     win_t, means_t = _stream_minor(win, means)
     _check_args_v2(win_t, means_t, templates, lens, band)
     _check_tnorms(templates, tnorms)
@@ -563,19 +566,22 @@ def _plain_v2(win_t, means_t, tp, lens, band):
 
 
 @lru_cache(maxsize=None)
-def _library_v2(C: int, band: int) -> ctypes.CDLL:
-    lib = _build.load(SOURCE_V2, {"RP_C": C, "RP_W": band})
-    fn = lib.rp_fused_dtw_v2
+def _library_linear(variant: int, C: int, band: int) -> ctypes.CDLL:
+    source, entry, _ = _LINEAR[variant]
+    lib = _build.load(source, {"RP_C": C, "RP_W": band})
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     return lib
 
 
-def score_linear(win_t: torch.Tensor, means_t: torch.Tensor, tset: TemplateSet) -> torch.Tensor:
-    """K4 on a prepared template set, stream-minor: win_t (Lm, C, B) linear
-    window, means_t (P, C, B). Returns sims (B, P). CPU tensors run the plain
-    version; CUDA tensors launch the kernel (a failed build or launch
-    raises)."""
+def score_linear(win_t: torch.Tensor, means_t: torch.Tensor, tset: TemplateSet,
+                 variant: int = 2) -> torch.Tensor:
+    """K4 (variant 2) or K5 (variant 1) on a prepared template set,
+    stream-minor: win_t (Lm, C, B) linear window, means_t (P, C, B). Returns
+    sims (B, P). CPU tensors run the plain version; CUDA tensors launch the
+    variant's kernel (a failed build or launch raises)."""
+    _variant(variant)
     _check_args_v2(win_t, means_t, tset.tp, tset.lens, tset.band)
     if win_t.device.type == "cpu":
         return _plain_v2(win_t, means_t, tset.tp, tset.lens, tset.band)
@@ -587,14 +593,15 @@ def score_linear(win_t: torch.Tensor, means_t: torch.Tensor, tset: TemplateSet) 
         raise ValueError(f"the template set must be on {dev}")
     Lm, C, B = win_t.shape
     P = tset.tp.shape[0]
+    _, entry, key = _LINEAR[variant]
     out = torch.empty((P, B), dtype=torch.float32, device=dev)
-    err = _library_v2(C, tset.band).rp_fused_dtw_v2(
+    err = getattr(_library_linear(variant, C, tset.band), entry)(
         win_t.data_ptr(), means_t.data_ptr(), tset.padded.data_ptr(),
         tset.lens_t.data_ptr(), out.data_ptr(), _stream_handle(dev), B, Lm, P,
     )
     if err != 0:
-        raise RuntimeError(f"fused_dtw_v2 kernel launch failed: CUDA error {err}")
-    LAUNCHES["fused_dtw_v2"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
+    LAUNCHES[key] += 1
     return out.T
 
 
@@ -607,16 +614,16 @@ def fused_dtw_batch(
     band: int,
     variant: int = 2,
 ) -> torch.Tensor:
-    """K4. win (B, Lm, C) = linear window (oldest first); means (B, P, C);
-    templates (P, Lm, C) raw, tnorms (P, Lm) their squared row norms; lens
-    the P pair lengths. Returns sims (B, P).
+    """K4 (variant 2) or K5 (variant 1). win (B, Lm, C) = linear window
+    (oldest first); means (B, P, C); templates (P, Lm, C) raw, tnorms (P, Lm)
+    their squared row norms; lens the P pair lengths. Returns sims (B, P).
 
-    variant 2 is K4; variant 1 (K5) is not ported and raises
-    NotImplementedError on every device. CPU tensors run
-    `fused_dtw_batch_ref`; CUDA tensors take the window stream-minor,
-    prepare T' and launch the kernel through `score_linear`."""
+    CPU tensors run `fused_dtw_batch_ref` (both variants compute its
+    function); CUDA tensors take the window stream-minor, prepare T' and
+    launch the variant's kernel through `score_linear`."""
     _variant(variant)
     if win.device.type == "cpu":
         return fused_dtw_batch_ref(win, means, templates, tnorms, lens, band)
     win_t, means_t = _stream_minor(win, means)
-    return score_linear(win_t, means_t, prepare_templates(templates, tnorms, lens, band))
+    return score_linear(win_t, means_t, prepare_templates(templates, tnorms, lens, band),
+                        variant)

@@ -1,0 +1,142 @@
+"""Time one fused DTW kernel alone at the bench shapes (B, Lm=100, C=16, w=5,
+P=6), on the card: the counterpart of the JAX package's tools/kernel_probe.py.
+
+    python -m rustpotter_tpu_torch.tools.kernel_probe [B] [iters] [--v1|--v2|--v4] [--gate]
+
+The default is K2 (`fused_dtw_batch_v3`); --v1 is K5 and --v2 K4
+(`fused_dtw_batch(variant=1 or 2)`), --v4 is K1 (`fused_dtw_chunk_v4`, all 3
+shifts of a chunk). --gate sets a gate bound that no random stream passes
+(K1 and K2 then score the avg pairs only). It prints:
+  - the launch alone, its template set and layouts prepared outside it:
+    CUDA events, the median of 20 samples of 10 back-to-back launches;
+  - the device kernels of `iters` calls of the whole wrapper by name and
+    time (torch.profiler), in place of the JAX tool's perfetto trace;
+  - the bound at the card's data-sheet peaks (utils/profiling.py).
+The TPU scheduling knobs of the JAX tool (--jch, --dpg, --dik) do not exist
+here and are refused. Without a card it exits non-zero: a plain version
+never runs in the kernel's place.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from ..ops import fused_dtw as fd
+from ..utils import profiling
+
+LM, C, W = 100, 16, 5
+LENS = (100, 98, 96, 94, 92, 97)  # one wakeword: 5 templates + its avg pair
+FLAGS = ("--v1", "--v2", "--v4", "--gate")
+
+
+def parse(argv):
+    """(B, iters, variant, gate) from the command line; ValueError on
+    anything else."""
+    args = [a for a in argv if not a.startswith("--")]
+    opts = [a for a in argv if a.startswith("--")]
+    bad = [o for o in opts if o not in FLAGS]
+    if bad or len(args) > 2:
+        raise ValueError(f"unknown arguments {bad or args[2:]}: usage [B] [iters] "
+                         "[--v1|--v2|--v4] [--gate]")
+    B = int(args[0]) if args else 8192
+    iters = int(args[1]) if len(args) > 1 else 20
+    variant = 1 if "--v1" in opts else (2 if "--v2" in opts else (4 if "--v4" in opts else 3))
+    return B, iters, variant, "--gate" in opts
+
+
+def inputs(B: int, variant: int, device) -> dict:
+    """The JAX tool's inputs (seed 0, the same draws in the same order)."""
+    rng = np.random.default_rng(0)
+    P = len(LENS)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    x = dict(win=t(rng.normal(0, 1, (B, LM, C))), means=t(rng.normal(0, 0.2, (B, P, C))),
+             templates=t(rng.normal(0, 1, (P, LM, C))))
+    x["tnorms"] = torch.sum(x["templates"] * x["templates"], dim=-1)
+    if variant == 4:
+        x["new"] = t(rng.normal(0, 1, (3, C, B)))
+        x["means3"] = t(rng.normal(0, 0.2, (3, P, C, B)))
+    return x
+
+
+def calls(x: dict, variant: int, gate: bool):
+    """(the whole wrapper call, the launch alone, what it scores): two
+    functions of no arguments, and (flops, bytes) of the work."""
+    B = x["win"].shape[0]
+    P = len(LENS)
+    D, K = 1, P - 1
+    dev = x["win"].device
+    bounds = torch.tensor([-1.0 if gate else np.inf], dtype=torch.float32, device=dev)
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], LENS, W)
+    win_t = x["win"].permute(1, 2, 0).contiguous()  # (Lm, C, B)
+    means_t = x["means"].permute(1, 2, 0).contiguous()  # (P, C, B)
+    # the pairs scored: with --gate only the avg pairs pass the K1/K2 gate
+    scored = LENS[D * K:] if gate and variant in (3, 4) else LENS
+    if variant == 4:
+        rot0 = torch.tensor(LM - 2, dtype=torch.int32, device=dev)
+        whole = lambda: fd.fused_dtw_chunk_v4(win_t, x["new"], x["means3"], x["templates"],
+                                              x["tnorms"], bounds, LENS, W, D, K, rot0)
+        alone = lambda: fd.score_chunk(win_t, x["new"], x["means3"], tset, bounds, D, K, rot0)
+        dots, rest = profiling.k1_work(scored, W, C, B)
+        return whole, alone, (dots + rest, profiling.k1_bytes(LM, C, B, P, LM))
+    if variant == 3:
+        rot = torch.tensor(LM - 1, dtype=torch.int32, device=dev)  # a linear window
+        whole = lambda: fd.fused_dtw_batch_v3(x["win"], x["means"], x["templates"],
+                                              x["tnorms"], bounds, LENS, W, D, K)
+        dotm = torch.einsum("plc,pcb->plb", tset.tp, means_t).contiguous()
+        alone = lambda: fd.launch_v3(win_t, means_t, dotm, tset, bounds, D, K, rot)
+        flops = B * sum(profiling.dp_work(n, W, C, False) for n in scored)
+        return whole, alone, (flops, profiling.shift_bytes(LM, C, B, P, D))
+    whole = lambda: fd.fused_dtw_batch(x["win"], x["means"], x["templates"], x["tnorms"],
+                                       LENS, W, variant=variant)
+    alone = lambda: fd.score_linear(win_t, means_t, tset, variant=variant)
+    flops = B * sum(profiling.dp_work(n, W, C, True) for n in scored)
+    return whole, alone, (flops, profiling.linear_bytes(LM, C, B, P))
+
+
+NAMES = {1: "K5 fused_dtw_v1", 2: "K4 fused_dtw_v2", 3: "K2 fused_dtw_v3",
+         4: "K1 fused_dtw_v4 (time = 3 shifts)"}
+
+
+def measure(B: int, iters: int, variant: int, gate: bool, device) -> dict:
+    """Time the launch alone (CUDA events) and list the device kernels of
+    `iters` whole wrapper calls (torch.profiler), on the card. A dict of B,
+    variant, gate, ms, bound_ms, bound_by, flops, bytes and kernels."""
+    x = inputs(B, variant, device)
+    whole, alone, (flops, nbytes) = calls(x, variant, gate)
+    ms = profiling.time_cuda(alone)
+    bound_ms, by = profiling.bound(flops, nbytes)
+    return dict(B=B, variant=variant, gate=gate, ms=ms, bound_ms=bound_ms, bound_by=by,
+                flops=flops, bytes=nbytes, kernels=profiling.device_kernels(whole, iters))
+
+
+def report(r: dict) -> list:
+    """The lines main prints for a `measure` result."""
+    lines = [f"variant={r['variant']} {NAMES[r['variant']]} B={r['B']} gate={r['gate']}: "
+             f"{r['ms'] * 1e3:10.1f} us per launch; bound {r['bound_ms'] * 1e3:.1f} us by "
+             f"{r['bound_by']} ({r['flops'] / 1e9:.4f} GFLOP, {r['bytes'] / 1e6:.2f} MB) = "
+             f"{r['ms'] / r['bound_ms']:.1f}x"]
+    for k_ms, count, name in r["kernels"][:10]:
+        lines.append(f"{k_ms * 1e3:10.1f} us/call  {count:4.1f} launches/call  {name[:90]}")
+    return lines
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    try:
+        B, iters, variant, gate = parse(argv)
+    except ValueError as e:
+        print(f"kernel_probe: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA device; the kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    for line in report(measure(B, iters, variant, gate, torch.device("cuda"))):
+        print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

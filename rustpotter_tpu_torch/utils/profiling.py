@@ -1,0 +1,212 @@
+"""Profiling, timing and roofline accounting for the port on an NVIDIA H100.
+
+The counterpart of `rustpotter_tpu.utils.profiling`:
+  - `trace(log_dir)`: a torch.profiler context that writes a Chrome trace;
+  - `ChipSpec`: the card's data-sheet peaks, and a measured fp32 FMA rate
+    (None until `tools/fma_probe.py` has run on the card);
+  - `step_roofline(static)`: the JAX package's count of one detector step's
+    FLOPs and bytes per stream, and `streams_speed_of_light`;
+  - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
+    `time_cuda`, `device_kernels`, the work and byte counts of the fused DTW
+    kernels (`k1_work`, `k1_bytes`, `dp_work`, `linear_bytes`, `shift_bytes`)
+    and `bound`.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..runtime.bundle import StepStatic
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the enclosed computation (host, and the card when there is
+    one) and write a Chrome trace to log_dir/trace.json. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@dataclass(frozen=True)
+class ChipSpec:
+    """Peak rates for roofline bounds.
+
+    fp32_tflops and hbm_gbps are NVIDIA's data-sheet values for the H100 SXM
+    (dense, at its 700 W limit): fp32 on the CUDA cores, outside the tensor
+    cores, and HBM3 bandwidth. A card set below 700 W runs slower under load.
+    fp32_fma_tflops_measured is the fp32 FMA rate that
+    `rustpotter_tpu_torch.tools.fma_probe` measures on the card (V1, 32
+    independent chains); None until it has run."""
+
+    name: str = "H100 SXM"
+    fp32_tflops: float = 67.0  # data sheet
+    hbm_gbps: float = 3350.0  # data sheet
+    fp32_fma_tflops_measured: Optional[float] = None
+
+
+H100 = ChipSpec()
+
+
+@dataclass
+class StepCost:
+    """FLOPs and bytes of one 30 ms step per stream. gemm_flops are the
+    matrix products (the JAX model's MXU work), vector_flops the rest (its
+    VPU work). On the H100 both run in fp32 on the CUDA cores: TF32 is off."""
+
+    gemm_flops: float
+    vector_flops: float
+    hbm_bytes: float
+
+    def seconds_bound(self, chip: ChipSpec = H100) -> float:
+        return max(
+            (self.gemm_flops + self.vector_flops) / (chip.fp32_tflops * 1e12),
+            self.hbm_bytes / (chip.hbm_gbps * 1e9),
+        )
+
+
+def step_roofline(static: StepStatic) -> StepCost:
+    """Per-stream cost of one 30 ms step (3 MFCC shifts + 3 detections) on
+    the fused per-shift path (circular window, K2), counted as the JAX model
+    counts it: the cost band and rwn stay on chip (no HBM charge), CMN means
+    and dot(T', m) are matrix products, the window is written one row per
+    shift. DTW wakewords only: the port's StepStatic holds none other, since
+    `build_bundle` refuses NN wakewords (ROADMAP M9)."""
+    C = static.mfcc_size
+    nc = C + 1
+    F = static.max_mfcc_frames
+    L = max(static.lmax, static.la_max)
+    w = static.band_size
+    pairs = static.n_dtw * static.kmax + static.n_dtw
+    shifts = 3
+
+    # MFCC: windowed DFT (480x240 x2) + mel (240 x nc) + DCT (nc x nc)
+    gemm = shifts * 2 * (480 * 240 * 2 + 240 * nc + nc * nc)
+    # CMN means (pairs x F over C) + dotm (pairs x L over C)
+    gemm += shifts * 2 * (pairs * F * C + pairs * L * C)
+    # band costs: pairs x L x 2w dot products over C (+ epilogue)
+    vec = shifts * pairs * L * 2 * w * (2 * C + 4)
+    # rwn: pairs x L columns x ~3C ops
+    vec += shifts * pairs * L * 3 * C
+    # DP: pairs x L rows x 2w slots x ~6 ops
+    vec += shifts * pairs * L * 2 * w * 6
+    # window read by the kernel + one-row write + dotm write and read
+    hbm = shifts * 4 * (F * C + C + 2 * pairs * L)
+    return StepCost(gemm_flops=float(gemm), vector_flops=float(vec), hbm_bytes=float(hbm))
+
+
+def streams_speed_of_light(static: StepStatic, chip: ChipSpec = H100) -> float:
+    """Upper bound on realtime streams per card for this op structure."""
+    return 0.03 / step_roofline(static).seconds_bound(chip)
+
+
+# ------------------------------------------------------------------ timing
+
+def time_cuda(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> float:
+    """ms per call: the median over `samples` of the CUDA-event time of `per`
+    back-to-back calls, divided by `per` (the host's enqueue of one call
+    overlaps the device's run of the one before)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(samples):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    return float(np.median(times))
+
+
+def device_kernels(fn, n: int):
+    """torch.profiler over `n` calls of fn: [(ms per call, launches per call,
+    kernel name)] of the device kernels, longest first. Empty when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(
+        ((e.self_device_time_total / n / 1e3, e.count / n, e.key)
+         for e in prof.key_averages()
+         if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
+        reverse=True,
+    )
+
+
+# ------------------------------------------------- work of the DTW kernels
+
+def k1_work(lens, w, C, B):
+    """(FLOPs of the cost-band dots, FLOPs of the rest) that K1 needs with
+    the gate open: every stream scores every pair at all 3 shifts. Per
+    stream, pair of length n and shift: rwn over n columns (sub + FMA per
+    coefficient, one rsqrt), and per DP row r < n the dotm chain (2C), the
+    mean correction of every valid band cell (sub, mul, 1 -) and the DP (add
+    + min per slot, then the add + min chain). The dot T'[r-1].W[c] does not
+    depend on the shift's mean, and shift s+1's column c is shift s's column
+    c+1, so the dots of row r count once per distinct window column over the
+    3 shifts (2C each)."""
+    dots = rest = 0
+    for n in lens:
+        rest += 3 * n * (3 * C + 1)
+        for r in range(1, n):
+            cols = [r - w + j for j in range(2 * w) if 1 <= r - w + j <= min(n, r + w - 1)]
+            dots += 2 * C * len({c + s for c in cols for s in range(3)})
+            rest += 3 * (2 * C + 3 * len(cols) + 2 * (2 * w) + 2 * (2 * w - 1))
+    return dots * B, rest * B
+
+
+def k1_bytes(F, C, B, P, Lm):
+    """K1's bytes, each read or written once: window, new rows, means, T'
+    and its (P, Lm) row norms, and the sims."""
+    return 4 * (F * C * B + 3 * C * B + 3 * P * C * B + P * Lm * C + P * Lm + B * 3 * P)
+
+
+def dp_work(n, w, C, dotm):
+    """FLOPs one (stream, pair) of length n needs in the per-shift kernels:
+    rwn over n columns (sub + FMA per coefficient, one rsqrt), and per DP row
+    r < n the dot of every valid band cell (2C), its mean correction (sub,
+    mul, 1 -) and the DP (add + min per slot, then the add + min chain);
+    `dotm` adds the T'[r-1].m chain (2C) per row, which K4 and K5 compute and
+    K2 reads from its input."""
+    f = n * (3 * C + 1) if n >= 2 else 0
+    for r in range(1, n):
+        cells = sum(1 for j in range(2 * w) if 1 <= r - w + j <= min(n, r + w - 1))
+        f += 2 * C * cells + 3 * cells + 2 * (2 * w) + 2 * (2 * w - 1) + (2 * C if dotm else 0)
+    return f
+
+
+def linear_bytes(Lm, C, B, P):
+    """K4's and K5's bytes: linear window, means, T', lengths, sims."""
+    return 4 * (Lm * C * B + P * C * B + P * Lm * C + P + P * B)
+
+
+def shift_bytes(Lm, C, B, P, D):
+    """K2's bytes: the Lm window rows read, means, dotm, T', lengths, gate
+    bounds, sims."""
+    return 4 * (Lm * C * B + P * C * B + P * Lm * B + P * Lm * C + P + D + P * B)
+
+
+def bound(flops, nbytes, chip: ChipSpec = H100):
+    """(bound ms, what bounds it: "operations" or "bytes") at the chip's
+    data-sheet peaks."""
+    t_ops = flops / (chip.fp32_tflops * 1e12) * 1e3
+    t_bytes = nbytes / (chip.hbm_gbps * 1e9) * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")

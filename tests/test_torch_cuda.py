@@ -1,15 +1,17 @@
 """The port on a CUDA card: K1 (csrc/fused_dtw_v4.cu), K2 (fused_dtw_v3.cu),
-K3 (banded_dtw.cu) and K4 (fused_dtw_v2.cu) against their plain versions,
-and the batched detector and the single-stream Rustpotter on the card against
-the same on the CPU. Every test here needs a card (and nvcc, which builds the
+K3 (banded_dtw.cu), K4 (fused_dtw_v2.cu), K5 (fused_dtw_v1.cu) and the probe
+kernels V1-V6 (fma_probe.cu) against their plain versions, and the batched
+detector and the single-stream Rustpotter on the card against the same on
+the CPU. Every test here needs a card (and nvcc, which builds the
 kernels at first use); without one they skip. The file imports no JAX, so it
 runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 (the
-JAX kernel tests' own); K3 is adds and mins only, so bit-exact; event scores
-rtol 2e-5 / atol 2e-5 (the CPU slice test's).
+Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
+K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
+probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds); event
+scores rtol 2e-5 / atol 2e-5 (the CPU slice test's).
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
 from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
+from rustpotter_tpu_torch.tools import fma_probe
 
 RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 D, K = 2, 2
@@ -139,6 +142,39 @@ def test_k4_matches_plain_version_on_card(cuda_device, nb):
     assert fd.LAUNCHES["fused_dtw_v2"] == before + 1
     want = fd.fused_dtw_batch_ref(*args).cpu().numpy()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL_V2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,lens", [(1, LENS), (33, LENS), (50, LENS),
+                                     (33, tuple(40 - 2 * (i % 5) for i in range(11)))])
+def test_k5_matches_plain_version_on_card(cuda_device, nb, lens):
+    """K5 on 1, 33 and 50 streams, and on 11 pairs (a second block row)."""
+    rng = np.random.default_rng(13 + nb + len(lens))
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    p = len(lens)
+    templates = rng.normal(0, 1, (p, LM, C))
+    args = (t(rng.normal(0, 1, (nb, LM, C))), t(rng.normal(0, 0.2, (nb, p, C))), t(templates),
+            t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), lens, W)
+    before = fd.LAUNCHES["fused_dtw_v1"]
+    got = fd.fused_dtw_batch(*args, variant=1)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["fused_dtw_v1"] == before + 1
+    want = fd.fused_dtw_batch_ref(*args).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL_V2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [8, 32])
+@pytest.mark.parametrize("name", list(fma_probe.KERNELS))
+def test_probe_kernel_matches_plain_version_on_card(cuda_device, name, streams):
+    x, s = fma_probe.inputs(cuda_device)
+    before = fma_probe.LAUNCHES[name]
+    got = fma_probe.probe(name, x, s, 16, streams, tiles=132)
+    torch.cuda.synchronize()
+    assert fma_probe.LAUNCHES[name] == before + 1
+    want = fma_probe.plain(name, x, s, 16, streams)
+    np.testing.assert_allclose(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy(),
+                               rtol=1e-6)
 
 
 @pytest.mark.cuda

@@ -39,6 +39,9 @@ def test_import_leaves_jax_and_the_jax_package_unloaded():
         "import rustpotter_tpu_torch.runtime.detector, rustpotter_tpu_torch.ops.banded_dtw\n"
         "import rustpotter_tpu_torch.ops.dtw_dispatch, rustpotter_tpu_torch.wakewords.builder\n"
         "import rustpotter_tpu_torch.audio.encoder, rustpotter_tpu_torch.utils.wav\n"
+        "import rustpotter_tpu_torch.utils.profiling, rustpotter_tpu_torch.native\n"
+        "import rustpotter_tpu_torch.tools.kernel_probe, rustpotter_tpu_torch.tools.kernel_parity\n"
+        "import rustpotter_tpu_torch.tools.fma_probe\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,0 +1,79 @@
+"""rustpotter_tpu_torch.utils.profiling against the JAX package's
+utils/profiling.py: the step roofline counts field by field for the same
+wakeword, the H100 chip spec, the trace context on the CPU, and the work
+counts that chip_smoke.py and the tools divide by the peaks."""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rustpotter_tpu import RustpotterConfig as JaxConfig
+from rustpotter_tpu.runtime.bundle import build_bundle as jax_build_bundle
+from rustpotter_tpu.utils.profiling import step_roofline as jax_step_roofline
+from rustpotter_tpu.wakewords.files import WakewordRef as JaxWakewordRef
+from rustpotter_tpu_torch import RustpotterConfig, WakewordRef
+from rustpotter_tpu_torch.runtime.bundle import build_bundle
+from rustpotter_tpu_torch.utils import profiling
+
+
+def _features(seed, n_templates=5, frames=90, C=16):
+    rng = np.random.default_rng(seed)
+    return ({f"s{i}": rng.normal(0, 1, (frames - 2 * i, C)).astype(np.float32)
+             for i in range(n_templates)}, rng.normal(0, 1, (frames, C)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n_words,band", [(1, 5), (2, 3)])
+def test_step_roofline_equals_jax_field_by_field(n_words, band):
+    jax_ww, ww = [], []
+    for d in range(n_words):
+        samples, avg = _features(d, n_templates=5 - d)
+        jax_ww.append((f"w{d}", JaxWakewordRef(name=f"w{d}", samples_features=samples,
+                                                avg_features=avg, rms_level=0.05)))
+        ww.append((f"w{d}", WakewordRef(name=f"w{d}", samples_features=samples,
+                                        avg_features=avg, rms_level=0.05)))
+    jcfg, cfg = JaxConfig(), RustpotterConfig()
+    jcfg.detector.band_size = cfg.detector.band_size = band
+    jstatic, _ = jax_build_bundle(jax_ww, jcfg)
+    static, _ = build_bundle(ww, cfg, device="cpu")
+    want = jax_step_roofline(jstatic)
+    got = profiling.step_roofline(static)
+    assert (got.gemm_flops, got.vector_flops, got.hbm_bytes) == (
+        want.mxu_flops, want.vpu_flops, want.hbm_bytes)
+    assert got.gemm_flops > 0 and got.vector_flops > 0 and got.hbm_bytes > 0
+    sol = profiling.streams_speed_of_light(static)
+    assert sol == pytest.approx(0.03 / got.seconds_bound(profiling.H100))
+    assert sol > 1000  # the op structure allows >1k realtime streams per card
+
+
+def test_chip_spec_is_the_data_sheet_until_measured():
+    chip = profiling.H100
+    assert (chip.fp32_tflops, chip.hbm_gbps, chip.fp32_fma_tflops_measured) == (67.0, 3350.0,
+                                                                                 None)
+    ms, by = profiling.bound(67e9, 1.0)  # 1 ms of fp32 at the peak, a byte
+    assert (ms, by) == (pytest.approx(1.0), "operations")
+    ms, by = profiling.bound(1.0, 3.35e9)
+    assert (ms, by) == (pytest.approx(1.0), "bytes")
+
+
+def test_trace_writes_a_chrome_trace_on_cpu(tmp_path):
+    with profiling.trace(str(tmp_path / "t")):
+        torch.ones(64).cumsum(0)
+    with open(os.path.join(tmp_path, "t", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
+
+
+def test_dtw_work_counts():
+    # bench shapes: the K1 bound of PERF.md (3.8724 GFLOP), and K4's per-pair
+    # count against a direct count of its valid band cells
+    dots, rest = profiling.k1_work((100, 98, 96, 94, 92, 100), 5, 16, 8192)
+    assert (dots + rest) / 1e9 == pytest.approx(3.8724, abs=5e-5)
+    n, w, C = 20, 5, 8
+    cells = sum(1 for r in range(1, n) for j in range(2 * w) if 1 <= r - w + j <= n)
+    per_row = 2 * (2 * w) + 2 * (2 * w - 1) + 2 * C  # DP and the dotm chain
+    assert profiling.dp_work(n, w, C, True) == (n * (3 * C + 1) + (2 * C + 3) * cells
+                                                + (n - 1) * per_row)
+    assert profiling.dp_work(1, w, C, True) == 0
+    assert profiling.linear_bytes(100, 16, 8192, 6) < profiling.shift_bytes(100, 16, 8192, 6, 1)

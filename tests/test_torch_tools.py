@@ -1,0 +1,73 @@
+"""The port's kernel tools on the CPU: rustpotter_tpu_torch.tools.kernel_parity
+runs its seven checks at B = 33 (the wrappers run their plain versions on CPU
+tensors, which checks the tool's inputs, oracle and virtual-window
+bookkeeping), and kernel_probe, kernel_parity and fma_probe refuse to run
+without a card or with arguments they do not take. On the card they run the
+kernels (chip_smoke.py's tools phase)."""
+import numpy as np
+import pytest
+import torch
+
+from rustpotter_tpu_torch.ops import fused_dtw as fd
+from rustpotter_tpu_torch.tools import fma_probe, kernel_parity, kernel_probe
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return kernel_parity.make_inputs(33)
+
+
+@pytest.mark.parametrize("check", kernel_parity.CHECKS, ids=lambda c: c.__name__)
+def test_kernel_parity_check_on_cpu(inputs, check):
+    line = check(inputs, torch.device("cpu"))
+    assert line.startswith(check.__name__[-1] + ".") and "OK" in line
+
+
+def test_kernel_parity_inputs_follow_the_jax_tool():
+    x = kernel_parity.make_inputs(5000)
+    assert x["win"].shape == (5000, 100, 16) and x["means3"].shape == (3, 6, 16, 5000)
+    assert x["w6"].shape == (100, 16, 4096) and x["m7"].shape == (3, 18, 16, 2048)
+    # the first draws are the JAX tool's: seed 7, win first
+    want = np.random.default_rng(7).normal(0, 1, (5000, 100, 16)).astype(np.float32)
+    np.testing.assert_array_equal(x["win"], want)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    (kernel_probe, ["--v1"]), (kernel_parity, ["33"]), (fma_probe, []),
+])
+def test_tools_need_a_card(tool, argv, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tools run on it")
+    assert tool.main(argv) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tool,argv", [
+    (kernel_probe, ["--jch=3"]), (kernel_probe, ["1", "2", "3"]),
+    (kernel_parity, ["--v1"]), (fma_probe, ["8"]),
+])
+def test_tools_refuse_arguments_they_do_not_take(tool, argv, capsys):
+    assert tool.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "usage" in err or "no arguments" in err
+
+
+@pytest.mark.parametrize("variant", [1, 2, 3, 4])
+def test_kernel_probe_calls_and_bounds_on_cpu(variant):
+    flag = {1: ["--v1"], 2: ["--v2"], 3: [], 4: ["--v4"]}[variant]
+    B, iters, v, gate = kernel_probe.parse(["40", "3", *flag])
+    assert (B, iters, v, gate) == (40, 3, variant, False)
+    x = kernel_probe.inputs(B, variant, "cpu")
+    whole, _, (flops, nbytes) = kernel_probe.calls(x, variant, gate)
+    sims = whole()
+    assert sims.shape == ((B, 3, 6) if variant == 4 else (B, 6))
+    assert torch.isfinite(sims).all()
+    if variant in (1, 2):
+        torch.testing.assert_close(sims, fd.fused_dtw_batch_ref(
+            x["win"], x["means"], x["templates"], x["tnorms"], kernel_probe.LENS, 5))
+    # a closed gate leaves K1 and K2 the avg pairs' work only
+    _, _, (gated, _) = kernel_probe.calls(x, variant, True)
+    assert gated < flops if variant in (3, 4) else gated == flops
+    assert nbytes > 0
