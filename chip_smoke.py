@@ -13,7 +13,10 @@ Phases, each of which raises (non-zero exit) when it fails:
      version on the card, at the unit-test shapes and at the bench shapes,
      with its time (CUDA events over back-to-back launches, median of 20;
      K5's from kernel_probe --v1 in phase 5), the plain version's time and
-     its bound; then the fp32 probes V1-V6 (tools/fma_probe.py) against
+     its bound; K1 also with the gate mixed and closed, with the FLOPs its
+     design executes beside those the function needs, and with the CUDA
+     runtime's registers, local (spill) bytes, shared memory and resident
+     warps per SM of its C = 8 and C = 16 builds; then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
      with the plain versions' time there;
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
@@ -61,6 +64,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     device_kernels,
     dp_work,
     k1_bytes,
+    k1_executed,
     k1_work,
     linear_bytes,
     shift_bytes,
@@ -186,8 +190,13 @@ def kernel_phase(dev, record):
     log(f"K1 bench shapes: max|d| of avg sims {compare(got[:, :, D * K:], want[:, :, D * K:]):.3e}")
     mixed = mid_bound(want[:, :, D * K])
     err_mixed = compare(fd.fused_dtw_chunk_v4(*args(mixed)), fd.fused_dtw_chunk_v4_ref(*args(mixed)))
-    worst = max(worst, err_open, err_mixed)
-    log(f"K1 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e}")
+    closed = want[:, :, D * K].min().reshape(1) - 1.0
+    got = fd.fused_dtw_chunk_v4(*args(closed))
+    assert torch.isinf(got[:, :, :D * K]).all(), "K1 bench: closed gate left templates finite"
+    err_closed = compare(got, fd.fused_dtw_chunk_v4_ref(*args(closed)))
+    worst = max(worst, err_open, err_mixed, err_closed)
+    log(f"K1 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e} closed "
+        f"{err_closed:.3e}")
     torch.cuda.synchronize()
 
     # the kernel alone: T' prepared once, as the serving chunk does
@@ -197,14 +206,24 @@ def kernel_phase(dev, record):
     plain_ms = time_cuda(lambda: fd.fused_dtw_chunk_v4_ref(*args(open_)), samples=5, per=1,
                          warmup=1)
     ms_mixed = time_cuda(lambda: launch(mixed))
+    ms_closed = time_cuda(lambda: launch(closed))
     dots, rest = k1_work(lens, w, C, B)
     flops = dots + rest
+    executed = k1_executed(lens, w, C, B)
     nbytes = k1_bytes(F, C, B, P, Lm)
     t_ops, t_bytes = bound(flops, 0)[0], bound(0, nbytes)[0]
-    log(f"K1 bench gate open: {ms:.4f} ms (gate mixed {ms_mixed:.4f} ms), plain "
-        f"{plain_ms:.3f} ms; needs {flops / 1e9:.4f} GFLOP (dots {dots / 1e9:.4f}, rest "
-        f"{rest / 1e9:.4f}; {t_ops:.4f} ms at {H100.fp32_tflops:.0f} TFLOP/s) and "
-        f"{nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {H100.hbm_gbps / 1e3:.2f} TB/s)")
+    log(f"K1 bench gate open: {ms:.4f} ms (gate mixed {ms_mixed:.4f} ms, closed "
+        f"{ms_closed:.4f} ms), plain {plain_ms:.3f} ms; needs {flops / 1e9:.4f} GFLOP (dots "
+        f"{dots / 1e9:.4f}, rest {rest / 1e9:.4f}; {t_ops:.4f} ms at {H100.fp32_tflops:.0f} "
+        f"TFLOP/s) and {nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {H100.hbm_gbps / 1e3:.2f} "
+        f"TB/s); executes {executed / 1e9:.4f} GFLOP, {executed / ms / 1e9:.3f} TFLOP/s")
+    for c in (8, 16):
+        r = fd.k1_resources(c, w)
+        log(f"K1 build C={c} w={w}: {r['registers']} registers, {r['local_bytes']} bytes "
+            f"local (spill) memory, {r['static_smem']} + {r['dynamic_smem']} bytes shared "
+            f"memory (static + dynamic) per block of {r['threads']} threads, "
+            f"{r['blocks_per_sm']} blocks = {r['blocks_per_sm'] * r['threads'] // 32} warps "
+            "per SM")
     record["fused_dtw_v4"] = {
         "name": "fused_dtw_v4",
         "route": "cuda",
@@ -217,6 +236,10 @@ def kernel_phase(dev, record):
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+        "ms_gate_mixed": ms_mixed,
+        "ms_gate_closed": ms_closed,
+        "gflop_executed": executed / 1e9,
+        "gflop_needed": flops / 1e9,
     }
 
 

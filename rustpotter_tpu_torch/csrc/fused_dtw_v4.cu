@@ -19,46 +19,74 @@
 //   out   (3, P, B)          similarities (the wrapper returns the (B, 3, P) view)
 // Pair order: p = d*K + k for templates, then D*K + d for the avg pairs.
 //
+// One pass over the columns serves all 3 shifts. Shift s+1's virtual window
+// is shift s's moved by one column, so the three windows are slices of one
+// extended sequence E: E[k] is shift 0's logical column k (k = 0 ... n+1),
+// and shift s's logical column i is E[i + s]. The dot T'[t].E[k] does not
+// depend on the CMN mean, so each column of E is loaded once and dotted with
+// the 2w+2 template rows t = k-w-1 ... k+w that some shift's band holds
+// (shift s needs t = k-s-w+1 ... k-s+w). Only these are per shift:
+// rwn_s(k) = 1/|E[k] - m_s|, dotm_s[t] = T'[t].m_s, the mean correction
+// cost = 1 - (dot - dotm_s[t]) * rwn_s(k), and the DP. Shift s's DP row
+// r = t+1 is whole after column k = t + w - 1 + s, so the three DPs run one
+// column apart; its band slot j reads the dot of row t and column
+// t - w + j + s, that is diagonal u = k - t + w = j + s of row t.
+//
 // Bound at the bench shapes (B=8192, P=6, Lm=F=100, C=16, w=5, gate open):
-// the work the function needs is ~3.87 GFLOP per chunk. Shift s+1's virtual
-// window is shift s's moved by one column plus one new row, and the dot
-// T'[r-1].W[c] does not depend on the CMN mean, so the cost-band dots of a
-// template row are needed once per distinct window column over the 3 shifts
-// (the shift-0 band plus one new column per later shift): ~1.77 GFLOP. rwn,
-// dotm, the cost's mean correction and the DP are per shift: ~2.10 GFLOP.
-// That is ~0.058 ms at the H100 SXM's 67 TFLOP/s fp32 (non-tensor) peak. Its
-// bytes (window 52 MB, means 9.4 MB, new rows and output) are ~64 MB, ~19 us
-// at 3.35 TB/s. So the function is bound by operations (chip_smoke.py
-// computes both from its inputs). This kernel does not yet reuse the dots
-// across shifts: each (shift, pair) thread computes its whole band, ~6.5
-// GFLOP per chunk.
+// the function needs 3.8724 GFLOP per chunk (utils/profiling.py k1_work: the
+// dots once per distinct column over the 3 shifts, 1.7726; rwn, dotm, mean
+// correction and DP per shift, 2.0998), 0.0578 ms at the H100 SXM's 67
+// TFLOP/s fp32 (non-tensor) peak. Its bytes (window 52 MB, means 9.4 MB, new
+// rows and output) are ~64 MB, ~19 us at 3.35 TB/s: bound by operations
+// (chip_smoke.py computes both from its inputs). Tensor cores are no help:
+// the port is true fp32 and wgmma has no fp32 form. This design executes
+// 4.0924 GFLOP per chunk there (utils/profiling.py k1_executed: each of the
+// n+w column steps computes dotm, rwn and 3*NR dots, unguarded, and each DP
+// step corrects all 2w band slots); the one-thread-per-(shift, pair) design
+// before it executed ~6.5.
 //
 // Design:
-//   - two launches on one stream: the avg pairs, then the template pairs. A
-//     template thread reads its wakeword's avg similarity and, if avg >
-//     gate[d] (or NaN), writes +inf and exits. The gate is decided per
-//     stream: finer than the TPU's (8, 128)-tile decision and
-//     detection-equivalent, because the score-domain gate downstream is per
-//     stream. Threads with b >= B do not exist as work.
-//   - a block is 32 consecutive streams (threadIdx.x) by up to 8 jobs
-//     (threadIdx.y); a job is one (shift, pair). The warps of a block read
-//     the same streams' window columns, so they share them in L1.
-//   - one thread = one (stream, shift, pair). It walks the window columns
-//     once, in order, and keeps everything else in registers. Column c (C
-//     values, a coalesced load, prefetched one column ahead) gives its
-//     guarded inverse norm rwn = 1/|W[c] - m| and is dotted with the 2w
-//     template rows whose band holds it, r - 1 = c + w - j for band slot j:
-//     cost(r, j) = 1 - (T'[r-1].W[c] - dotm[r-1]) * rwn. The costs wait in a
-//     2w x 2w ring until their row is whole (after column r + w - 2); then
-//     that row takes the DP step. dotm[t] = T'[t].m is an fp32 FMA chain,
-//     computed once per template row into a ring of 2w. Each loaded window
-//     value thus feeds 2w FMAs; T' rows are warp-uniform loads (L1 hits).
-//     The column loop is unrolled by 2w so that every ring index is a
-//     compile-time constant (C and w are compile-time: -DRP_C, -DRP_W).
-//   - DP recurrence, as the reference: new_j = cost_j + min(prev_{j+1}, prev_j),
-//     then strictly left to right new_j = min(new_j, cost_j + new_{j-1}); a
-//     cell is valid iff 1 <= r - w + j <= min(n, r + w - 1), else +inf; the
-//     similarity is slot w+1 of row n-1 (the padded [m-1][n] cell).
+//   - three threads per (stream, pair), one per shift: a block is 32
+//     consecutive streams (threadIdx.x, a warp) by the 3 shifts
+//     (threadIdx.y) of one pair (blockIdx.y). For column k each thread takes
+//     E[k] from registers (loaded during column k-1: the three warps read
+//     the same 128-byte lines, L1 hits), computes the dotm of the row its
+//     DP completes at column k, its shift's rwn_s(k) into a register ring
+//     of 2w, and NR = ceil((2w+2)/3) of the column's 2w+2 dots (rows
+//     k-w-1+idx, idx = s*NR ... s*NR+NR-1, each one fp32 FMA chain over c,
+//     in order), which it writes to a ring in shared memory; one
+//     __syncthreads; then its shift's DP step, reading the 2w dots of its row
+//     from the ring. Splitting by shift gives 3x the threads of one thread
+//     per (stream, pair) and keeps the avg launch (1/6 of the pairs) at 3
+//     warps per 32 streams.
+//   - the column step is branch-free: every chain in it (dotm, rwn, the NR
+//     dots, the next column's loads) is independent and unguarded, with
+//     clamped row and column indices, so that the compiler schedules them
+//     as one basic block and the warp overlaps their latencies; only the
+//     ring stores are predicated, and the DP step after the barrier is the
+//     one branch. At the bench shapes the avg launch has 2 blocks (6 warps)
+//     per SM and each warp's chain of n+w column steps is its time, so the
+//     ILP inside the step is what counts: with each dot, dotm and rwn
+//     guarded by its own branch (and rwn as an IEEE 1/sqrtf, a call to a
+//     slow path) the same work took 1.3x as long (PERF.md, PR 5). rwn is
+//     rsqrtf (2 ulp), or 0 where the squared norm is 0.
+//   - the dot ring: R = 2w+1 rows (t mod R) x U = 2w+2 diagonals u x 32
+//     lanes, laid out [row][u][lane], so that every access of a warp is one
+//     conflict-free wavefront: (2w+1)(2w+2)*128 B = 16,896 B per block at
+//     w = 5 (dynamic shared memory). Row t's diagonal u is written at column
+//     t - w + u and last read by the DP step of column t + w - 1 + min(u, 2)
+//     (shift min(u, 2)). Row t + R writes the same slot at column
+//     t + R - w + u, before that column's barrier, while a slower thread may
+//     still be reading the column before it: so the write must come at least
+//     two columns after the last read, R >= 2w + 1 - u + min(u, 2), which is
+//     2w + 1 at u <= 2. One barrier per column then suffices
+//     (tests/test_torch_k1_schedule.py runs every column's writes before the
+//     previous column's reads; 2w rows fail it).
+//   - the column loop is unrolled by 2w, so that the rwn ring and the DP
+//     frontier have compile-time register indices; the shared ring takes
+//     run-time ones. C and w are compile-time: -DRP_C, -DRP_W. ptxas at
+//     C = 16, w = 5: 168 registers, no spills, 4 blocks (12 warps) per SM;
+//     registers, not shared memory, bound the occupancy.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -74,8 +102,12 @@ namespace {
 constexpr int C = RP_C;
 constexpr int W = RP_W;
 constexpr int W2 = 2 * W;
-constexpr int LANES = 32;   // streams per block
-constexpr int MAX_JOBS = 8; // (shift, pair) jobs per block
+constexpr int U = W2 + 2;         // template rows per column = diagonals per row
+constexpr int R = W2 + 1;         // rows of the shared dot ring
+constexpr int SHIFTS = 3;
+constexpr int NR = (U + SHIFTS - 1) / SHIFTS;  // dot rows per shift thread
+constexpr int LANES = 32;         // streams per block
+constexpr int RING_BYTES = (int)sizeof(float) * R * U * LANES;
 static_assert(W >= 2, "the similarity slot w+1 must lie inside the 2w band");
 
 struct Args {
@@ -90,13 +122,13 @@ struct Args {
   int B, F, Lm, D, K, P;
 };
 
-// Element 0 of logical column i of shift s's virtual window, for stream b
-// (element c is at [c * B]). The last s+1 logical columns are the new rows.
-__device__ __forceinline__ const float* column(const Args& a, int s, int rot_s,
-                                               int i, int b) {
-  const int nj = i - (a.F - (s + 1));
+// Element 0 of column k of the extended sequence E (shift 0's logical
+// column k), for stream b; element c is at [c * B]. k <= n + 1 <= F + 1,
+// so the new-row index is at most 2. rot is shift 0's cursor (rot0 + 1) % F.
+__device__ __forceinline__ const float* ext_column(const Args& a, int rot, int k, int b) {
+  const int nj = k - (a.F - 1);
   if (nj >= 0) return a.newr + (size_t)nj * C * a.B + b;
-  int ph = rot_s + 1 + i;  // < 2F: rot_s < F and i < Lm <= F
+  int ph = rot + 1 + k;  // < 2F: rot < F and k < F - 1
   if (ph >= a.F) ph -= a.F;
   return a.win + (size_t)ph * C * a.B + b;
 }
@@ -127,69 +159,100 @@ __device__ __forceinline__ float dot_row(const float* t, const float (&x)[C]) {
 
 __host__ __device__ constexpr int ring(int i) { return ((i % W2) + W2) % W2; }
 
-__device__ float pair_sim(const Args& a, int s, int p, int b) {
-  const int B = a.B;
+// One launch: the 3 shifts of pairs pair0 ... pair0 + gridDim.y - 1.
+__global__ void __launch_bounds__(LANES * SHIFTS)
+    score_pairs(Args a, int pair0, bool gated) {
+  extern __shared__ float dots[];  // the dot ring [R][U][LANES]
+  const int lane = threadIdx.x;
+  const int s = threadIdx.y;
+  const int p = pair0 + blockIdx.y;
+  const int b = blockIdx.x * LANES + lane;
+  const bool live = b < a.B;
+  const int bl = live ? b : a.B - 1;  // threads past B load stream B-1
+  const size_t o = (size_t)(s * a.P + p) * a.B + b;
   const int n = a.lens[p];  // 1 <= n <= Lm
-  if (n < 2) return INFINITY;
-  int rot_s = *a.rot0 + s + 1;  // < 2F since F >= 3
-  if (rot_s >= a.F) rot_s -= a.F;
+  bool open = live;
+  if (gated && live) {
+    // a NaN avg similarity keeps the gate closed, as the TPU kernel's compare
+    const int d = p / a.K;
+    open = a.out[(size_t)(s * a.P + a.D * a.K + d) * a.B + b] <= a.gate[d];
+  }
+  if (n < 2 || !__syncthreads_or(open)) {
+    if (live) a.out[o] = INFINITY;
+    return;
+  }
+  const bool dp_warp = __any_sync(0xffffffffu, open);
 
   float m[C];
-  load_column(a.means + (size_t)(s * a.P + p) * C * B + b, B, m);
+  load_column(a.means + (size_t)(s * a.P + p) * C * a.B + bl, a.B, m);
   // T' row t of pair p is at tp + t * C for -W <= t < Lm + W
   const float* tp = a.tpl + ((size_t)p * (a.Lm + W2) + W) * C;
+  int rot = *a.rot0 + 1;
+  if (rot >= a.F) rot -= a.F;
 
-  float dm[W2];  // dm[ring(t)] = T'[t].m
-#pragma unroll
-  for (int t = -W + 1; t < W; ++t) dm[ring(t)] = dot_row(tp + t * C, m);
-  float pend[W2][W2];  // pend[ring(r)][j] = cost of DP row r, band slot j
+  float rw[W2];  // rw[ring(k)] = rwn_s(k) of the last 2w columns
   float prev[W2];
 #pragma unroll
-  for (int j = 0; j < W2; ++j) prev[j] = j == W ? 0.f : INFINITY;
-
+  for (int j = 0; j < W2; ++j) {
+    rw[j] = 0.f;
+    prev[j] = j == W ? 0.f : INFINITY;
+  }
+  float* ring_lane = dots + lane;
   float nxt[C];
-  load_column(column(a, s, rot_s, 0, b), B, nxt);
-  // row r is whole after column r + W - 2; the last row is n - 1
-  const int cend = n + W - 2;
-  for (int c0 = 0; c0 < cend; c0 += W2) {
+  load_column(ext_column(a, rot, 0, bl), a.B, nxt);
+  const int klast = n + 1;  // the last column of E that shift 2 reads
+  const int kend = n + W;   // shift 2's row n-1 is whole after column n + W - 1
+  for (int k0 = 0; k0 < kend; k0 += W2) {
 #pragma unroll
-    for (int k = 0; k < W2; ++k) {
-      const int c = c0 + k;  // c0 % W2 == 0, so ring(c + x) == ring(k + x)
-      if (c >= cend) break;
-      if (c < n) {
-        float x[C];
+    for (int q = 0; q < W2; ++q) {
+      const int k = k0 + q;  // k0 % W2 == 0, so ring(k + x) == ring(q + x)
+      if (k >= kend) break;
+      const int t = k - W + 1 - s;  // this shift's DP row r = t + 1 is whole after column k
+      const bool step = dp_warp && t >= 0 && t <= n - 2;
+      // column k, branch-free: the rows and the next column are clamped into
+      // range, and what they give outside it is never stored or used; past
+      // klast the dots are stored but no valid cell reads them
+      const int tc = min(max(t, 0), n - 2);
+      const float dm = dot_row(tp + tc * C, m);
+      float x[C];
 #pragma unroll
-        for (int i = 0; i < C; ++i) x[i] = nxt[i];
-        if (c + 1 < n) load_column(column(a, s, rot_s, c + 1, b), B, nxt);
-        float acc = 0.f;
+      for (int c = 0; c < C; ++c) x[c] = nxt[c];
+      load_column(ext_column(a, rot, min(k + 1, klast), bl), a.B, nxt);
+      float acc = 0.f;
 #pragma unroll
-        for (int i = 0; i < C; ++i) {
-          const float d = x[i] - m[i];
-          acc = fmaf(d, d, acc);
-        }
-        const float rwn = acc == 0.f ? 0.f : 1.f / sqrtf(acc);
-        dm[ring(k + W)] = dot_row(tp + (c + W) * C, m);
-#pragma unroll
-        for (int j = 0; j < W2; ++j) {
-          // template row c + W - j = DP row r - 1, band slot j
-          const float dot = dot_row(tp + (c + W - j) * C, x);
-          pend[ring(k + W + 1 - j)][j] = 1.f - (dot - dm[ring(k + W - j)]) * rwn;
-        }
-      } else {
-        // past the last column: these cells are invalid. Writing them keeps
-        // every ring entry written before it is read, so that only the
-        // costs still waiting for their row stay live in registers.
-#pragma unroll
-        for (int j = 0; j < W2; ++j) pend[ring(k + W + 1 - j)][j] = INFINITY;
+      for (int c = 0; c < C; ++c) {
+        const float d = x[c] - m[c];
+        acc = fmaf(d, d, acc);
       }
-      const int r = c - W + 2;
-      if (r >= 1) {
+      // column k is this shift's column k - s
+      const bool mine = k >= s && k - s < n && acc != 0.f;
+      const float rv = mine ? rsqrtf(acc) : 0.f;
+      float dv[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int tr = k - W - 1 + s * NR + i;  // row k - W - 1 + idx, idx = s * NR + i
+        dv[i] = dot_row(tp + min(max(tr, 0), n - 2) * C, x);
+      }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int idx = s * NR + i;  // diagonal U - 1 - idx of row tr
+        const int tr = k - W - 1 + idx;
+        if (idx < U && tr >= 0 && tr <= n - 2)
+          ring_lane[((tr % R) * U + (U - 1 - idx)) * LANES] = dv[i];
+      }
+      rw[q] = rv;
+      __syncthreads();
+      if (step) {
+        const int r = t + 1;
         const int hi = min(n, r + W - 1);
+        const float* row = ring_lane + ((t % R) * U + s) * LANES;  // diagonals s ... s+2w-1
         float cost[W2], cur[W2];
 #pragma unroll
         for (int j = 0; j < W2; ++j) {
+          // band slot j: column t - W + j + s of E, whose rwn is rw[ring(k - 2W + 1 + j)]
           const int cdp = r - W + j;
-          cost[j] = cdp >= 1 && cdp <= hi ? pend[ring(k - W + 2)][j] : INFINITY;
+          const float c = 1.f - (row[j * LANES] - dm) * rw[ring(q + 1 + j)];
+          cost[j] = cdp >= 1 && cdp <= hi ? c : INFINITY;
         }
 #pragma unroll
         for (int j = 0; j < W2; ++j) {
@@ -203,32 +266,17 @@ __device__ float pair_sim(const Args& a, int s, int p, int b) {
       }
     }
   }
-  return prev[W + 1];
+  if (live) a.out[o] = open ? prev[W + 1] : INFINITY;
 }
 
-// Jobs of one launch: 3 shifts x `npairs` pairs starting at `pair0`.
-__global__ void __launch_bounds__(LANES * MAX_JOBS)
-    score_pairs(Args a, int pair0, int npairs, bool gated) {
-  const int b = blockIdx.x * LANES + threadIdx.x;
-  const int job = blockIdx.y * blockDim.y + threadIdx.y;
-  if (b >= a.B || job >= 3 * npairs) return;
-  const int s = job / npairs;
-  const int p = pair0 + job % npairs;
-  float sim = INFINITY;
-  // a NaN avg similarity keeps the gate closed, as the TPU kernel's compare
-  const int d = p / a.K;
-  if (!gated || a.out[(size_t)(s * a.P + a.D * a.K + d) * a.B + b] <= a.gate[d])
-    sim = pair_sim(a, s, p, b);
-  a.out[(size_t)(s * a.P + p) * a.B + b] = sim;
-}
-
-cudaError_t launch(const Args& a, int pair0, int npairs, bool gated,
-                   cudaStream_t st) {
-  const int jobs = 3 * npairs;
-  const int jy = jobs < MAX_JOBS ? jobs : MAX_JOBS;
-  const dim3 grid((unsigned)((a.B + LANES - 1) / LANES),
-                  (unsigned)((jobs + jy - 1) / jy));
-  score_pairs<<<grid, dim3(LANES, jy), 0, st>>>(a, pair0, npairs, gated);
+cudaError_t launch(const Args& a, int pair0, int npairs, bool gated, cudaStream_t st) {
+  if constexpr (RING_BYTES > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        score_pairs, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
+    if (attr != cudaSuccess) return attr;
+  }
+  const dim3 grid((unsigned)((a.B + LANES - 1) / LANES), (unsigned)npairs);
+  score_pairs<<<grid, dim3(LANES, SHIFTS), RING_BYTES, st>>>(a, pair0, gated);
   return cudaGetLastError();
 }
 
@@ -251,4 +299,30 @@ extern "C" int rp_fused_dtw_v4(const void* win, const void* newr,
   cudaError_t err = launch(a, D * K, D, false, st);
   if (err != cudaSuccess || D * K == 0) return (int)err;
   return (int)launch(a, 0, D * K, true, st);
+}
+
+// The kernel's resources as the runtime sees them: out[0] registers per
+// thread, out[1] static shared bytes, out[2] local (spill) bytes per thread,
+// out[3] the dynamic shared bytes of a launch, out[4] threads per block,
+// out[5] resident blocks per SM. Returns the first CUDA error, else 0.
+extern "C" int rp_fused_dtw_v4_resources(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, score_pairs);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (RING_BYTES > 48 * 1024) {
+    err = cudaFuncSetAttribute(score_pairs, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               RING_BYTES);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, score_pairs,
+                                                      LANES * SHIFTS, RING_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = (int)fa.localSizeBytes;
+  out[3] = RING_BYTES;
+  out[4] = LANES * SHIFTS;
+  out[5] = blocks;
+  return 0;
 }

@@ -31,6 +31,23 @@ steps 2-6 on their one window, K4 and K5 without step 6:
      pairs run only where avg sim <= gate_bounds[d], else they are +inf. The
      gate is decided per stream (the TPU decided per (8, 128) tile).
 
+K1's design (csrc/fused_dtw_v4.cu; its header has the details and the
+bound): the three virtual windows are slices of one extended sequence E of
+n+2 columns (shift s's logical column i is E[i+s]), and the dot T'[t]·E[k]
+does not depend on the CMN mean, so one pass over E serves all 3 shifts:
+each column is loaded once and dotted with the 2w+2 template rows that any
+shift's band holds, while rwn, dotm, the mean correction and the DP stay per
+shift. Three threads per (stream, pair), one per shift, share the column
+step: each computes a third of the dots into a ring in shared memory (2w+1
+rows × 2w+2 diagonals × 32 streams), one barrier, then each takes its
+shift's DP step from the ring. The column step is branch-free (clamped
+indices, predicated stores), so that its independent FMA chains overlap
+inside the warp. A block is 32 streams × 3 shifts of one pair; two launches,
+the avg pairs then the gated template pairs, and a block whose gates are all
+closed does no work. At the bench shapes it executes 4.0924 GFLOP per chunk
+(`utils.profiling.k1_executed`) of the 3.8724 the function needs
+(`k1_work`).
+
 Precision: every product here is true fp32. dotm feeds
 cost = 1 - (dot - dotm)·rwn, and on a near-silent window |W - m| ~ 1e-4, so
 the absolute error of dotm is amplified ~1e4x into the cosine; a 3-pass bf16
@@ -225,7 +242,22 @@ def _library(C: int, band: int) -> ctypes.CDLL:
     fn = lib.rp_fused_dtw_v4
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
+    lib.rp_fused_dtw_v4_resources.argtypes = [ctypes.c_void_p]
+    lib.rp_fused_dtw_v4_resources.restype = ctypes.c_int
     return lib
+
+
+def k1_resources(C: int, band: int) -> dict:
+    """K1's build for (C, band) as the CUDA runtime sees it: registers per
+    thread, static and dynamic shared bytes, local (spill) bytes per thread,
+    threads per block and resident blocks per SM. Needs a card."""
+    vals = (ctypes.c_int * 6)()
+    err = _library(C, band).rp_fused_dtw_v4_resources(ctypes.addressof(vals))
+    if err != 0:
+        raise RuntimeError(f"fused_dtw_v4 resource query failed: CUDA error {err}")
+    keys = ("registers", "static_smem", "local_bytes", "dynamic_smem", "threads",
+            "blocks_per_sm")
+    return dict(zip(keys, vals))
 
 
 def score_chunk(

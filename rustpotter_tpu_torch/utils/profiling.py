@@ -8,8 +8,8 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
     FLOPs and bytes per stream, and `streams_speed_of_light`;
   - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
     `time_cuda`, `device_kernels`, the work and byte counts of the fused DTW
-    kernels (`k1_work`, `k1_bytes`, `dp_work`, `linear_bytes`, `shift_bytes`)
-    and `bound`.
+    kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `linear_bytes`,
+    `shift_bytes`) and `bound`.
 """
 from __future__ import annotations
 
@@ -171,6 +171,20 @@ def k1_work(lens, w, C, B):
             dots += 2 * C * len({c + s for c in cols for s in range(3)})
             rest += 3 * (2 * C + 3 * len(cols) + 2 * (2 * w) + 2 * (2 * w - 1))
     return dots * B, rest * B
+
+
+def k1_executed(lens, w, C, B):
+    """FLOPs that K1's design (csrc/fused_dtw_v4.cu) executes with the gate
+    open, counted as `k1_work` counts them. Per stream and pair of length n
+    >= 2, each of the 3 shift threads takes n+w column steps, and each step
+    is unguarded: the dotm chain (2C), rwn (3C+1) and NR = ceil((2w+2)/3)
+    dots (2C each); and per DP row (n-1 per shift) the mean correction of
+    all 2w band slots (the invalid ones are then replaced by +inf) and the
+    DP."""
+    nr = (2 * w + 2 + 2) // 3
+    step = 2 * C + 3 * C + 1 + nr * 2 * C
+    row = 3 * (2 * w) + 2 * (2 * w) + 2 * (2 * w - 1)
+    return B * sum(3 * ((n + w) * step + (n - 1) * row) for n in lens if n >= 2)
 
 
 def k1_bytes(F, C, B, P, Lm):

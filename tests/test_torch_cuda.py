@@ -73,6 +73,38 @@ def test_kernel_matches_plain_version_on_card(cuda_device, F):
         _assert_sims_close(got, fd.fused_dtw_chunk_v4_ref(*args))
 
 
+# K1 at ragged shapes: three wakewords of five templates (P = 18), pair
+# lengths 1 and 2 among them (an avg pair of length 1 is +inf: its gate
+# opens only at an infinite bound)
+D3, K5 = 3, 5
+LENS18 = (40, 1, 2, 37, 33) + (40, 39, 5, 2, 20) + (1, 12, 40, 3, 38) + (40, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 33])
+@pytest.mark.parametrize("F", [LM, LM + 2, LM + 9])
+def test_k1_ragged_shapes_match_plain_version_on_card(cuda_device, F, nb):
+    rng = np.random.default_rng(100 + F + nb)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    p = len(LENS18)
+    templates = rng.normal(0, 1, (p, LM, C))
+    x = (t(rng.normal(0, 1, (F, C, nb))), t(rng.normal(0, 1, (3, C, nb))),
+         t(rng.normal(0, 0.2, (3, p, C, nb))), t(templates),
+         t(np.sum(templates.astype(np.float32) ** 2, axis=-1)))
+    rot0 = torch.tensor(F - 2, dtype=torch.int32, device=cuda_device)  # wraps around
+    args = lambda gate: (*x, t(gate), LENS18, W, D3, K5, rot0)
+    avg = fd.fused_dtw_chunk_v4_ref(*args((np.inf,) * D3))[:, :, D3 * K5:].cpu()
+    v = avg[..., 0].flatten().sort().values
+    mid = float((v[v.numel() // 2 - 1] + v[v.numel() // 2]) / 2)
+    closed = [float(avg[..., d].min()) - 1.0 if d < 2 else -1.0 for d in range(D3)]
+    for gate in ((np.inf,) * D3, closed, (mid, closed[1], np.inf)):
+        before = fd.LAUNCHES["fused_dtw_v4"]
+        got = fd.fused_dtw_chunk_v4(*args(gate))
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES["fused_dtw_v4"] == before + 1
+        _assert_sims_close(got, fd.fused_dtw_chunk_v4_ref(*args(gate)))
+
+
 @pytest.mark.cuda
 def test_batched_detector_on_card_matches_cpu(cuda_device):
     ww, utterance = build_bench_wakeword(device=cuda_device)
