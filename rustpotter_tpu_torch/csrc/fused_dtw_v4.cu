@@ -210,8 +210,9 @@ __global__ void __launch_bounds__(LANES * SHIFTS)
       const int t = k - W + 1 - s;  // this shift's DP row r = t + 1 is whole after column k
       const bool step = dp_warp && t >= 0 && t <= n - 2;
       // column k, branch-free: the rows and the next column are clamped into
-      // range, and what they give outside it is never stored or used; past
-      // klast the dots are stored but no valid cell reads them
+      // range, and what they give outside it is never stored or used (no
+      // valid cell reads a column past klast either, but without that guard
+      // ptxas spills 16 bytes at C = 16)
       const int tc = min(max(t, 0), n - 2);
       const float dm = dot_row(tp + tc * C, m);
       float x[C];
@@ -237,7 +238,7 @@ __global__ void __launch_bounds__(LANES * SHIFTS)
       for (int i = 0; i < NR; ++i) {
         const int idx = s * NR + i;  // diagonal U - 1 - idx of row tr
         const int tr = k - W - 1 + idx;
-        if (idx < U && tr >= 0 && tr <= n - 2)
+        if (idx < U && tr >= 0 && tr <= n - 2 && k <= klast)
           ring_lane[((tr % R) * U + (U - 1 - idx)) * LANES] = dv[i];
       }
       rw[q] = rv;

@@ -110,7 +110,7 @@ def k1_schedule(win, newr, means, tpl, lens, gate, rot0, w, D, K):
                 for i in range(NR):
                     idx = s * NR + i
                     tr = k - w - 1 + idx
-                    if idx < U and 0 <= tr <= n - 2:
+                    if idx < U and 0 <= tr <= n - 2 and k <= klast:
                         ring[(tr % R) * U + (U - 1 - idx)] = dv[i]
                 flops[0] += (2 * Cn + 3 * Cn + 1 + NR * 2 * Cn) * nlive
                 regs.append((step, dm, rv))
