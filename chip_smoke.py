@@ -14,9 +14,10 @@ Phases, each of which raises (non-zero exit) when it fails:
      with its time (CUDA events over back-to-back launches, median of 20;
      K5's from kernel_probe --v1 in phase 5), the plain version's time and
      its bound; K1 also with the gate mixed and closed, with the FLOPs its
-     design executes beside those the function needs, and with the CUDA
-     runtime's registers, local (spill) bytes, shared memory and resident
-     warps per SM of its C = 8 and C = 16 builds; then the fp32 probes V1-V6 (tools/fma_probe.py) against
+     design executes (counted, `k1_executed`) beside those the function
+     needs, and with the registers, spill bytes and shared memory that ptxas
+     reports for its C = 8 and C = 16 builds and the warps per SM they
+     allow; then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
      with the plain versions' time there;
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
@@ -67,6 +68,8 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     k1_executed,
     k1_work,
     linear_bytes,
+    ptxas_resources,
+    resident_warps,
     shift_bytes,
     time_cuda,
 )
@@ -148,6 +151,7 @@ def compare(got, want, name="K1", atol=ATOL):
 def kernel_phase(dev, record):
     import torch
 
+    from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import fused_dtw as fd
 
     rng = np.random.default_rng(6)
@@ -216,14 +220,15 @@ def kernel_phase(dev, record):
         f"{ms_closed:.4f} ms), plain {plain_ms:.3f} ms; needs {flops / 1e9:.4f} GFLOP (dots "
         f"{dots / 1e9:.4f}, rest {rest / 1e9:.4f}; {t_ops:.4f} ms at {H100.fp32_tflops:.0f} "
         f"TFLOP/s) and {nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {H100.hbm_gbps / 1e3:.2f} "
-        f"TB/s); executes {executed / 1e9:.4f} GFLOP, {executed / ms / 1e9:.3f} TFLOP/s")
+        f"TB/s); its design executes {executed / 1e9:.4f} GFLOP (counted by k1_executed, not "
+        f"measured), {executed / ms / 1e9:.3f} TFLOP/s at that count")
+    ring = 4 * (2 * w + 1) * (2 * w + 2) * 32  # the .cu's RING_BYTES, dynamic shared memory
     for c in (8, 16):
-        r = fd.k1_resources(c, w)
-        log(f"K1 build C={c} w={w}: {r['registers']} registers, {r['local_bytes']} bytes "
-            f"local (spill) memory, {r['static_smem']} + {r['dynamic_smem']} bytes shared "
-            f"memory (static + dynamic) per block of {r['threads']} threads, "
-            f"{r['blocks_per_sm']} blocks = {r['blocks_per_sm'] * r['threads'] // 32} warps "
-            "per SM")
+        r = ptxas_resources(_build.build_log(fd.SOURCE, {"RP_C": c, "RP_W": w}))
+        smem = r["static_smem"] + ring
+        log(f"K1 build C={c} w={w} (ptxas): {r['registers']} registers, {r['spill_bytes']} "
+            f"bytes of spill stores, {smem} bytes of shared memory per block of 96 threads: "
+            f"{resident_warps(r['registers'], 96, smem)} warps per SM")
     record["fused_dtw_v4"] = {
         "name": "fused_dtw_v4",
         "route": "cuda",
@@ -238,8 +243,6 @@ def kernel_phase(dev, record):
         "library_ms": None,
         "ms_gate_mixed": ms_mixed,
         "ms_gate_closed": ms_closed,
-        "gflop_executed": executed / 1e9,
-        "gflop_needed": flops / 1e9,
     }
 
 

@@ -39,11 +39,11 @@
 // TFLOP/s fp32 (non-tensor) peak. Its bytes (window 52 MB, means 9.4 MB, new
 // rows and output) are ~64 MB, ~19 us at 3.35 TB/s: bound by operations
 // (chip_smoke.py computes both from its inputs). Tensor cores are no help:
-// the port is true fp32 and wgmma has no fp32 form. This design executes
-// 4.0924 GFLOP per chunk there (utils/profiling.py k1_executed: each of the
-// n+w column steps computes dotm, rwn and 3*NR dots, unguarded, and each DP
-// step corrects all 2w band slots); the one-thread-per-(shift, pair) design
-// before it executed ~6.5.
+// the port is true fp32 and wgmma has no fp32 form. Counted from the design
+// (utils/profiling.py k1_executed; not measured on the card), it executes
+// 4.0924 GFLOP per chunk there: each of the n+w column steps computes dotm,
+// rwn and 3*NR dots, unguarded, and each DP step corrects all 2w band slots.
+// The one-thread-per-(shift, pair) design before it executed ~6.5.
 //
 // Design:
 //   - three threads per (stream, pair), one per shift: a block is 32
@@ -300,30 +300,4 @@ extern "C" int rp_fused_dtw_v4(const void* win, const void* newr,
   cudaError_t err = launch(a, D * K, D, false, st);
   if (err != cudaSuccess || D * K == 0) return (int)err;
   return (int)launch(a, 0, D * K, true, st);
-}
-
-// The kernel's resources as the runtime sees them: out[0] registers per
-// thread, out[1] static shared bytes, out[2] local (spill) bytes per thread,
-// out[3] the dynamic shared bytes of a launch, out[4] threads per block,
-// out[5] resident blocks per SM. Returns the first CUDA error, else 0.
-extern "C" int rp_fused_dtw_v4_resources(int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, score_pairs);
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (RING_BYTES > 48 * 1024) {
-    err = cudaFuncSetAttribute(score_pairs, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               RING_BYTES);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, score_pairs,
-                                                      LANES * SHIFTS, RING_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.sharedSizeBytes;
-  out[2] = (int)fa.localSizeBytes;
-  out[3] = RING_BYTES;
-  out[4] = LANES * SHIFTS;
-  out[5] = blocks;
-  return 0;
 }

@@ -45,8 +45,8 @@ indices, predicated stores), so that its independent FMA chains overlap
 inside the warp. A block is 32 streams × 3 shifts of one pair; two launches,
 the avg pairs then the gated template pairs, and a block whose gates are all
 closed does no work. At the bench shapes it executes 4.0924 GFLOP per chunk
-(`utils.profiling.k1_executed`) of the 3.8724 the function needs
-(`k1_work`).
+by the design's count (`utils.profiling.k1_executed`, not a measurement) of
+the 3.8724 the function needs (`k1_work`).
 
 Precision: every product here is true fp32. dotm feeds
 cost = 1 - (dot - dotm)·rwn, and on a near-silent window |W - m| ~ 1e-4, so
@@ -242,22 +242,7 @@ def _library(C: int, band: int) -> ctypes.CDLL:
     fn = lib.rp_fused_dtw_v4
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
-    lib.rp_fused_dtw_v4_resources.argtypes = [ctypes.c_void_p]
-    lib.rp_fused_dtw_v4_resources.restype = ctypes.c_int
     return lib
-
-
-def k1_resources(C: int, band: int) -> dict:
-    """K1's build for (C, band) as the CUDA runtime sees it: registers per
-    thread, static and dynamic shared bytes, local (spill) bytes per thread,
-    threads per block and resident blocks per SM. Needs a card."""
-    vals = (ctypes.c_int * 6)()
-    err = _library(C, band).rp_fused_dtw_v4_resources(ctypes.addressof(vals))
-    if err != 0:
-        raise RuntimeError(f"fused_dtw_v4 resource query failed: CUDA error {err}")
-    keys = ("registers", "static_smem", "local_bytes", "dynamic_smem", "threads",
-            "blocks_per_sm")
-    return dict(zip(keys, vals))
 
 
 def score_chunk(

@@ -9,12 +9,15 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
   - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
     `time_cuda`, `device_kernels`, the work and byte counts of the fused DTW
     kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `linear_bytes`,
-    `shift_bytes`) and `bound`.
+    `shift_bytes`) and `bound`;
+  - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
+    shared memory from its build log, and the warps per SM they allow.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 from dataclasses import dataclass
 from typing import Optional
 
@@ -224,3 +227,35 @@ def bound(flops, nbytes, chip: ChipSpec = H100):
     t_ops = flops / (chip.fp32_tflops * 1e12) * 1e3
     t_bytes = nbytes / (chip.hbm_gbps * 1e9) * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ------------------------------------------------------- compiled resources
+
+# An sm_90 SM's limits (CUDA C++ Programming Guide, compute capability 9.0):
+# 64K 32-bit registers, allocated per warp in units of 256; 64 resident warps
+# and 32 resident blocks; 228 KB of shared memory, of which the runtime
+# reserves 1 KB per block.
+SM90_REGISTERS, SM90_REG_UNIT, SM90_WARPS, SM90_BLOCKS = 65536, 256, 64, 32
+SM90_SMEM, SM90_SMEM_PER_BLOCK = 228 * 1024, 1024
+
+
+def ptxas_resources(log: str) -> dict:
+    """Registers per thread, spill-store bytes per thread and static shared
+    bytes per block of the one kernel in an `nvcc -Xptxas -v` build log."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores", log)
+    if len(regs) != 1 or len(spills) != 1:
+        raise ValueError(f"expected one kernel's ptxas report, found {len(regs)}")
+    smem = re.search(r"(\d+) bytes smem", log)
+    return {"registers": int(regs[0]), "spill_bytes": int(spills[0]),
+            "static_smem": int(smem.group(1)) if smem else 0}
+
+
+def resident_warps(registers: int, threads: int, smem_bytes: int) -> int:
+    """Warps per sm_90 SM of blocks of `threads` threads that take
+    `registers` registers per thread and `smem_bytes` of shared memory."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // SM90_REG_UNIT) * SM90_REG_UNIT
+    blocks = min(SM90_REGISTERS // per_warp // warps, SM90_WARPS // warps, SM90_BLOCKS,
+                 SM90_SMEM // (smem_bytes + SM90_SMEM_PER_BLOCK))
+    return blocks * warps

@@ -1,9 +1,11 @@
 """K1 of the PyTorch port (rustpotter_tpu_torch.ops.fused_dtw) against the JAX
 package: its plain version against the scan-path oracle (band_costs +
 banded_dtw_batch on the materialized virtual windows) and against the Pallas
-kernel in interpret mode, with open, closed and mixed avg gates. The
+kernel in interpret mode, with open, closed and mixed avg gates, at the
+unit shapes and at ragged ones (pair lengths 1 and 2, P = 18). The
 hand-written kernel is held against the plain version on the card in
-tests/test_torch_cuda.py.
+tests/test_torch_cuda.py, and its schedule on the CPU in
+tests/test_torch_k1_schedule.py.
 
 Tolerance: rtol 3e-6, atol 2e-4 on similarities (sums of up to 40 cosine
 costs) — the JAX kernel tests' own (tests/test_dtw_and_scoring.py).
@@ -28,9 +30,9 @@ B, LM, C, W = 30, 40, 8, 5
 LENS = (40, 31, 28, 37) + (35, 40)  # D*K templates, then D avgs
 
 
-def _inputs(F: int) -> dict:
-    rng = np.random.default_rng(6 + F)
-    templates = rng.normal(0, 1, (P, LM, C)).astype(np.float32)
+def _inputs(F: int, P=P, Lm=LM, C=C, B=B, seed=None) -> dict:
+    rng = np.random.default_rng(6 + F if seed is None else seed)
+    templates = rng.normal(0, 1, (P, Lm, C)).astype(np.float32)
     return dict(
         win=rng.normal(0, 1, (F, C, B)).astype(np.float32),  # circular
         new=rng.normal(0, 1, (3, C, B)).astype(np.float32),
@@ -41,9 +43,10 @@ def _inputs(F: int) -> dict:
     )
 
 
-def _jax_scan_oracle(x: dict) -> np.ndarray:
+def _jax_scan_oracle(x: dict, lens=LENS, w=W) -> np.ndarray:
     """Each shift's virtual window materialized, then the JAX scan-path DP."""
-    F = x["win"].shape[0]
+    F, C, B = x["win"].shape
+    P, LM = x["templates"].shape[:2]
     rot0 = x["rot0"]
     oracle = np.zeros((B, 3, P), np.float32)
     virt = x["win"].copy()
@@ -56,18 +59,18 @@ def _jax_scan_oracle(x: dict) -> np.ndarray:
         costs = jax_band_costs(
             jnp.asarray(np.broadcast_to(x["templates"], (B, P, LM, C))).reshape(B * P, LM, C),
             jnp.asarray(normwin).reshape(B * P, LM, C),
-            W,
+            w,
         )
-        lens_b = jnp.asarray(np.broadcast_to(np.array(LENS, np.int32), (B, P)).reshape(-1))
-        oracle[:, s] = np.asarray(jax_banded_dtw_batch(costs, lens_b, W)).reshape(B, P)
+        lens_b = jnp.asarray(np.broadcast_to(np.array(lens, np.int32), (B, P)).reshape(-1))
+        oracle[:, s] = np.asarray(jax_banded_dtw_batch(costs, lens_b, w)).reshape(B, P)
     return oracle
 
 
-def _torch_args(x: dict, gate, device="cpu"):
+def _torch_args(x: dict, gate, device="cpu", lens=LENS, w=W, D=D, K=K):
     t = lambda a: torch.tensor(a, device=device)
     return (
         t(x["win"]), t(x["new"]), t(x["means3"]), t(x["templates"]), t(x["tnorms"]),
-        torch.tensor(np.asarray(gate, np.float32), device=device), LENS, W, D, K,
+        torch.tensor(np.asarray(gate, np.float32), device=device), lens, w, D, K,
         torch.tensor(x["rot0"], dtype=torch.int32, device=device),
     )
 
@@ -107,6 +110,64 @@ def test_plain_version_matches_jax_pallas_kernel_interpret():
         interpret=True,
     ))
     got = fd.fused_dtw_chunk_v4_ref(*_torch_args(x, [np.inf, np.inf])).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# The ragged shapes of the kernel's schedule test and card tests: pair
+# lengths 1 (no DP row: +inf) and 2 (the shortest DP) beside Lm, and several
+# wakewords (D = 3, K = 5, P = 18, as kernel_parity's K1 check); (D, K, lens)
+RAGGED_LM, RAGGED_C, RAGGED_B = 12, 4, 5
+RAGGED = {
+    "P6": (2, 2, (12, 2, 1, 7) + (12, 9)),
+    "P18": (3, 5, (12, 1, 2, 11, 7, 2, 12, 5, 9, 1, 3, 12, 10, 6, 8) + (12, 2, 11)),
+}
+
+
+@pytest.mark.parametrize("w", [2, 3])
+@pytest.mark.parametrize("F", [RAGGED_LM, RAGGED_LM + 2, RAGGED_LM + 9])
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_plain_version_matches_jax_scan_oracle_at_ragged_lengths(case, F, w):
+    """Gates open, ww0's closed, and ww0's between its avg sims."""
+    Dr, Kr, lens = RAGGED[case]
+    x = _inputs(F, len(lens), RAGGED_LM, RAGGED_C, RAGGED_B, seed=10 * F + w)
+    args = lambda gate: _torch_args(x, gate, lens=lens, w=w, D=Dr, K=Kr)
+    oracle = _jax_scan_oracle(x, lens, w)
+    assert np.isinf(oracle[:, :, [i for i, n in enumerate(lens) if n == 1]]).all()
+    opened = [np.inf] * Dr
+    got = fd.fused_dtw_chunk_v4_ref(*args(opened)).numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(oracle))
+    np.testing.assert_allclose(got, oracle, rtol=RTOL, atol=ATOL)
+
+    avg0 = oracle[:, :, Dr * Kr]
+    closed = [float(avg0.min()) - 1.0] + opened[1:]
+    got = fd.fused_dtw_chunk_v4_ref(*args(closed)).numpy()
+    assert np.isinf(got[:, :, :Kr]).all()
+    np.testing.assert_allclose(got[:, :, Kr:], oracle[:, :, Kr:], rtol=RTOL, atol=ATOL)
+
+    v = np.sort(avg0.ravel())
+    mixed = [float((v[len(v) // 2 - 1] + v[len(v) // 2]) / 2)] + opened[1:]
+    got = fd.fused_dtw_chunk_v4_ref(*args(mixed)).numpy()
+    passing = np.repeat((avg0 <= mixed[0])[..., None], Kr, axis=-1)
+    assert 0 < passing.sum() < passing.size
+    want = np.where(passing, oracle[:, :, :Kr], np.inf)
+    np.testing.assert_array_equal(np.isinf(got[:, :, :Kr]), np.isinf(want))
+    np.testing.assert_allclose(got[:, :, :Kr], want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got[:, :, Kr:], oracle[:, :, Kr:], rtol=RTOL, atol=ATOL)
+
+
+def test_plain_version_matches_jax_pallas_kernel_interpret_at_p18():
+    Dr, Kr, lens = RAGGED["P18"]
+    F, w = RAGGED_LM + 9, 3
+    x = _inputs(F, len(lens), RAGGED_LM, RAGGED_C, RAGGED_B, seed=10 * F + w)
+    want = np.asarray(jax_fused_dtw_chunk_v4(
+        jnp.asarray(x["win"]), jnp.asarray(x["new"]), jnp.asarray(x["means3"]),
+        jnp.asarray(x["templates"]), jnp.asarray(x["tnorms"]),
+        jnp.full((Dr,), np.inf, jnp.float32), lens, w, Dr, Kr, x["rot0"],
+        interpret=True,
+    ))
+    got = fd.fused_dtw_chunk_v4_ref(*_torch_args(x, [np.inf] * Dr, lens=lens, w=w, D=Dr,
+                                                 K=Kr)).numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 

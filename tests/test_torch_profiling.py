@@ -77,3 +77,34 @@ def test_dtw_work_counts():
                                                 + (n - 1) * per_row)
     assert profiling.dp_work(1, w, C, True) == 0
     assert profiling.linear_bytes(100, 16, 8192, 6) < profiling.shift_bytes(100, 16, 8192, 6, 1)
+
+
+# ptxas's report for K1's C = 16 build, as nvcc -Xptxas -v prints it
+PTXAS_K1 = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111score_pairsENS_4ArgsEib' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111score_pairsENS_4ArgsEib
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_ptxas_resources_reads_one_kernels_report():
+    assert profiling.ptxas_resources(PTXAS_K1) == {
+        "registers": 168, "spill_bytes": 0, "static_smem": 0}
+    spilled = PTXAS_K1.replace("Used 168 registers,", "Used 255 registers, 41472 bytes smem,")
+    spilled = spilled.replace("0 bytes spill stores", "84 bytes spill stores")
+    assert profiling.ptxas_resources(spilled) == {
+        "registers": 255, "spill_bytes": 84, "static_smem": 41472}
+    with pytest.raises(ValueError, match="one kernel"):
+        profiling.ptxas_resources(PTXAS_K1 + PTXAS_K1)
+
+
+@pytest.mark.parametrize("registers, threads, smem, warps", [
+    (168, 96, 16896, 12),  # K1 at C = 16: registers bind (4 blocks)
+    (128, 96, 16896, 15),  # K1 at C = 8: 5 blocks
+    (255, 256, 0, 8),  # PR 1's K1 at C = 16: one block of 8 warps
+    (32, 96, 16896, 39),  # shared memory binds: 13 blocks of 17,920 B
+    (16, 32, 0, 32),  # the 32-block limit binds
+])
+def test_resident_warps_on_an_sm90_sm(registers, threads, smem, warps):
+    assert profiling.resident_warps(registers, threads, smem) == warps
