@@ -10,7 +10,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      the build seconds and the compiler's register/spill report;
   2. kernel phase: each kernel (K1 fused_dtw_v4, K2 fused_dtw_v3, K3
      banded_dtw, K4 fused_dtw_v2, K5 fused_dtw_v1) against its plain PyTorch
-     version on the card, at the unit-test shapes and at the bench shapes,
+     version on the card, at the unit-test shapes and at the bench shapes
+     (K3 bit for bit at w in {2, 5, 6, 8} with L*w odd and even; K1 and K5
+     also once at w = 8, C = 16),
      with its time (CUDA events over back-to-back launches, median of 20;
      K5's from kernel_probe --v1 in phase 5), the plain version's time and
      its bound; K1 also with the gate mixed and closed, with the FLOPs its
@@ -33,12 +35,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      at B=8192 runs the correctness pass in each kernel mode (K2 by default,
      K4 with dtw_fused_variant=2, K3 with dtw_fused=False: stream 0 must
      fire, every shift must launch the mode's kernel, streams 0-3 must give
-     the events of a device="cpu" run at B=4), and the K2 mode is timed as in
-     phase 3 and split by torch.profiler;
+     the events of a device="cpu" run at B=4), and the K2 and K3 modes are
+     timed as in phase 3 and split by torch.profiler (K3's device time per
+     chunk beside K2's);
   5. tools phase (K5, V1-V6): the kernel tooling path with the counts reset
      before it: kernel_parity's seven checks at B=8192, kernel_probe in its
-     four modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, default
-     K2), fma_probe timing
+     five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
+     default K2), fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
      peak), and the host ingest library's decode; K5 and every probe must
      have launched.
@@ -65,6 +68,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     device_kernels,
     dp_work,
     k1_bytes,
+    k3_work,
     k1_executed,
     k1_work,
     linear_bytes,
@@ -93,6 +97,9 @@ PROFILE_ROWS = 20
 # kernel sources built per MFCC size (C = 8 for the unit shapes, 16 for the
 # bench wakeword); banded_dtw.cu depends on the band only
 SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw_v1.cu")
+K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
+# wider bands, held once at C = 16: K5's rings and K1's ring grow with w
+WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8))
 
 
 def log(*a):
@@ -201,6 +208,12 @@ def kernel_phase(dev, record):
     worst = max(worst, err_open, err_mixed, err_closed)
     log(f"K1 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e} closed "
         f"{err_closed:.3e}")
+    # a wider band, w = 8, once (its ring passes K1's w = 5 size 2.2 times)
+    args8 = (x["win"], x["new"], x["means3"], x["templates"], x["tnorms"], open_, lens, 8, D,
+             K, rot0)
+    err8 = compare(fd.fused_dtw_chunk_v4(*args8), fd.fused_dtw_chunk_v4_ref(*args8))
+    worst = max(worst, err8)
+    log(f"K1 bench shapes at w=8: max|d| {err8:.3e}")
     torch.cuda.synchronize()
 
     # the kernel alone: T' prepared once, as the serving chunk does
@@ -369,29 +382,45 @@ def k3_phase(dev, record):
     """K3 (banded_dtw_kernel) against banded_dtw_batch: bit for bit."""
     import torch
 
+    from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import banded_dtw as bd
     from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
 
     rng = np.random.default_rng(9)
-    w = 5
-    # unit shapes (tests/test_dtw_and_scoring.py's), one entry, then the
-    # per-shift step's: N = B*P DPs of the bench pairs
-    bench_lens = np.tile(np.array([100, 98, 96, 94, 92, 100], np.int32), BENCH_STREAMS)
-    for lens in (rng.integers(20, 61, 37), np.array([2]), bench_lens):
-        N, L = len(lens), int(lens.max())
+
+    def hold(lens, L, w):
+        N = len(lens)
         costs = torch.tensor(rng.uniform(0, 2, (N, L, 2 * w)).astype(np.float32), device=dev)
         lens_t = torch.tensor(lens.astype(np.int32), device=dev)
         got = bd.banded_dtw_kernel(costs, lens_t, w)
         want = banded_dtw_batch(costs, lens_t, w)
         if not torch.equal(got, want):
             bad = int((got != want).sum())
-            raise AssertionError(f"K3 is not bit-exact at N={N}, L={L}: {bad} entries differ")
-        log(f"K3 shapes N={N} L={L}: bit-exact")
+            raise AssertionError(f"K3 is not bit-exact at N={N}, L={L}, w={w}: {bad} entries "
+                                 "differ")
+        log(f"K3 shapes N={N} L={L} w={w} (L*w {'odd' if L * w % 2 else 'even'}): bit-exact")
+        return costs, lens_t
+
+    # unit shapes (tests/test_dtw_and_scoring.py's) at every band built,
+    # lengths 1, 2 and L among them, and an odd L*w (rows not 16-byte aligned)
+    for w in K3_BANDS:
+        for L in (60, 59):
+            lens = rng.integers(1, L + 1, 300)
+            lens[:3] = (1, 2, L)
+            hold(lens, L, w)
+    hold(np.array([2]), 2, 5)
+    # the per-shift step's shapes: N = B*P DPs of the bench pairs
+    w = 5
+    bench_lens = np.tile(np.array([100, 98, 96, 94, 92, 100], np.int32), BENCH_STREAMS)
+    costs, lens_t = hold(bench_lens, 100, w)
     ms = time_cuda(lambda: bd.banded_dtw_kernel(costs, lens_t, w))
     plain_ms = time_cuda(lambda: banded_dtw_batch(costs, lens_t, w), samples=5, per=1, warmup=1)
-    rows = int((bench_lens.astype(np.int64) - 1).clip(min=0).sum())
-    flops = rows * (2 * (2 * w) + 2 * (2 * w - 1))
-    nbytes = 4 * (rows * 2 * w + 2 * len(bench_lens))  # costs of the rows needed, lens, out
+    flops, nbytes = k3_work(bench_lens, w, 100)  # the costs of the rows needed, lens, out
+    r = ptxas_resources(_build.build_log(bd.SOURCE, {"RP_W": w}))
+    smem = r["static_smem"] + bd.smem_bytes(w)
+    log(f"K3 build w={w} (ptxas): {r['registers']} registers, {r['spill_bytes']} bytes of "
+        f"spill stores, {smem} bytes of shared memory per block of {bd.WARPS * 32} threads: "
+        f"{resident_warps(r['registers'], bd.WARPS * 32, smem)} warps per SM")
     record["banded_dtw"] = kernel_row("banded_dtw", "banded_dtw.cu",
                                       "rustpotter_tpu/ops/pallas_dtw.py:31", 0.0, ms, plain_ms,
                                       flops, nbytes)
@@ -425,6 +454,12 @@ def k5_phase(dev, record):
     worst = max(worst, err)
     plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
     log(f"K5 bench shapes: max|d| {err:.3e}; plain {plain_ms:.3f} ms")
+    # a wider band, w = 8 at C = 16 (52,224 B of rings: dynamic shared memory)
+    args8 = (*args[:5], 8)
+    err8 = compare(fd.fused_dtw_batch(*args8, variant=1), fd.fused_dtw_batch_ref(*args8), "K5",
+                   ATOL_V2)
+    worst = max(worst, err8)
+    log(f"K5 bench shapes at w=8: max|d| {err8:.3e}")
     record["fused_dtw_v1"] = {
         "name": "fused_dtw_v1", "route": "cuda",
         "source": "rustpotter_tpu_torch/csrc/fused_dtw_v1.cu",
@@ -480,7 +515,7 @@ def probe_phase(dev, record):
 
 def tools_phase(dev, record):
     """The kernel tooling path: kernel_parity's seven checks at B=8192, the
-    kernel probe in each of its 4 modes, the fp32 probes timed at reps=2000,
+    kernel probe in each of its 5 modes, the fp32 probes timed at reps=2000,
     and the host ingest library; counts reset before and read after."""
     import torch
 
@@ -495,7 +530,7 @@ def tools_phase(dev, record):
     log(f"tools: kernel_parity passed all {len(kernel_parity.CHECKS)} checks at "
         f"B={BENCH_STREAMS} in {time.perf_counter() - t0:.2f} s")
     probes = {}
-    for argv in (["--v1"], ["--v2"], ["--v4"], []):
+    for argv in (["--v1"], ["--v2"], ["--v4"], ["--k3"], []):
         B, iters, variant, gate = kernel_probe.parse([str(BENCH_STREAMS), "20", *argv])
         probes[variant] = kernel_probe.measure(B, iters, variant, gate, dev)
         for line in kernel_probe.report(probes[variant]):
@@ -812,6 +847,30 @@ def per_shift_phase(dev, record):
     summary.update({"step_streams_rt": streams_rt, "step_streams_rt_min": rt_range[0],
                     "step_streams_rt_max": rt_range[1], "step_chunk_ms": chunk_ms,
                     "step_kernel_ms": kernel_ms, "step_k2_ms": k2_ms})
+
+    # (d) the K3 mode (band costs + K3) likewise: K3's device time per chunk
+    # beside the rest, and the host clock, which the enqueue bounds
+    st3 = modes[2][1]
+    step3 = make_step(st3)
+    states3, windows3 = timed_windows(lambda s, f: step3(params, s, f), init_state(st3, B, dev),
+                                      noise)
+    chunk3_ms = float(np.median(windows3)) / TIMED_CHUNKS * 1e3
+    rows3 = device_kernels(lambda: step3(params, states3, noise), PROFILED_CHUNKS)
+    kernel3_ms = sum(r[0] for r in rows3)
+    k3_ms = sum(r[0] for r in rows3 if "banded_dp" in r[2])
+    log(f"per-shift K3 mode: {chunk3_ms:.4f} ms/chunk host clock (median of {TIMED_WINDOWS} "
+        f"windows of {TIMED_CHUNKS} chunks, range {min(windows3) / TIMED_CHUNKS * 1e3:.4f}-"
+        f"{max(windows3) / TIMED_CHUNKS * 1e3:.4f})")
+    if rows3:
+        log(f"per-shift K3 mode: device kernels per chunk {kernel3_ms:.4f} ms in "
+            f"{sum(r[1] for r in rows3):.1f} launches of {len(rows3)} kernels: K3 {k3_ms:.4f} "
+            f"ms, rest {kernel3_ms - k3_ms:.4f} ms; beside the K2 mode's K2 {k2_ms:.4f} ms of "
+            f"{kernel_ms:.4f} ms")
+    for ms, count, kname in rows3[:PROFILE_ROWS]:
+        log(f"profile step K3 mode: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  "
+            f"{kname[:110]}")
+    summary.update({"step3_chunk_ms": chunk3_ms, "step3_kernel_ms": kernel3_ms,
+                    "step3_k3_ms": k3_ms})
     return summary
 
 
@@ -830,7 +889,9 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     builds = [(src, {"RP_C": c, "RP_W": 5}) for src in SOURCES_C for c in (8, 16)]
-    builds += [("banded_dtw.cu", {"RP_W": 5}), ("fma_probe.cu", {}), ("ingest.cpp", {})]
+    builds += [(src, {"RP_C": 16, "RP_W": w}) for src, w in WIDE]
+    builds += [("banded_dtw.cu", {"RP_W": w}) for w in K3_BANDS]
+    builds += [("fma_probe.cu", {}), ("ingest.cpp", {})]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _build.build(*b), builds))
     log(f"build: {len(builds)} libraries (kernel variants and the host ingest library) in "

@@ -27,6 +27,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+# The most shared memory one block may use on sm_90: 227 KB, as dynamic shared
+# memory after cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...).
+SMEM_OPTIN = 232_448
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -82,6 +82,30 @@ def _check_band(band: int) -> None:
         )
 
 
+# Shared memory of the kernels' rings, mirroring the .cu constants; a CUDA
+# launch whose ring passes the sm_90 opt-in raises ValueError before any build.
+LANES, MAX_JOBS = 32, 8  # streams per block; K5's pairs per block
+
+
+def k1_smem_bytes(band: int, C: int) -> int:
+    """K1's dot ring (csrc/fused_dtw_v4.cu RING_BYTES): 2w+1 rows x 2w+2
+    diagonals x LANES floats, whatever C."""
+    return 4 * (2 * band + 1) * (2 * band + 2) * LANES
+
+
+def k5_smem_bytes(band: int, C: int) -> int:
+    """K5's column ring and rwn ring (csrc/fused_dtw_v1.cu SMEM_BYTES):
+    2w+1 slots x (C + MAX_JOBS) x LANES floats."""
+    return 4 * (2 * band + 1) * (C + MAX_JOBS) * LANES
+
+
+def _check_smem(name: str, nbytes: int, band: int, C: int) -> None:
+    if nbytes > _build.SMEM_OPTIN:
+        raise ValueError(
+            f"{name} at band_size {band}, C = {C} needs {nbytes} B of shared memory, "
+            f"more than the {_build.SMEM_OPTIN} B a block can opt into")
+
+
 def normalize_templates(templates: torch.Tensor, tnorms: torch.Tensor) -> torch.Tensor:
     """T' = T·rsqrt(|T|²) per row; zero rows stay zero."""
     return templates * torch.where(tnorms == 0.0, 0.0, torch.rsqrt(tnorms))[..., None]
@@ -272,6 +296,7 @@ def score_chunk(
     if rot0.device != dev or tset.lens_t.device != dev:
         raise ValueError(f"rot0 and the template set must be on {dev}")
     F, C, B = win.shape
+    _check_smem("K1", k1_smem_bytes(tset.band, C), tset.band, C)
     P, Lm, _ = tset.tp.shape
     rot = rot0.to(torch.int32)  # a no-op for the stream state's int32 cursor
     out = torch.empty((3, P, B), dtype=torch.float32, device=dev)
@@ -609,6 +634,8 @@ def score_linear(win_t: torch.Tensor, means_t: torch.Tensor, tset: TemplateSet,
     if tset.lens_t.device != dev:
         raise ValueError(f"the template set must be on {dev}")
     Lm, C, B = win_t.shape
+    if variant == 1:
+        _check_smem("K5", k5_smem_bytes(tset.band, C), tset.band, C)
     P = tset.tp.shape[0]
     _, entry, key = _LINEAR[variant]
     out = torch.empty((P, B), dtype=torch.float32, device=dev)

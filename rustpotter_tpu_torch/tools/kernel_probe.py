@@ -1,12 +1,14 @@
-"""Time one fused DTW kernel alone at the bench shapes (B, Lm=100, C=16, w=5,
-P=6), on the card: the counterpart of the JAX package's tools/kernel_probe.py.
+"""Time one DTW kernel alone at the bench shapes (B, Lm=100, C=16, w=5, P=6),
+on the card: the counterpart of the JAX package's tools/kernel_probe.py.
 
-    python -m rustpotter_tpu_torch.tools.kernel_probe [B] [iters] [--v1|--v2|--v4] [--gate]
+    python -m rustpotter_tpu_torch.tools.kernel_probe [B] [iters] [--v1|--v2|--v4|--k3] [--gate]
 
 The default is K2 (`fused_dtw_batch_v3`); --v1 is K5 and --v2 K4
 (`fused_dtw_batch(variant=1 or 2)`), --v4 is K1 (`fused_dtw_chunk_v4`, all 3
-shifts of a chunk). --gate sets a gate bound that no random stream passes
-(K1 and K2 then score the avg pairs only). It prints:
+shifts of a chunk), --k3 is K3 (`banded_dtw_kernel` over N = 6B DPs of the
+bench pair lengths, L = 100, costs drawn uniform in [0, 2)). --gate sets a
+gate bound that no random stream passes (K1 and K2 then score the avg pairs
+only; K3 has no gate and refuses it). It prints:
   - the launch alone, its template set and layouts prepared outside it:
     CUDA events, the median of 20 samples of 10 back-to-back launches;
   - the device kernels of `iters` calls of the whole wrapper by name and
@@ -23,12 +25,14 @@ import sys
 import numpy as np
 import torch
 
+from ..ops import banded_dtw as bd
 from ..ops import fused_dtw as fd
 from ..utils import profiling
 
 LM, C, W = 100, 16, 5
 LENS = (100, 98, 96, 94, 92, 97)  # one wakeword: 5 templates + its avg pair
-FLAGS = ("--v1", "--v2", "--v4", "--gate")
+VARIANTS = {"--v1": 1, "--v2": 2, "--v4": 4, "--k3": 0}  # 3 (K2) is the default
+FLAGS = (*VARIANTS, "--gate")
 
 
 def parse(argv):
@@ -37,13 +41,14 @@ def parse(argv):
     args = [a for a in argv if not a.startswith("--")]
     opts = [a for a in argv if a.startswith("--")]
     bad = [o for o in opts if o not in FLAGS]
-    if bad or len(args) > 2:
-        raise ValueError(f"unknown arguments {bad or args[2:]}: usage [B] [iters] "
-                         "[--v1|--v2|--v4] [--gate]")
+    chosen = [VARIANTS[o] for o in opts if o in VARIANTS]
+    gate = "--gate" in opts
+    if bad or len(args) > 2 or len(chosen) > 1 or (gate and chosen == [0]):
+        raise ValueError(f"unknown arguments {bad or args[2:] or opts}: usage [B] [iters] "
+                         "[--v1|--v2|--v4|--k3] [--gate] (--k3 has no gate)")
     B = int(args[0]) if args else 8192
     iters = int(args[1]) if len(args) > 1 else 20
-    variant = 1 if "--v1" in opts else (2 if "--v2" in opts else (4 if "--v4" in opts else 3))
-    return B, iters, variant, "--gate" in opts
+    return B, iters, chosen[0] if chosen else 3, gate
 
 
 def inputs(B: int, variant: int, device) -> dict:
@@ -51,6 +56,9 @@ def inputs(B: int, variant: int, device) -> dict:
     rng = np.random.default_rng(0)
     P = len(LENS)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    if variant == 0:  # K3: the band costs of B streams x P pairs
+        return dict(costs=t(rng.uniform(0, 2, (B * P, LM, 2 * W))),
+                    lens=torch.tensor(np.tile(np.array(LENS, np.int32), B), device=device))
     x = dict(win=t(rng.normal(0, 1, (B, LM, C))), means=t(rng.normal(0, 0.2, (B, P, C))),
              templates=t(rng.normal(0, 1, (P, LM, C))))
     x["tnorms"] = torch.sum(x["templates"] * x["templates"], dim=-1)
@@ -63,6 +71,9 @@ def inputs(B: int, variant: int, device) -> dict:
 def calls(x: dict, variant: int, gate: bool):
     """(the whole wrapper call, the launch alone, what it scores): two
     functions of no arguments, and (flops, bytes) of the work."""
+    if variant == 0:
+        k3 = lambda: bd.banded_dtw_kernel(x["costs"], x["lens"], W)
+        return k3, k3, profiling.k3_work(x["lens"].cpu().numpy(), W, LM)
     B = x["win"].shape[0]
     P = len(LENS)
     D, K = 1, P - 1
@@ -95,8 +106,8 @@ def calls(x: dict, variant: int, gate: bool):
     return whole, alone, (flops, profiling.linear_bytes(LM, C, B, P))
 
 
-NAMES = {1: "K5 fused_dtw_v1", 2: "K4 fused_dtw_v2", 3: "K2 fused_dtw_v3",
-         4: "K1 fused_dtw_v4 (time = 3 shifts)"}
+NAMES = {0: "K3 banded_dtw (6B DPs)", 1: "K5 fused_dtw_v1", 2: "K4 fused_dtw_v2",
+         3: "K2 fused_dtw_v3", 4: "K1 fused_dtw_v4 (time = 3 shifts)"}
 
 
 def measure(B: int, iters: int, variant: int, gate: bool, device) -> dict:

@@ -221,6 +221,16 @@ def shift_bytes(Lm, C, B, P, D):
     return 4 * (Lm * C * B + P * C * B + P * Lm * B + P * Lm * C + P + D + P * B)
 
 
+def k3_work(lens, w, L):
+    """(FLOPs, bytes) of K3 over DPs of these lengths: each DP needs rows 1
+    .. min(n-1, L), each row the DP's add + min per slot and the add + min
+    chain, and reads that row's 2w costs; plus the lengths read and the sims
+    written."""
+    rows = int(np.minimum(np.asarray(lens, np.int64) - 1, L).clip(min=0).sum())
+    flops = rows * (2 * (2 * w) + 2 * (2 * w - 1))
+    return flops, 4 * (rows * 2 * w + 2 * len(lens))
+
+
 def bound(flops, nbytes, chip: ChipSpec = H100):
     """(bound ms, what bounds it: "operations" or "bytes") at the chip's
     data-sheet peaks."""

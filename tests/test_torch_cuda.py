@@ -8,6 +8,9 @@ runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
+Bands: w = 5 throughout, and w in {6, 8} (K3 also 2) where a kernel's shared
+memory grows with the band, with the ValueError past each kernel's limit.
+
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
 probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds); event
@@ -222,6 +225,78 @@ def test_k3_is_bit_exact_against_plain_version_on_card(cuda_device, n):
     assert bd.LAUNCHES["banded_dtw"] == before + 1
     want = banded_dtw_batch(costs, lens, W)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+# Bands past w = 5 (K3's old static tile held only w <= 5, K5's rings at C =
+# 16 only w <= 7): every kernel builds and matches its plain version there,
+# and beyond its shared-memory limit its wrapper raises ValueError.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 300])
+@pytest.mark.parametrize("L", [59, 60])  # L*w odd at (59, 5)
+@pytest.mark.parametrize("w", [2, 5, 6, 8])
+def test_k3_bands_are_bit_exact_on_card(cuda_device, w, L, n):
+    rng = np.random.default_rng(1000 * w + 10 * L + n)
+    costs = torch.tensor(rng.uniform(0, 2, (n, L, 2 * w)).astype(np.float32), device=cuda_device)
+    lens = rng.integers(1, L + 1, n).astype(np.int32)
+    lens[: min(n, 3)] = (L, 2, 1)[: min(n, 3)]
+    lens = torch.tensor(lens, device=cuda_device)
+    before = bd.LAUNCHES["banded_dtw"]
+    got = bd.banded_dtw_kernel(costs, lens, w)
+    torch.cuda.synchronize()
+    assert bd.LAUNCHES["banded_dtw"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), banded_dtw_batch(costs, lens, w).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [6, 8])
+def test_k5_wide_bands_at_c16_match_plain_version_on_card(cuda_device, w):
+    rng = np.random.default_rng(40 + w)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    c, nb = 16, 50
+    templates = rng.normal(0, 1, (P, LM, c))
+    args = (t(rng.normal(0, 1, (nb, LM, c))), t(rng.normal(0, 0.2, (nb, P, c))), t(templates),
+            t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), LENS, w)
+    before = fd.LAUNCHES["fused_dtw_v1"]
+    got = fd.fused_dtw_batch(*args, variant=1)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["fused_dtw_v1"] == before + 1
+    want = fd.fused_dtw_batch_ref(*args).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL_V2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [6, 8])
+def test_k1_wide_bands_match_plain_version_on_card(cuda_device, w):
+    args = list(_args(LM + 2, cuda_device))
+    args[7] = w
+    before = fd.LAUNCHES["fused_dtw_v4"]
+    got = fd.fused_dtw_chunk_v4(*args)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["fused_dtw_v4"] == before + 1
+    _assert_sims_close(got, fd.fused_dtw_chunk_v4_ref(*args))
+
+
+@pytest.mark.cuda
+def test_bands_beyond_the_shared_memory_limits_raise_on_card(cuda_device):
+    args = list(_args(LM, cuda_device))
+    args[7] = 21  # K1's ring passes the opt-in beyond w = 20
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_dtw_chunk_v4(*args)
+    w = bd.W_MAX + 1
+    costs = torch.zeros((3, 8, 2 * w), device=cuda_device)
+    with pytest.raises(ValueError, match="band_size"):
+        bd.banded_dtw_kernel(costs, torch.full((3,), 8, device=cuda_device), w)
+    # K3 copies 8-byte units: costs starting 4 bytes into an allocation
+    shifted = torch.zeros(3 * 8 * 2 * W + 1, device=cuda_device)[1:].view(3, 8, 2 * W)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        bd.banded_dtw_kernel(shifted, torch.full((3,), 8, device=cuda_device), W)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    c = 16
+    args = (t(np.zeros((2, LM, c))), t(np.zeros((2, P, c))), t(np.ones((P, LM, c))),
+            t(np.full((P, LM), c)), LENS, 38)  # K5's rings at C = 16 pass it beyond w = 37
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_dtw_batch(*args, variant=1)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's kernel tools on the CPU: rustpotter_tpu_torch.tools.kernel_parity
 runs its seven checks at B = 33 (the wrappers run their plain versions on CPU
 tensors, which checks the tool's inputs, oracle and virtual-window
-bookkeeping), and kernel_probe, kernel_parity and fma_probe refuse to run
+bookkeeping), kernel_probe's modes (K3's against the plain DP, bit for bit)
+build their calls and bounds, and kernel_probe, kernel_parity and fma_probe refuse to run
 without a card or with arguments they do not take. On the card they run the
 kernels (chip_smoke.py's tools phase)."""
 import numpy as np
@@ -9,7 +10,10 @@ import pytest
 import torch
 
 from rustpotter_tpu_torch.ops import fused_dtw as fd
-from rustpotter_tpu_torch.tools import fma_probe, kernel_parity, kernel_probe
+from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
+from rustpotter_tpu_torch import _build
+from rustpotter_tpu_torch.ops import banded_dtw as bd
+from rustpotter_tpu_torch.tools import fma_probe, k3_variants, kernel_parity, kernel_probe
 
 torch.set_num_threads(2)
 
@@ -36,6 +40,7 @@ def test_kernel_parity_inputs_follow_the_jax_tool():
 
 @pytest.mark.parametrize("tool,argv", [
     (kernel_probe, ["--v1"]), (kernel_parity, ["33"]), (fma_probe, []),
+    (k3_variants, ["final", "A"]),
 ])
 def test_tools_need_a_card(tool, argv, capsys):
     if torch.cuda.is_available():
@@ -46,7 +51,8 @@ def test_tools_need_a_card(tool, argv, capsys):
 
 @pytest.mark.parametrize("tool,argv", [
     (kernel_probe, ["--jch=3"]), (kernel_probe, ["1", "2", "3"]),
-    (kernel_parity, ["--v1"]), (fma_probe, ["8"]),
+    (kernel_probe, ["--k3", "--gate"]), (kernel_probe, ["--k3", "--v1"]),
+    (kernel_parity, ["--v1"]), (fma_probe, ["8"]), (k3_variants, ["Z"]), (k3_variants, []),
 ])
 def test_tools_refuse_arguments_they_do_not_take(tool, argv, capsys):
     assert tool.main(argv) == 2
@@ -54,14 +60,22 @@ def test_tools_refuse_arguments_they_do_not_take(tool, argv, capsys):
     assert "usage" in err or "no arguments" in err
 
 
-@pytest.mark.parametrize("variant", [1, 2, 3, 4])
+@pytest.mark.parametrize("variant", [0, 1, 2, 3, 4])
 def test_kernel_probe_calls_and_bounds_on_cpu(variant):
-    flag = {1: ["--v1"], 2: ["--v2"], 3: [], 4: ["--v4"]}[variant]
+    flag = {0: ["--k3"], 1: ["--v1"], 2: ["--v2"], 3: [], 4: ["--v4"]}[variant]
     B, iters, v, gate = kernel_probe.parse(["40", "3", *flag])
     assert (B, iters, v, gate) == (40, 3, variant, False)
     x = kernel_probe.inputs(B, variant, "cpu")
     whole, _, (flops, nbytes) = kernel_probe.calls(x, variant, gate)
     sims = whole()
+    if variant == 0:  # K3: 6B DPs, bit for bit the plain DP; no gate
+        assert sims.shape == (B * 6,) and torch.isfinite(sims).all()
+        torch.testing.assert_close(sims, banded_dtw_batch(x["costs"], x["lens"], 5),
+                                   rtol=0, atol=0)
+        rows = B * sum(n - 1 for n in kernel_probe.LENS)
+        assert (flops, nbytes) == (rows * 38, 4 * (rows * 10 + 2 * B * 6))
+        assert kernel_probe.calls(x, 0, True)[2] == (flops, nbytes)
+        return
     assert sims.shape == ((B, 3, 6) if variant == 4 else (B, 6))
     assert torch.isfinite(sims).all()
     if variant in (1, 2):
@@ -71,3 +85,15 @@ def test_kernel_probe_calls_and_bounds_on_cpu(variant):
     _, _, (gated, _) = kernel_probe.calls(x, variant, True)
     assert gated < flops if variant in (3, 4) else gated == flops
     assert nbytes > 0
+
+
+def test_k3_variants_are_edits_of_the_committed_source(tmp_path):
+    """Every variant's edits apply to csrc/banded_dtw.cu as it stands, each
+    changes it, and "final" is the source itself."""
+    src = (_build.CSRC / bd.SOURCE).read_text()
+    assert k3_variants.variant_source("final") == src
+    texts = {name: k3_variants.variant_source(name) for name in k3_variants.VARIANTS}
+    assert len(set(texts.values())) == len(texts)
+    assert "cp.async.cg.shared.global" in texts["M"] and "WARPS = 2;" in texts["A"]
+    other = tmp_path / "other.cu"
+    assert k3_variants.parse(["final", f"old={other}"]) == [("final", None), ("old", other)]
