@@ -55,12 +55,15 @@ EDITS = {
          "  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));\n"
          "  asm volatile(\"cp.async.ca.shared.global [%0], [%1], 8;\\n\" ::\"r\"(s), "
          "\"l\"(src) : \"memory\");"),
+        ("  const int LW2 = L * W2;  // floats between two entries\n"
+         "  const unsigned stile = static_cast<unsigned>(__cvta_generic_to_shared(tile));\n",
+         "  const float* const wcosts = costs + (size_t)e0 * L * W2;\n"),
         ("    const float* const src = costs + ((size_t)e0 * L + (r0 - 1)) * W2;\n"
          "    const unsigned dst = stile + 4u * (s % STAGES) * STAGE_FLOATS;\n",
          "    float* const buf = tile + (s % STAGES) * STAGE_FLOATS;\n"),
         ("      if (k < rows * W) copy8(dst + 4u * (ent * STRIDE + 2 * k), src + ent * LW2 + 2 * k);",
          "      if (k < rows * W)\n        copy8(buf + ent * STRIDE + 2 * k,\n"
-         "              costs + ((size_t)(e0 + ent) * L + (r0 - 1)) * W2 + 2 * k);"),
+         "              wcosts + ((size_t)ent * L + (r0 - 1)) * W2 + 2 * k);"),
     ],
     # 16-byte cp.async.cg copies where L*w is even (a second kernel, VEC = 4,
     # at a stride odd in 16-byte units), 8-byte ones otherwise
