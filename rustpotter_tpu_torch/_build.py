@@ -3,10 +3,11 @@
 Each source under csrc/ is compiled into a shared library with a plain C
 interface and loaded with ctypes: a CUDA source (.cu) by `nvcc` for sm_90a,
 a host C++ source (.cpp) by the host compiler. Compile-time constants (-D)
-are part of a build: a library is keyed by a hash of the source text, the
-flags and the compiler's identity (its path and its `--version`), so a
-library built by another toolkit is never loaded. It lands in _build/
-(listed in .gitignore). Nothing here runs at
+are part of a build: a library is keyed by a hash of the source text (with
+the csrc/ headers a .cu may include), the flags and the compiler's identity
+(its path and its `--version`), so a library built by another toolkit is
+never loaded. It lands in _build/
+(listed in .gitignore). Nothing is compiled at
 import, and nothing falls back: a failed build raises.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +31,9 @@ NVCC_FLAGS = (
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 # The most shared memory one block may use on sm_90: 227 KB, as dynamic shared
 # memory after cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...).
-SMEM_OPTIN = 232_448
+# Defined once, in csrc/smem.cuh, for the kernels and their wrappers.
+SMEM_OPTIN = int(re.search(r"^constexpr int SMEM_OPTIN = (\d+);$",
+                           (CSRC / "smem.cuh").read_text(), re.M).group(1))
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -86,7 +90,10 @@ def _flags(source: str, defines: dict) -> list:
 def library_path(source: str, defines: dict) -> Path:
     src = CSRC / source
     stamp = compiler_identity(_compiler(source)) + " ".join(_flags(source, defines))
-    key = hashlib.sha256(src.read_bytes() + stamp.encode()).hexdigest()[:16]
+    text = src.read_bytes()
+    if _is_cuda(source):
+        text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(text + stamp.encode()).hexdigest()[:16]
     return BUILD / f"{src.stem}-{key}.so"
 
 

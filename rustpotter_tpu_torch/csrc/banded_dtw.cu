@@ -45,16 +45,18 @@
 //     (12 warps) per SM by shared memory, so the 1,536 warps of the bench
 //     shapes are resident in one wave with ~2 x 5 KB in flight each.
 //   - The tile is sized from w and lives in dynamic shared memory (opt-in
-//     attribute above 48 KB). W_MAX = 75 is the largest band whose tile
-//     (ROWS = 1) fits the 232,448 B opt-in; the wrapper raises ValueError
+//     attribute above 48 KB, smem.cuh). W_MAX = 75 is the largest band whose
+//     tile (ROWS = 1) fits the 232,448 B opt-in; the wrapper raises ValueError
 //     beyond it (ops/banded_dtw.py smem_bytes mirrors SMEM_BYTES).
 //
 // Compiled at w = 5 (ptxas, cuobjdump -sass): 124 registers, no spills; 60
 // LDGSTS.E.64 (the 20 unrolled copies of the loop's stage and of the
-// prologue's two), 20 LDS.64 (5 per row), no CALL. Design variants and their
-// times on an H100: tools/k3_variants.py and PERF.md (the K3 redesign).
+// prologue's two), 20 LDS.64 (5 per row), no CALL. The design variants that
+// lost to this one, and their times on an H100: PERF.md (the K3 redesign).
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "smem.cuh"
 
 #ifndef RP_W
 #error "compile with -DRP_W=<band size>"
@@ -73,7 +75,6 @@ constexpr int STRIDE = 2 * (UNITS | 1);       // floats per entry per buffer
 constexpr int STAGE_FLOATS = LANES * STRIDE;
 constexpr int WARP_FLOATS = STAGES * STAGE_FLOATS;
 constexpr int SMEM_BYTES = 4 * WARPS * WARP_FLOATS;
-constexpr int SMEM_OPTIN = 232448;            // sm_90's dynamic shared memory opt-in
 constexpr int W_MAX = 75;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(W >= 2, "the similarity slot w+1 must lie inside the 2w band");
@@ -186,11 +187,8 @@ __global__ void __launch_bounds__(WARPS * LANES)
 extern "C" int rp_banded_dtw(const void* costs, const void* lens, void* out,
                              void* stream, int N, int L) {
   if (N == 0) return 0;
-  if constexpr (SMEM_BYTES > 48 * 1024) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        banded_dp, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (attr != cudaSuccess) return (int)attr;
-  }
+  const cudaError_t attr = opt_in_smem<banded_dp, SMEM_BYTES>();
+  if (attr != cudaSuccess) return (int)attr;
   constexpr int PER_BLOCK = WARPS * LANES;
   banded_dp<<<(N + PER_BLOCK - 1) / PER_BLOCK, PER_BLOCK, SMEM_BYTES,
               static_cast<cudaStream_t>(stream)>>>(

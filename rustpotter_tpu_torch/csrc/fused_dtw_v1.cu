@@ -36,10 +36,11 @@
 //     coefficient). The extra slot lets a fast warp write the next column
 //     while a slow one still reads the last row, so one barrier per row
 //     suffices. 11 x 16 x 32 x 4 B = 22.5 KB at C = 16, w = 5. The ring and
-//     the rwn ring live in dynamic shared memory, (2w+1)(C+8) x 128 B
-//     (SMEM_BYTES, 33,792 B at C = 16, w = 5), with the opt-in attribute above
-//     48 KB; the wrapper raises ValueError where it passes the 232,448 B
-//     opt-in (w > 37 at C = 16; ops/fused_dtw.py k5_smem_bytes).
+//     the rwn ring take (2w+1)(C+8) x 128 B (SMEM_BYTES, 33,792 B at C = 16,
+//     w = 5): static shared memory up to the 48 KB a block gets by default
+//     (w <= 7 at C = 16), dynamic shared memory with the opt-in attribute
+//     above it (smem.cuh); the wrapper raises ValueError where they pass the
+//     232,448 B opt-in (w > 37 at C = 16; ops/fused_dtw.py k5_smem_bytes).
 //   - each pair-thread computes rwn = 1/|W[c] - m| for the column entering
 //     the ring from its own mean, into its own slot of a shared rwn ring
 //     (read back only by the same thread: no barrier needed for it).
@@ -57,6 +58,8 @@
 //     cell). The dots are the same FMA chains as K4's, so K5 gives K4's bits.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "smem.cuh"
 
 #ifndef RP_C
 #error "compile with -DRP_C=<mfcc coefficients>"
@@ -103,7 +106,7 @@ __device__ __forceinline__ int slot_of(int col) { return (col + SLOTS) % SLOTS; 
 using Ring = float[SLOTS][C][LANES];
 using RwnRing = float[SLOTS][MAX_JOBS][LANES];
 constexpr int SMEM_BYTES = (int)(sizeof(Ring) + sizeof(RwnRing));
-static_assert(SMEM_BYTES <= 232448, "the rings pass sm_90's shared-memory opt-in");
+constexpr bool DYNAMIC = SMEM_BYTES > 48 * 1024;  // the rings in dynamic shared memory
 
 // Window column `col` of the block's 32 streams into its ring slot, loaded
 // by all the block's threads (columns outside [0, Lm) are never read).
@@ -133,12 +136,7 @@ __device__ __forceinline__ void column_rwn(const Ring& ring, RwnRing& rwn_ring,
   rwn_ring[s][ty][tx] = acc == 0.f ? 0.f : 1.f / sqrtf(acc);
 }
 
-__global__ void __launch_bounds__(LANES * MAX_JOBS) score_pairs_v1(Args a) {
-  extern __shared__ float4 smem[];
-  Ring& ring = *reinterpret_cast<Ring*>(smem);
-  RwnRing& rwn_ring = *reinterpret_cast<RwnRing*>(reinterpret_cast<float*>(smem) +
-                                                  sizeof(Ring) / sizeof(float));
-
+__device__ __forceinline__ void score(const Args& a, Ring& ring, RwnRing& rwn_ring) {
   const int B = a.B, Lm = a.Lm;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int jy = blockDim.y;
@@ -213,6 +211,20 @@ __global__ void __launch_bounds__(LANES * MAX_JOBS) score_pairs_v1(Args a) {
   if (live) a.out[(size_t)p * B + b] = result;
 }
 
+template <bool DYN>
+__global__ void __launch_bounds__(LANES * MAX_JOBS) score_pairs_v1(Args a) {
+  if constexpr (DYN) {
+    extern __shared__ float4 smem[];
+    score(a, *reinterpret_cast<Ring*>(smem),
+          *reinterpret_cast<RwnRing*>(reinterpret_cast<float*>(smem) +
+                                      sizeof(Ring) / sizeof(float)));
+  } else {
+    __shared__ Ring ring;
+    __shared__ RwnRing rwn_ring;
+    score(a, ring, rwn_ring);
+  }
+}
+
 }  // namespace
 
 // Launch K5 on `stream`. Returns cudaGetLastError() after the launch: a
@@ -224,13 +236,12 @@ extern "C" int rp_fused_dtw_v1(const void* win, const void* means,
   const Args a{static_cast<const float*>(win), static_cast<const float*>(means),
                static_cast<const float*>(tpl), static_cast<const int*>(lens),
                static_cast<float*>(out),       B, Lm, P};
-  if constexpr (SMEM_BYTES > 48 * 1024) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        score_pairs_v1, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (attr != cudaSuccess) return (int)attr;
-  }
+  constexpr int DYN_BYTES = DYNAMIC ? SMEM_BYTES : 0;
+  const cudaError_t attr = opt_in_smem<score_pairs_v1<DYNAMIC>, DYN_BYTES>();
+  if (attr != cudaSuccess) return (int)attr;
   const int jy = P < MAX_JOBS ? P : MAX_JOBS;
   const dim3 grid((unsigned)((B + LANES - 1) / LANES), (unsigned)((P + jy - 1) / jy));
-  score_pairs_v1<<<grid, dim3(LANES, jy), SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
+  score_pairs_v1<DYNAMIC><<<grid, dim3(LANES, jy), DYN_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -90,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem.cuh"
+
 #ifndef RP_C
 #error "compile with -DRP_C=<mfcc coefficients>"
 #endif
@@ -271,11 +273,8 @@ __global__ void __launch_bounds__(LANES * SHIFTS)
 }
 
 cudaError_t launch(const Args& a, int pair0, int npairs, bool gated, cudaStream_t st) {
-  if constexpr (RING_BYTES > 48 * 1024) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        score_pairs, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
-    if (attr != cudaSuccess) return attr;
-  }
+  const cudaError_t attr = opt_in_smem<score_pairs, RING_BYTES>();
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((unsigned)((a.B + LANES - 1) / LANES), (unsigned)npairs);
   score_pairs<<<grid, dim3(LANES, SHIFTS), RING_BYTES, st>>>(a, pair0, gated);
   return cudaGetLastError();

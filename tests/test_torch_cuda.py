@@ -8,8 +8,10 @@ runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Bands: w = 5 throughout, and w in {6, 8} (K3 also 2) where a kernel's shared
-memory grows with the band, with the ValueError past each kernel's limit.
+Bands: w = 5 throughout, and where a kernel's shared memory grows with the
+band, w from 6 up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX =
+75; K1 6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K5 6, 8 and 37 at
+C = 16), with the ValueError past each limit.
 
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
@@ -233,8 +235,8 @@ def test_k3_is_bit_exact_against_plain_version_on_card(cuda_device, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 33, 300])
-@pytest.mark.parametrize("L", [59, 60])  # L*w odd at (59, 5)
-@pytest.mark.parametrize("w", [2, 5, 6, 8])
+@pytest.mark.parametrize("L", [59, 60])  # L*w odd at (59, 5) and (59, 75)
+@pytest.mark.parametrize("w", [2, 5, 6, 8, 20, bd.W_MAX])
 def test_k3_bands_are_bit_exact_on_card(cuda_device, w, L, n):
     rng = np.random.default_rng(1000 * w + 10 * L + n)
     costs = torch.tensor(rng.uniform(0, 2, (n, L, 2 * w)).astype(np.float32), device=cuda_device)
@@ -249,7 +251,7 @@ def test_k3_bands_are_bit_exact_on_card(cuda_device, w, L, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [6, 8])
+@pytest.mark.parametrize("w", [6, 8, 37])  # static rings at 6, opt-in above 48 KB at 8
 def test_k5_wide_bands_at_c16_match_plain_version_on_card(cuda_device, w):
     rng = np.random.default_rng(40 + w)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
@@ -266,7 +268,7 @@ def test_k5_wide_bands_at_c16_match_plain_version_on_card(cuda_device, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [6, 8])
+@pytest.mark.parametrize("w", [6, 8, 9, 10, 20])  # the ring passes 48 KB from w = 10
 def test_k1_wide_bands_match_plain_version_on_card(cuda_device, w):
     args = list(_args(LM + 2, cuda_device))
     args[7] = w

@@ -143,9 +143,12 @@ def _inputs(N, L, w, seed):
 
 
 # N = 150: two blocks of 128 entries, the second with 22 live entries in its
-# first warp and none in the other three. L*w is odd at (3, 13) and (5, 13).
+# first warp and none in the other three. L*w is odd at (3, 13), (5, 13) and
+# (75, 13). ROWS = 1 from w = 20 up to W_MAX = 75, the band range whose 2w
+# frontier is widest.
 @pytest.mark.parametrize("land", ["early", "late"])
-@pytest.mark.parametrize("w,L", [(2, 13), (3, 13), (5, 13), (5, 12), (6, 13), (8, 13)])
+@pytest.mark.parametrize("w,L", [(2, 13), (3, 13), (5, 13), (5, 12), (6, 13), (8, 13),
+                                 (20, 13), (75, 13)])
 def test_schedule_is_bit_exact(w, L, land):
     N = 150
     costs, lens = _inputs(N, L, w, seed=10 * w + L)
@@ -192,14 +195,15 @@ def _cu_constants(source, wanted, bands, C):
 
 
 def test_k3_smem_bytes_follow_the_cu_up_to_w_max():
-    consts = _cu_constants(bd.SOURCE, ("SMEM_BYTES", "W_MAX", "SMEM_OPTIN", "WARPS",
+    consts = _cu_constants(bd.SOURCE, ("SMEM_BYTES", "W_MAX", "ROWS", "WARPS",
                                        "STAGES", "LANES"), range(2, bd.W_MAX + 2), 16)
     for w, c in consts.items():
         assert c["SMEM_BYTES"] == bd.smem_bytes(w), w
-        assert (c["W_MAX"], c["SMEM_OPTIN"]) == (bd.W_MAX, _build.SMEM_OPTIN)
+        assert (c["W_MAX"], c["ROWS"]) == (bd.W_MAX, bd.rows_per_stage(w)), w
         assert (c["WARPS"], c["STAGES"], c["LANES"]) == (bd.WARPS, bd.STAGES, LANES)
         assert (bd.smem_bytes(w) <= _build.SMEM_OPTIN) == (w <= bd.W_MAX), w
     assert bd.W_MAX == 75 and bd.smem_bytes(5) == 64_512
+    assert _build.SMEM_OPTIN == 232_448  # sm_90's opt-in, read from csrc/smem.cuh
     for w in (2, bd.W_MAX):
         bd.check_band(w)
     for w in (1, bd.W_MAX + 1):

@@ -11,9 +11,7 @@ import torch
 
 from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
-from rustpotter_tpu_torch import _build
-from rustpotter_tpu_torch.ops import banded_dtw as bd
-from rustpotter_tpu_torch.tools import fma_probe, k3_variants, kernel_parity, kernel_probe
+from rustpotter_tpu_torch.tools import fma_probe, kernel_parity, kernel_probe
 
 torch.set_num_threads(2)
 
@@ -40,7 +38,6 @@ def test_kernel_parity_inputs_follow_the_jax_tool():
 
 @pytest.mark.parametrize("tool,argv", [
     (kernel_probe, ["--v1"]), (kernel_parity, ["33"]), (fma_probe, []),
-    (k3_variants, ["final", "A"]),
 ])
 def test_tools_need_a_card(tool, argv, capsys):
     if torch.cuda.is_available():
@@ -52,7 +49,7 @@ def test_tools_need_a_card(tool, argv, capsys):
 @pytest.mark.parametrize("tool,argv", [
     (kernel_probe, ["--jch=3"]), (kernel_probe, ["1", "2", "3"]),
     (kernel_probe, ["--k3", "--gate"]), (kernel_probe, ["--k3", "--v1"]),
-    (kernel_parity, ["--v1"]), (fma_probe, ["8"]), (k3_variants, ["Z"]), (k3_variants, []),
+    (kernel_parity, ["--v1"]), (fma_probe, ["8"]),
 ])
 def test_tools_refuse_arguments_they_do_not_take(tool, argv, capsys):
     assert tool.main(argv) == 2
@@ -86,14 +83,3 @@ def test_kernel_probe_calls_and_bounds_on_cpu(variant):
     assert gated < flops if variant in (3, 4) else gated == flops
     assert nbytes > 0
 
-
-def test_k3_variants_are_edits_of_the_committed_source(tmp_path):
-    """Every variant's edits apply to csrc/banded_dtw.cu as it stands, each
-    changes it, and "final" is the source itself."""
-    src = (_build.CSRC / bd.SOURCE).read_text()
-    assert k3_variants.variant_source("final") == src
-    texts = {name: k3_variants.variant_source(name) for name in k3_variants.VARIANTS}
-    assert len(set(texts.values())) == len(texts)
-    assert "cp.async.cg.shared.global" in texts["M"] and "WARPS = 2;" in texts["A"]
-    other = tmp_path / "other.cu"
-    assert k3_variants.parse(["final", f"old={other}"]) == [("final", None), ("old", other)]
