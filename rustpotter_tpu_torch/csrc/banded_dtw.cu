@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(WARPS * LANES)
 extern "C" int rp_banded_dtw(const void* costs, const void* lens, void* out,
                              void* stream, int N, int L) {
   if (N == 0) return 0;
-  const cudaError_t attr = opt_in_smem<banded_dp, SMEM_BYTES>();
+  static const cudaError_t attr = opt_in_smem(banded_dp, SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   constexpr int PER_BLOCK = WARPS * LANES;
   banded_dp<<<(N + PER_BLOCK - 1) / PER_BLOCK, PER_BLOCK, SMEM_BYTES,

@@ -107,6 +107,7 @@ using Ring = float[SLOTS][C][LANES];
 using RwnRing = float[SLOTS][MAX_JOBS][LANES];
 constexpr int SMEM_BYTES = (int)(sizeof(Ring) + sizeof(RwnRing));
 constexpr bool DYNAMIC = SMEM_BYTES > 48 * 1024;  // the rings in dynamic shared memory
+static_assert(SMEM_BYTES <= SMEM_OPTIN, "the rings pass sm_90's shared-memory opt-in");
 
 // Window column `col` of the block's 32 streams into its ring slot, loaded
 // by all the block's threads (columns outside [0, Lm) are never read).
@@ -237,7 +238,7 @@ extern "C" int rp_fused_dtw_v1(const void* win, const void* means,
                static_cast<const float*>(tpl), static_cast<const int*>(lens),
                static_cast<float*>(out),       B, Lm, P};
   constexpr int DYN_BYTES = DYNAMIC ? SMEM_BYTES : 0;
-  const cudaError_t attr = opt_in_smem<score_pairs_v1<DYNAMIC>, DYN_BYTES>();
+  static const cudaError_t attr = opt_in_smem(score_pairs_v1<DYNAMIC>, DYN_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const int jy = P < MAX_JOBS ? P : MAX_JOBS;
   const dim3 grid((unsigned)((B + LANES - 1) / LANES), (unsigned)((P + jy - 1) / jy));

@@ -110,6 +110,7 @@ constexpr int SHIFTS = 3;
 constexpr int NR = (U + SHIFTS - 1) / SHIFTS;  // dot rows per shift thread
 constexpr int LANES = 32;         // streams per block
 constexpr int RING_BYTES = (int)sizeof(float) * R * U * LANES;
+static_assert(RING_BYTES <= SMEM_OPTIN, "the ring passes sm_90's shared-memory opt-in");
 static_assert(W >= 2, "the similarity slot w+1 must lie inside the 2w band");
 
 struct Args {
@@ -273,7 +274,7 @@ __global__ void __launch_bounds__(LANES * SHIFTS)
 }
 
 cudaError_t launch(const Args& a, int pair0, int npairs, bool gated, cudaStream_t st) {
-  const cudaError_t attr = opt_in_smem<score_pairs, RING_BYTES>();
+  static const cudaError_t attr = opt_in_smem(score_pairs, RING_BYTES);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((unsigned)((a.B + LANES - 1) / LANES), (unsigned)npairs);
   score_pairs<<<grid, dim3(LANES, SHIFTS), RING_BYTES, st>>>(a, pair0, gated);

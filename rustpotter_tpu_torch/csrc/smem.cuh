@@ -8,17 +8,17 @@
 // rustpotter_tpu_torch/_build.py reads SMEM_OPTIN from this line.
 constexpr int SMEM_OPTIN = 232448;
 
-// Lets KERNEL launch with BYTES of dynamic shared memory: nothing to do up to
-// the 48 KB default, else cudaFuncSetAttribute, once per process. Returns the
-// attribute call's error (cudaSuccess below 48 KB).
-template <auto KERNEL, int BYTES>
-cudaError_t opt_in_smem() {
-  static_assert(BYTES <= SMEM_OPTIN, "the block's shared memory passes sm_90's opt-in");
-  if constexpr (BYTES > 48 * 1024) {
-    static const cudaError_t err =
-        cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
-    return err;
-  } else {
-    return cudaSuccess;
-  }
+// Lets `kernel` launch with `bytes` of dynamic shared memory: nothing to do up
+// to the 48 KB default, else cudaFuncSetAttribute. Returns its error.
+//
+// A launcher calls it once per process, into a static of its own:
+//   static const cudaError_t attr = opt_in_smem(kernel, BYTES);
+// The static must not live in here: a static of an inline or template function
+// is one object in the whole process (a GNU unique symbol), so every library
+// built from one source with the same BYTES would share it, and only the first
+// to launch would get the attribute.
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
