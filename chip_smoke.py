@@ -15,11 +15,12 @@ Phases, each of which raises (non-zero exit) when it fails:
      also once at w = 8, C = 16),
      with its time (CUDA events over back-to-back launches, median of 20;
      K5's from kernel_probe --v1 in phase 5), the plain version's time and
-     its bound; K1 also with the gate mixed and closed, with the FLOPs its
-     design executes (counted, `k1_executed`) beside those the function
-     needs, and with the registers, spill bytes and shared memory that ptxas
-     reports for its C = 8 and C = 16 builds and the warps per SM they
-     allow; then the fp32 probes V1-V6 (tools/fma_probe.py) against
+     its bound; K1 and K2 also with the gate mixed and closed, with the
+     FLOPs their designs execute (counted, `k1_executed`, `k2_executed`)
+     and with the registers, spill bytes and shared memory that ptxas
+     reports for their C = 8 and C = 16 builds and the warps per SM they
+     allow (K2 is also held once at w = 9, where its ring passes 48 KB);
+     then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
      with the plain versions' time there;
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
@@ -43,8 +44,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
      default K2), fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
-     peak), and the host ingest library's decode; K5 and every probe must
-     have launched.
+     peak), V3's ptxas registers and spills at S = 8 and 32 and every
+     opcode of its SASS rep loop (which must hold no LDG or LDL), and the
+     host ingest library's decode; K5 and every probe must have launched.
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -71,6 +73,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     k3_work,
     k1_executed,
     k1_work,
+    k2_executed,
     linear_bytes,
     ptxas_resources,
     resident_warps,
@@ -98,8 +101,9 @@ PROFILE_ROWS = 20
 # bench wakeword); banded_dtw.cu depends on the band only
 SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw_v1.cu")
 K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
-# wider bands, held once at C = 16: K5's rings and K1's ring grow with w
-WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8))
+# wider bands, held once at C = 16: K5's rings and K1's and K2's rings grow
+# with w (K2's passes 48 KB of shared memory from w = 9)
+WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8), ("fused_dtw_v3.cu", 9))
 
 
 def log(*a):
@@ -285,6 +289,7 @@ def k2_phase(dev, record):
     """K2 (fused_dtw_batch_v3_t) against fused_dtw_batch_v3_ref."""
     import torch
 
+    from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import fused_dtw as fd
 
     rng = np.random.default_rng(7)
@@ -324,21 +329,43 @@ def k2_phase(dev, record):
     mixed = mid_bound(want[:, D * K])
     err_mixed = compare(fd.fused_dtw_batch_v3_t(*args(mixed)),
                         fd.fused_dtw_batch_v3_ref(*args(mixed)), "K2")
-    worst = max(worst, err_open, err_mixed)
-    log(f"K2 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e}")
+    closed = want[:, D * K].min().reshape(1) - 1.0
+    got = fd.fused_dtw_batch_v3_t(*args(closed))
+    assert torch.isinf(got[:, :D * K]).all(), "K2 bench: closed gate left templates finite"
+    err_closed = compare(got, fd.fused_dtw_batch_v3_ref(*args(closed)), "K2")
+    worst = max(worst, err_open, err_mixed, err_closed)
+    log(f"K2 bench shapes: max|d| open {err_open:.3e} mixed {err_mixed:.3e} closed "
+        f"{err_closed:.3e}")
+    # a wider band, w = 9, once (its ring passes the 48 KB default there)
+    args9 = (x["win"], x["means"], x["templates"], x["tnorms"], open_, lens, 9, D, K, rot)
+    err9 = compare(fd.fused_dtw_batch_v3_t(*args9), fd.fused_dtw_batch_v3_ref(*args9), "K2")
+    worst = max(worst, err9)
+    log(f"K2 bench shapes at w=9: max|d| {err9:.3e}")
     # the launch alone: T' and dotm prepared, as the per-shift step has them
     tset = fd.prepare_templates(x["templates"], x["tnorms"], lens, w)
     dotm = torch.einsum("plc,pcb->plb", tset.tp, x["means"]).contiguous()
-    ms = time_cuda(lambda: fd.launch_v3(x["win"], x["means"], dotm, tset, open_, D, K, rot))
-    ms_mixed = time_cuda(lambda: fd.launch_v3(x["win"], x["means"], dotm, tset, mixed, D, K, rot))
+    launch = lambda gate: fd.launch_v3(x["win"], x["means"], dotm, tset, gate, D, K, rot)
+    ms = time_cuda(lambda: launch(open_))
+    ms_mixed = time_cuda(lambda: launch(mixed))
+    ms_closed = time_cuda(lambda: launch(closed))
     plain_ms = time_cuda(lambda: fd.fused_dtw_batch_v3_ref(*args(open_)), samples=5, per=1,
                          warmup=1)
-    log(f"K2 bench gate mixed: {ms_mixed:.4f} ms")
+    executed = k2_executed(lens, w, C, B)
+    log(f"K2 bench gate open: {ms:.4f} ms (gate mixed {ms_mixed:.4f} ms, closed "
+        f"{ms_closed:.4f} ms); its design executes {executed / 1e9:.4f} GFLOP (counted by "
+        f"k2_executed, not measured), {executed / ms / 1e9:.3f} TFLOP/s at that count")
+    for c in (8, 16):
+        r = ptxas_resources(_build.build_log(fd.SOURCE_V3, {"RP_C": c, "RP_W": w}))
+        smem = r["static_smem"] + fd.k2_smem_bytes(w, c)
+        log(f"K2 build C={c} w={w} (ptxas): {r['registers']} registers, {r['spill_bytes']} "
+            f"bytes of spill stores, {smem} bytes of shared memory per block of 160 threads: "
+            f"{resident_warps(r['registers'], 160, smem)} warps per SM")
     flops = B * sum(dp_work(n, w, C, False) for n in lens)
     nbytes = shift_bytes(Lm, C, B, P, D)
     record["fused_dtw_v3"] = kernel_row("fused_dtw_v3", "fused_dtw_v3.cu",
                                         "rustpotter_tpu/ops/fused_dtw.py:273", worst, ms,
                                         plain_ms, flops, nbytes)
+    record["fused_dtw_v3"].update(ms_gate_mixed=ms_mixed, ms_gate_closed=ms_closed)
 
 
 def k4_phase(dev, record):
@@ -519,7 +546,7 @@ def tools_phase(dev, record):
     and the host ingest library; counts reset before and read after."""
     import torch
 
-    from rustpotter_tpu_torch import native
+    from rustpotter_tpu_torch import _build, native
     from rustpotter_tpu_torch.audio.encoder import decode_bytes
     from rustpotter_tpu_torch.config import Endianness, SampleFormat
     from rustpotter_tpu_torch.tools import fma_probe, kernel_parity, kernel_probe
@@ -538,6 +565,15 @@ def tools_phase(dev, record):
     log(f"tools: K5 {probes[1]['ms']:.4f} ms beside K4 {probes[2]['ms']:.4f} ms on the same "
         "inputs")
     rows, chip = fma_probe.measure(dev)
+    loops = fma_probe.rep_loops(fma_probe.sass_listing())
+    log_v3 = _build.build_log(fma_probe.SOURCE, {})
+    for S in (8, 32):
+        r = ptxas_resources(log_v3, f"probe_dynloadILi{S}E")
+        loop = loops[("dynload", S)]
+        log(f"V3 dynload S={S}: {r['registers']} registers, {r['spill_bytes']} bytes of spill "
+            f"stores (ptxas); SASS rep loop {dict(loop)}")
+        if loop["LDG"] or loop["LDL"]:
+            raise AssertionError(f"V3 S={S}: the rep loop loads ({dict(loop)})")
     for r in rows:
         log(f"fma_probe {r['label']:10s} {r['ms'] * 1e3:10.1f} us  {r['steps_per_us']:12.1f} "
             f"steps/us  {r['flops_per_step']} FLOP/step  {r['tflops']:7.3f} TFLOP/s  SASS "

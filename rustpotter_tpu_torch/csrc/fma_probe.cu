@@ -10,20 +10,24 @@
 // rustpotter_tpu_torch/tools/fma_probe.py.
 //
 // Operands (fp32): x (rows = 64, 8 * 128), s (32, 16), out (G, 8 * 128).
-// S (the TPU probe's `streams`, 8 or 32) is a template constant; reps, the
-// row count of x and the 0.5 factor are run-time values, so that the
-// compiler keeps every step: fmaf(half, wt, acc) with a run-time `half`
-// cannot be split or folded, and it equals the TPU's acc + 0.5 * wt exactly
-// (0.5 * wt is exact). The reps loop is not unrolled, as the TPU's
-// fori_loop; the S steps inside it are.
+// S (the TPU probe's `streams`, 8 or 32) and the row count of x (ROWS = 64,
+// a static shape in the TPU kernel too; the entry point refuses any other)
+// are compile-time constants; reps and the 0.5 factor are run-time values,
+// so that the compiler keeps every step: fmaf(half, wt, acc) with a run-time
+// `half` cannot be split or folded, and it equals the TPU's acc + 0.5 * wt
+// exactly (0.5 * wt is exact). The reps loop is not unrolled, as the TPU's
+// fori_loop, except V3's over its index period; the S steps inside it are.
 //
 // What each measures:
 //   V1 fma            S independent FMA chains (the fp32 issue rate);
 //   V2 fma_dep        one dependent chain of reps * S FMAs (its latency);
-//   V3 dynload        FMAs fed by x rows at a dynamic row index from global
-//                     memory, the index a real integer remainder
-//                     rem(r * S + i, rows) (the DTW kernels' coalesced column
-//                     loads, with costly index math);
+//   V3 dynload        one FMA chain fed by x rows at the index
+//                     rem(r * S + i, 64); the TPU divides by a static shape,
+//                     so the sequence is known at compile time: each lane
+//                     holds its 64 values in registers, and the rep loop,
+//                     unrolled over the index period, is FFMAs alone (a
+//                     run-time remainder and a load per FMA run at 26x its
+//                     bound, PERF.md);
 //   V4 dynload_cheap  the same with index (r & 31) + i;
 //   V5 sload          FMAs fed by s at a dynamic row from shared memory (all
 //                     lanes one address: a broadcast);
@@ -36,12 +40,13 @@ namespace {
 
 constexpr int TILE = 8 * 128;  // lanes of a TPU (8, 128) tile
 constexpr int BLOCK = 256;     // threads per block; a tile is 4 blocks
+constexpr int ROWS = 64;       // rows of x: tools/vpu_probe.py's static n_in
 
 struct Args {
   const float* x;
   const float* s;
   float* out;
-  int reps, rows;
+  int reps;
   float half;
 };
 
@@ -82,16 +87,38 @@ __global__ void __launch_bounds__(BLOCK) probe_fma_dep(Args a) {
   store(a, acc);
 }
 
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+// V3: the index sequence (r * S + i) % ROWS repeats every PERIOD reps, so the
+// rep loop is unrolled over one period and every index is a compile-time
+// register index: each lane loads its ROWS values of x once, and the loop
+// holds the PERIOD * S FFMAs alone, no index arithmetic and no load. The
+// last reps % PERIOD reps run straight-line after it (no second loop).
+// __fmaf_rn is never split or contracted, so every step stays the fmaf of
+// the plain version's order.
 template <int S>
 __global__ void __launch_bounds__(BLOCK) probe_dynload(Args a) {
+  constexpr int PERIOD = ROWS / gcd(ROWS, S);  // 8 reps at S = 8, 2 at S = 32
   const int l = lane_of();
-  float acc = a.x[l] * 0.0f;
-#pragma unroll 1
-  for (int r = 0; r < a.reps; ++r) {
+  float xr[ROWS];
 #pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const int idx = (r * S + i) % a.rows;
-      acc = fmaf(a.half, __ldg(a.x + idx * TILE + l), acc);
+  for (int k = 0; k < ROWS; ++k) xr[k] = a.x[k * TILE + l];
+  float acc = xr[0] * 0.0f;
+  const int full = a.reps - a.reps % PERIOD;
+#pragma unroll 1
+  for (int r = 0; r < full; r += PERIOD) {
+#pragma unroll
+    for (int q = 0; q < PERIOD; ++q) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[(q * S + i) % ROWS], acc);
+    }
+  }
+  // rep full + q reads rows (q * S + i) % ROWS: full * S is a multiple of ROWS
+#pragma unroll
+  for (int q = 0; q < PERIOD - 1; ++q) {
+    if (full + q < a.reps) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[(q * S + i) % ROWS], acc);
     }
   }
   store(a, acc);
@@ -165,8 +192,9 @@ int launch(int kernel, const Args& a, int tiles, cudaStream_t stream) {
 // must check this value.
 extern "C" int rp_fma_probe(int kernel, int S, const void* x, const void* s, void* out,
                             void* stream, int tiles, int reps, int rows, float half) {
+  if (rows != ROWS) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(x), static_cast<const float*>(s),
-               static_cast<float*>(out), reps, rows, half};
+               static_cast<float*>(out), reps, half};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 8) return launch<8>(kernel, a, tiles, st);
   if (S == 32) return launch<32>(kernel, a, tiles, st);

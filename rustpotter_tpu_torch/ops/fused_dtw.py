@@ -93,6 +93,18 @@ def k1_smem_bytes(band: int, C: int) -> int:
     return 4 * (2 * band + 1) * (2 * band + 2) * LANES
 
 
+def k2_producers(band: int) -> int:
+    """K2's producer warps (csrc/fused_dtw_v3.cu Q): 4, and 3 at w = 20,
+    where a ring for 4 would pass the opt-in."""
+    return 4 if band <= 19 else 3
+
+
+def k2_smem_bytes(band: int, C: int) -> int:
+    """K2's cost ring (csrc/fused_dtw_v3.cu RING_BYTES): 2w + 2Q - 1 rows x
+    2w band slots x LANES floats, whatever C."""
+    return 4 * (2 * band + 2 * k2_producers(band) - 1) * (2 * band) * LANES
+
+
 def k5_smem_bytes(band: int, C: int) -> int:
     """K5's column ring and rwn ring (csrc/fused_dtw_v1.cu SMEM_BYTES):
     2w+1 slots x (C + MAX_JOBS) x LANES floats."""
@@ -479,6 +491,7 @@ def launch_v3(
         raise ValueError(f"dotm must be {(P, Lm, B)}, got {tuple(dotm.shape)}")
     if rot.device != dev or tset.lens_t.device != dev:
         raise ValueError(f"rot and the template set must be on {dev}")
+    _check_smem("K2", k2_smem_bytes(tset.band, C), tset.band, C)
     rot32 = rot.to(torch.int32)  # a no-op for the stream state's int32 cursor
     out = torch.empty((P, B), dtype=torch.float32, device=dev)
     err = _library_v3(C, tset.band).rp_fused_dtw_v3(

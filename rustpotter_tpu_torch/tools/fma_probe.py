@@ -143,13 +143,17 @@ def default_tiles(device) -> int:
     return TILES_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def sass_listing() -> str:
+    """`cuobjdump -sass` of the built probe library."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(_build.build(SOURCE, {}))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def sass_opcodes() -> dict:
     """{(probe, S): Counter of FFMA / FADD / FMUL} in the rep loop of each
     compiled kernel, from `cuobjdump -sass` of the built library."""
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    return loop_opcodes(subprocess.run(
-        [cuobjdump, "-sass", str(_build.build(SOURCE, {}))],
-        capture_output=True, text=True, check=True).stdout)
+    return loop_opcodes(sass_listing())
 
 
 FP_OPS = ("FFMA", "FADD", "FMUL")
@@ -157,13 +161,13 @@ FP_OPS = ("FFMA", "FADD", "FMUL")
 _INSN = re.compile(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)\S*\s*([^;]*);")
 
 
-def loop_opcodes(sass: str) -> dict:
-    """The FFMA, FADD and FMUL instructions in the rep loop of each probe
-    kernel in a `cuobjdump -sass` listing, keyed (probe, S). A loop is the
-    span from a backward branch's target to the branch; the rep loop is the
-    innermost loop that holds floating-point work. Instructions before or
-    after it (the chains' set-up, the final sum) do not count. Raises unless
-    each kernel has exactly one such loop."""
+def rep_loops(sass: str) -> dict:
+    """Every opcode in the rep loop of each probe kernel in a `cuobjdump
+    -sass` listing, as a Counter keyed (probe, S). A loop is the span from a
+    backward branch's target to the branch; the rep loop is the innermost
+    loop that holds floating-point work. Instructions before or after it
+    (the chains' set-up, the final sum) do not count. Raises unless each
+    kernel has exactly one such loop."""
     kernels, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -185,8 +189,8 @@ def loop_opcodes(sass: str) -> dict:
             target = re.fullmatch(r"0x([0-9a-f]+)", operand)
             if op == "BRA" and target and int(target.group(1), 16) < addr:
                 lo = int(target.group(1), 16)
-                ops = Counter(o for a, o, _ in insns if lo <= a <= addr and o in FP_OPS)
-                if ops:
+                ops = Counter(o for a, o, _ in insns if lo <= a <= addr)
+                if any(ops[o] for o in FP_OPS):
                     loops.append((lo, addr, ops))
         inner = [(lo, hi, ops) for lo, hi, ops in loops
                  if not any(lo <= lo2 and hi2 <= hi and (lo2, hi2) != (lo, hi)
@@ -196,6 +200,13 @@ def loop_opcodes(sass: str) -> dict:
                              "work in the SASS, expected 1")
         out[key] = inner[0][2]
     return out
+
+
+def loop_opcodes(sass: str) -> dict:
+    """The FFMA, FADD and FMUL instructions of each probe kernel's rep loop
+    (`rep_loops`), keyed (probe, S)."""
+    return {key: Counter({o: ops[o] for o in FP_OPS if ops[o]})
+            for key, ops in rep_loops(sass).items()}
 
 
 def flops_per_step(opcodes: Counter, streams: int) -> int:

@@ -10,7 +10,8 @@ bench pair lengths, L = 100, costs drawn uniform in [0, 2)). --gate sets a
 gate bound that no random stream passes (K1 and K2 then score the avg pairs
 only; K3 has no gate and refuses it). It prints:
   - the launch alone, its template set and layouts prepared outside it:
-    CUDA events, the median of 20 samples of 10 back-to-back launches;
+    CUDA events, the median of 20 samples of 10 back-to-back launches (K1
+    and K2 also with the gate closed);
   - the device kernels of `iters` calls of the whole wrapper by name and
     time (torch.profiler), in place of the JAX tool's perfetto trace;
   - the bound at the card's data-sheet peaks (utils/profiling.py).
@@ -117,9 +118,14 @@ def measure(B: int, iters: int, variant: int, gate: bool, device) -> dict:
     x = inputs(B, variant, device)
     whole, alone, (flops, nbytes) = calls(x, variant, gate)
     ms = profiling.time_cuda(alone)
+    # K1 and K2 have a gate: their gate-closed launch is timed beside
+    ms_closed = None
+    if variant in (3, 4):
+        ms_closed = ms if gate else profiling.time_cuda(calls(x, variant, True)[1])
     bound_ms, by = profiling.bound(flops, nbytes)
-    return dict(B=B, variant=variant, gate=gate, ms=ms, bound_ms=bound_ms, bound_by=by,
-                flops=flops, bytes=nbytes, kernels=profiling.device_kernels(whole, iters))
+    return dict(B=B, variant=variant, gate=gate, ms=ms, ms_gate_closed=ms_closed,
+                bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes,
+                kernels=profiling.device_kernels(whole, iters))
 
 
 def report(r: dict) -> list:
@@ -127,7 +133,9 @@ def report(r: dict) -> list:
     lines = [f"variant={r['variant']} {NAMES[r['variant']]} B={r['B']} gate={r['gate']}: "
              f"{r['ms'] * 1e3:10.1f} us per launch; bound {r['bound_ms'] * 1e3:.1f} us by "
              f"{r['bound_by']} ({r['flops'] / 1e9:.4f} GFLOP, {r['bytes'] / 1e6:.2f} MB) = "
-             f"{r['ms'] / r['bound_ms']:.1f}x"]
+             f"{r['ms'] / r['bound_ms']:.1f}x"
+             + (f"; gate closed {r['ms_gate_closed'] * 1e3:.1f} us per launch"
+                if r["ms_gate_closed"] is not None else "")]
     for k_ms, count, name in r["kernels"][:10]:
         lines.append(f"{k_ms * 1e3:10.1f} us/call  {count:4.1f} launches/call  {name[:90]}")
     return lines

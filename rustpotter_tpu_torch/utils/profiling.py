@@ -8,8 +8,8 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
     FLOPs and bytes per stream, and `streams_speed_of_light`;
   - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
     `time_cuda`, `device_kernels`, the work and byte counts of the fused DTW
-    kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `linear_bytes`,
-    `shift_bytes`) and `bound`;
+    kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `k2_executed`,
+    `linear_bytes`, `shift_bytes`) and `bound`;
   - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
     shared memory from its build log, and the warps per SM they allow.
 """
@@ -210,6 +210,19 @@ def dp_work(n, w, C, dotm):
     return f
 
 
+def k2_executed(lens, w, C, B):
+    """FLOPs that K2's design (csrc/fused_dtw_v3.cu) executes with the gate
+    open, counted as `dp_work` counts them. Per stream and pair of length n
+    >= 2, the producer warps take its n+w-2 columns, each with rwn (3C+1)
+    and the 2w band costs of the column, unguarded: a dot (2C) and the mean
+    correction (sub, mul, 1 -) each, the invalid cells included; and the DP
+    warp takes its n-1 DP rows (add + min per slot, then the add + min
+    chain)."""
+    col = 3 * C + 1 + 2 * w * (2 * C + 3)
+    row = 2 * (2 * w) + 2 * (2 * w - 1)
+    return B * sum((n + w - 2) * col + (n - 1) * row for n in lens if n >= 2)
+
+
 def linear_bytes(Lm, C, B, P):
     """K4's and K5's bytes: linear window, means, T', lengths, sims."""
     return 4 * (Lm * C * B + P * C * B + P * Lm * C + P + P * B)
@@ -249,9 +262,18 @@ SM90_REGISTERS, SM90_REG_UNIT, SM90_WARPS, SM90_BLOCKS = 65536, 256, 64, 32
 SM90_SMEM, SM90_SMEM_PER_BLOCK = 228 * 1024, 1024
 
 
-def ptxas_resources(log: str) -> dict:
+def ptxas_resources(log: str, kernel: Optional[str] = None) -> dict:
     """Registers per thread, spill-store bytes per thread and static shared
-    bytes per block of the one kernel in an `nvcc -Xptxas -v` build log."""
+    bytes per block of one kernel in an `nvcc -Xptxas -v` build log: the
+    log's one kernel, or the entry function whose mangled name holds
+    `kernel` (e.g. "probe_dynloadILi8E")."""
+    if kernel is not None:
+        parts = [part for part in log.split("Compiling entry function")[1:]
+                 if kernel in part.split("\n", 1)[0]]
+        if len(parts) != 1:
+            raise ValueError(f"expected one entry function named like {kernel!r}, "
+                             f"found {len(parts)}")
+        log = parts[0]
     regs = re.findall(r"Used (\d+) registers", log)
     spills = re.findall(r"(\d+) bytes spill stores", log)
     if len(regs) != 1 or len(spills) != 1:

@@ -9,14 +9,16 @@ runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bands: w = 5 throughout, and where a kernel's shared memory grows with the
-band, w from 6 up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX =
-75; K1 6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K5 6, 8 and 37 at
+band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
+6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K2 2, 5, 6, 8, 9 and
+W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 6, 8 and 37 at
 C = 16), with the ValueError past each limit.
 
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
-probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds); event
-scores rtol 2e-5 / atol 2e-5 (the CPU slice test's).
+probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds), V3
+bit-exact at reps 13, 16 and 2000 (its steps add exact halves in the plain
+version's order); event scores rtol 2e-5 / atol 2e-5 (the CPU slice test's).
 """
 import numpy as np
 import pytest
@@ -165,6 +167,32 @@ def test_k2_matches_plain_version_on_card(cuda_device, F, nb):
         _assert_sims_close(got, fd.fused_dtw_batch_v3_ref(*args))
 
 
+K2_W_MAX = 20  # the largest band whose cost ring fits the opt-in (csrc/fused_dtw_v3.cu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 5, 6, 8, 9, K2_W_MAX])  # the ring passes 48 KB from 9
+def test_k2_bands_at_c16_match_plain_version_on_card(cuda_device, w):
+    """K2 at the bench C = 16 over 50 streams (a partial second block), the
+    gate open, closed and mixed, at every band up to its limit."""
+    rng = np.random.default_rng(60 + w)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    c, nb, F = 16, 50, LM + 9
+    templates = rng.normal(0, 1, (P, LM, c))
+    x = (t(rng.normal(0, 1, (F, c, nb))), t(rng.normal(0, 0.2, (P, c, nb))), t(templates),
+         t(np.sum(templates.astype(np.float32) ** 2, axis=-1)))
+    rot = torch.tensor(F - 2, dtype=torch.int32, device=cuda_device)  # wraps around
+    args = lambda gate: (*x, t(gate), LENS, w, D, K, rot)
+    avg = fd.fused_dtw_batch_v3_ref(*args((np.inf, np.inf)))[:, D * K].sort().values
+    mid = float((avg[nb // 2 - 1] + avg[nb // 2]) / 2)
+    for gate in ((np.inf, np.inf), (float(avg[0]) - 1.0, np.inf), (mid, np.inf)):
+        before = fd.LAUNCHES["fused_dtw_v3"]
+        got = fd.fused_dtw_batch_v3_t(*args(gate))
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES["fused_dtw_v3"] == before + 1
+        _assert_sims_close(got, fd.fused_dtw_batch_v3_ref(*args(gate)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb", [1, 33, 50])
 def test_k4_matches_plain_version_on_card(cuda_device, nb):
@@ -212,6 +240,19 @@ def test_probe_kernel_matches_plain_version_on_card(cuda_device, name, streams):
     want = fma_probe.plain(name, x, s, 16, streams)
     np.testing.assert_allclose(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy(),
                                rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [13, 16, 2000])  # 13: not a whole number of V3's periods
+@pytest.mark.parametrize("streams", [8, 32])
+def test_v3_is_bit_exact_against_plain_version_on_card(cuda_device, streams, reps):
+    x, s = fma_probe.inputs(cuda_device)
+    before = fma_probe.LAUNCHES["dynload"]
+    got = fma_probe.probe("dynload", x, s, reps, streams, tiles=132)
+    torch.cuda.synchronize()
+    assert fma_probe.LAUNCHES["dynload"] == before + 1
+    want = fma_probe.plain("dynload", x, s, reps, streams)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -299,6 +340,10 @@ def test_bands_beyond_the_shared_memory_limits_raise_on_card(cuda_device):
             t(np.full((P, LM), c)), LENS, 38)  # K5's rings at C = 16 pass it beyond w = 37
     with pytest.raises(ValueError, match="shared memory"):
         fd.fused_dtw_batch(*args, variant=1)
+    args = list(_v3_args(LM, 2, cuda_device))
+    args[6] = K2_W_MAX + 1  # K2's cost ring passes the opt-in beyond w = 20
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_dtw_batch_v3_t(*args)
 
 
 @pytest.mark.cuda

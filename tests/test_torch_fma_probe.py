@@ -145,3 +145,23 @@ def test_loop_opcodes_needs_one_floating_point_loop():
         "@!P0 BRA 0x200", "NOP")
     with pytest.raises(ValueError, match="0 innermost loops"):
         fma_probe.loop_opcodes(straight)
+
+
+def test_dynload_refuses_an_x_of_another_row_count():
+    """V3's row count is a compile-time constant (64, the TPU kernel's static
+    shape): the wrapper refuses any other before it looks at the device."""
+    x, s = fma_probe.inputs("cpu")
+    with pytest.raises(ValueError, match=r"x must be \(64, 8, 128\)"):
+        fma_probe.probe("dynload", x[:32].contiguous(), s, REPS, 8, tiles=1)
+    assert fma_probe.ROWS == 64
+
+
+def test_rep_loops_list_every_opcode_of_the_loop():
+    """`rep_loops` keeps the integer and memory instructions of the rep loop
+    (a V3 loop must hold no LDG or LDL); `loop_opcodes` keeps its FP ones."""
+    loops = fma_probe.rep_loops(SASS)
+    assert loops[("fma", 8)] == Counter(FFMA=8, UIADD3=1, BRA=1)
+    assert loops[("fma_dep", 8)] == Counter(FADD=8, BRA=1)
+    with_load = SASS.replace("UIADD3 UR4, UR4, 0x1, URZ", "LDG.E R9, desc[UR6][R2.64]")
+    assert fma_probe.rep_loops(with_load)[("fma", 8)]["LDG"] == 1
+    assert fma_probe.loop_opcodes(with_load)[("fma", 8)] == Counter(FFMA=8)

@@ -16,8 +16,9 @@ a row that was not copied, or a wait that lets a stage be read before it
 lands turns a similarity into NaN or another value and fails the comparison.
 
 It also pins the shared-memory arithmetic of the wrappers (K3 `smem_bytes`,
-K1 `k1_smem_bytes`, K5 `k5_smem_bytes`) to the .cu constants, evaluated by
-the host C++ compiler, for every band up to each kernel's limit.
+K1 `k1_smem_bytes`, K2 `k2_smem_bytes`, K5 `k5_smem_bytes`) to the .cu
+constants, evaluated by the host C++ compiler, for every band up to each
+kernel's limit, and K2's producer warps and band limit.
 
 Tolerance: none. K3 is adds and mins only, so every result is bit-exact.
 """
@@ -213,11 +214,12 @@ def test_k3_smem_bytes_follow_the_cu_up_to_w_max():
 
 @pytest.mark.parametrize("kernel,source,name,C,limit", [
     ("K1", fd.SOURCE, "RING_BYTES", 16, 20),
+    ("K2", fd.SOURCE_V3, "RING_BYTES", 16, 20),
     ("K5", "fused_dtw_v1.cu", "SMEM_BYTES", 16, 37),
     ("K5", "fused_dtw_v1.cu", "SMEM_BYTES", 8, 56),
 ])
 def test_fused_smem_bytes_follow_the_cu(kernel, source, name, C, limit):
-    fn = fd.k1_smem_bytes if kernel == "K1" else fd.k5_smem_bytes
+    fn = {"K1": fd.k1_smem_bytes, "K2": fd.k2_smem_bytes, "K5": fd.k5_smem_bytes}[kernel]
     consts = _cu_constants(source, (name,), range(2, limit + 2), C)
     for w, c in consts.items():
         assert c[name] == fn(w, C), (w, C)
@@ -225,6 +227,19 @@ def test_fused_smem_bytes_follow_the_cu(kernel, source, name, C, limit):
     fd._check_smem(kernel, fn(limit, C), limit, C)
     with pytest.raises(ValueError, match="shared memory"):
         fd._check_smem(kernel, fn(limit + 1, C), limit + 1, C)
+
+
+def test_k2_constants_follow_the_cu():
+    """K2's producer warps (`fused_dtw.k2_producers`, which `k2_smem_bytes`
+    counts), its ring rows and its band limit W_MAX, the largest band whose
+    ring fits."""
+    consts = _cu_constants(fd.SOURCE_V3, ("Q", "WARPS", "R", "W_MAX"), range(2, 22), 16)
+    for w, c in consts.items():
+        assert (c["Q"], c["WARPS"], c["W_MAX"]) == (fd.k2_producers(w), c["Q"] + 1, 20), w
+        assert c["R"] == 2 * w + 2 * c["Q"] - 1, w
+    assert fd.k2_producers(5) == 4 and fd.k2_producers(20) == 3
+    text = (_build.CSRC / fd.SOURCE_V3).read_text()
+    assert re.search(r"static_assert\(W <= W_MAX && RING_BYTES <= SMEM_OPTIN", text)
 
 
 def test_k3_static_asserts_name_the_limit():

@@ -99,6 +99,23 @@ def test_ptxas_resources_reads_one_kernels_report():
         profiling.ptxas_resources(PTXAS_K1 + PTXAS_K1)
 
 
+def test_ptxas_resources_picks_one_entry_function_of_a_library():
+    """fma_probe.cu builds 12 kernels into one library: `kernel` picks one."""
+    def report(name, regs):
+        return (f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{name}EEvNS_4ArgsE' "
+                "for 'sm_90a'\nptxas info    : Function properties for x\n    0 bytes stack "
+                f"frame, 0 bytes spill stores, 0 bytes spill loads\nptxas info    : Used {regs} "
+                "registers, used 0 barriers\n")
+    log = (report("13probe_dynloadILi8", 72) + report("13probe_dynloadILi32", 74)
+           + report("9probe_fmaILi8", 30))
+    assert profiling.ptxas_resources(log, "probe_dynloadILi8E")["registers"] == 72
+    assert profiling.ptxas_resources(log, "probe_dynloadILi32E")["registers"] == 74
+    with pytest.raises(ValueError, match="one entry function"):
+        profiling.ptxas_resources(log, "probe_sload")
+    with pytest.raises(ValueError, match="one kernel"):
+        profiling.ptxas_resources(log)
+
+
 @pytest.mark.parametrize("registers, threads, smem, warps", [
     (168, 96, 16896, 12),  # K1 at C = 16: registers bind (4 blocks)
     (128, 96, 16896, 15),  # K1 at C = 8: 5 blocks

@@ -83,3 +83,16 @@ def test_kernel_probe_calls_and_bounds_on_cpu(variant):
     assert gated < flops if variant in (3, 4) else gated == flops
     assert nbytes > 0
 
+
+
+@pytest.mark.parametrize("variant,closed", [(3, 0.0925), (4, 0.0956), (1, None)])
+def test_kernel_probe_report_gives_the_gate_closed_time(variant, closed):
+    """K1 and K2 report their gate-closed launch beside the gate-open one."""
+    r = dict(B=8192, variant=variant, gate=False, ms=0.2, ms_gate_closed=closed,
+             bound_ms=0.03, bound_by="operations", flops=2e9, bytes=7.5e7,
+             kernels=[(0.2, 2.0, "score_pairs")])
+    head = kernel_probe.report(r)[0]
+    assert "200.0 us per launch" in head
+    assert ("gate closed" in head) == (closed is not None)
+    if closed is not None:
+        assert f"gate closed {closed * 1e3:.1f} us per launch" in head
