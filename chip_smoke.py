@@ -20,6 +20,8 @@ Phases, each of which raises (non-zero exit) when it fails:
      and with the registers, spill bytes and shared memory that ptxas
      reports for their C = 8 and C = 16 builds and the warps per SM they
      allow (K2 is also held once at w = 9, where its ring passes 48 KB);
+     K4 in both of its forms, the ring form at w = 5 and 9 and the row form
+     at w = 21, with the form and the ptxas report of each build;
      then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
      with the plain versions' time there;
@@ -38,15 +40,16 @@ Phases, each of which raises (non-zero exit) when it fails:
      fire, every shift must launch the mode's kernel, streams 0-3 must give
      the events of a device="cpu" run at B=4), and the K2 and K3 modes are
      timed as in phase 3 and split by torch.profiler (K3's device time per
-     chunk beside K2's);
+     chunk beside K2's; K4's too, profiled alone);
   5. tools phase (K5, V1-V6): the kernel tooling path with the counts reset
      before it: kernel_parity's seven checks at B=8192, kernel_probe in its
      five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
      default K2), fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
-     peak), V3's ptxas registers and spills at S = 8 and 32 and every
-     opcode of its SASS rep loop (which must hold no LDG or LDL), and the
-     host ingest library's decode; K5 and every probe must have launched.
+     peak), V3's and V4's ptxas registers and spills at S = 8 and 32 and
+     every opcode of their SASS rep loops (which must hold no LDG or LDL),
+     and the host ingest library's decode; K5 and every probe must have
+     launched.
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -74,6 +77,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     k1_executed,
     k1_work,
     k2_executed,
+    k4_executed,
     linear_bytes,
     ptxas_resources,
     resident_warps,
@@ -101,9 +105,11 @@ PROFILE_ROWS = 20
 # bench wakeword); banded_dtw.cu depends on the band only
 SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw_v1.cu")
 K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
-# wider bands, held once at C = 16: K5's rings and K1's and K2's rings grow
-# with w (K2's passes 48 KB of shared memory from w = 9)
-WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8), ("fused_dtw_v3.cu", 9))
+# wider bands, held once at C = 16: K5's rings and K1's, K2's and K4's rings
+# grow with w (K2's and K4's pass 48 KB of shared memory from w = 9); K4
+# takes its row form past w = 19
+WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8), ("fused_dtw_v3.cu", 9),
+        ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21))
 
 
 def log(*a):
@@ -369,9 +375,9 @@ def k2_phase(dev, record):
 
 
 def k4_phase(dev, record):
-    """K4 (fused_dtw_batch, variant 2) against fused_dtw_batch_ref."""
-    import torch
-
+    """K4 (fused_dtw_batch, variant 2) against fused_dtw_batch_ref, in both
+    of its forms."""
+    from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import fused_dtw as fd
 
     rng = np.random.default_rng(8)
@@ -395,11 +401,31 @@ def k4_phase(dev, record):
     err = compare(fd.fused_dtw_batch(*args), fd.fused_dtw_batch_ref(*args), "K4", ATOL_V2)
     worst = max(worst, err)
     log(f"K4 bench shapes: max|d| {err:.3e}")
+    # the wider builds: the ring form past 48 KB (w = 9), the row form (w = 21)
+    for wide in (wb for src, wb in WIDE if src == "fused_dtw_v2.cu"):
+        argsw = (*args[:5], wide)
+        errw = compare(fd.fused_dtw_batch(*argsw), fd.fused_dtw_batch_ref(*argsw), "K4",
+                       ATOL_V2)
+        worst = max(worst, errw)
+        log(f"K4 bench shapes at w={wide} ({fd.k4_form(wide)} form): max|d| {errw:.3e}")
     tset = fd.prepare_templates(x["templates"], x["tnorms"], lens, w)
     ms = time_cuda(lambda: fd.score_linear(x["win"], x["means"], tset))
     plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
     flops = B * sum(dp_work(n, w, C, True) for n in lens)
     nbytes = linear_bytes(Lm, C, B, P)
+    if fd.k4_form(w) == "ring":
+        executed = k4_executed(lens, w, C, B)
+        log(f"K4 bench: its design executes {executed / 1e9:.4f} GFLOP (counted by "
+            f"k4_executed, not measured; {flops / 1e9:.4f} needed), {executed / ms / 1e9:.3f} "
+            "TFLOP/s at that count")
+    for c, wb in [(8, w), (16, w)] + [(16, wb) for src, wb in WIDE if src == "fused_dtw_v2.cu"]:
+        r = ptxas_resources(_build.build_log("fused_dtw_v2.cu", {"RP_C": c, "RP_W": wb}))
+        form = fd.k4_form(wb)
+        threads = 32 * (fd.K4_PRODUCERS + 1) if form == "ring" else 32 * min(P, fd.MAX_JOBS)
+        smem = r["static_smem"] + fd.k4_smem_bytes(wb, c)
+        log(f"K4 build C={c} w={wb} ({form} form, ptxas): {r['registers']} registers, "
+            f"{r['spill_bytes']} bytes of spill stores, {smem} bytes of shared memory per block "
+            f"of {threads} threads: {resident_warps(r['registers'], threads, smem)} warps per SM")
     record["fused_dtw_v2"] = kernel_row("fused_dtw_v2", "fused_dtw_v2.cu",
                                         "rustpotter_tpu/ops/fused_dtw.py:167", worst, ms,
                                         plain_ms, flops, nbytes)
@@ -566,14 +592,16 @@ def tools_phase(dev, record):
         "inputs")
     rows, chip = fma_probe.measure(dev)
     loops = fma_probe.rep_loops(fma_probe.sass_listing())
-    log_v3 = _build.build_log(fma_probe.SOURCE, {})
-    for S in (8, 32):
-        r = ptxas_resources(log_v3, f"probe_dynloadILi{S}E")
-        loop = loops[("dynload", S)]
-        log(f"V3 dynload S={S}: {r['registers']} registers, {r['spill_bytes']} bytes of spill "
-            f"stores (ptxas); SASS rep loop {dict(loop)}")
-        if loop["LDG"] or loop["LDL"]:
-            raise AssertionError(f"V3 S={S}: the rep loop loads ({dict(loop)})")
+    probe_log = _build.build_log(fma_probe.SOURCE, {})
+    for label, name in (("V3", "dynload"), ("V4", "dynload_cheap")):
+        for S in (8, 32):
+            # the mangled name: length-prefixed identifier, then <S>
+            r = ptxas_resources(probe_log, f"{len(name) + 6}probe_{name}ILi{S}E")
+            loop = loops[(name, S)]
+            log(f"{label} {name} S={S}: {r['registers']} registers, {r['spill_bytes']} bytes "
+                f"of spill stores (ptxas); SASS rep loop {dict(loop)}")
+            if loop["LDG"] or loop["LDL"]:
+                raise AssertionError(f"{label} S={S}: the rep loop loads ({dict(loop)})")
     for r in rows:
         log(f"fma_probe {r['label']:10s} {r['ms'] * 1e3:10.1f} us  {r['steps_per_us']:12.1f} "
             f"steps/us  {r['flops_per_step']} FLOP/step  {r['tflops']:7.3f} TFLOP/s  SASS "
@@ -907,6 +935,19 @@ def per_shift_phase(dev, record):
             f"{kname[:110]}")
     summary.update({"step3_chunk_ms": chunk3_ms, "step3_kernel_ms": kernel3_ms,
                     "step3_k3_ms": k3_ms})
+
+    # (e) the K4 mode: K4's device time per chunk beside the K2 mode's K2
+    st4 = modes[1][1]
+    step4 = make_step(st4)
+    states4 = init_state(st4, B, dev)
+    rows4 = device_kernels(lambda: step4(params, states4, noise), PROFILED_CHUNKS)
+    kernel4_ms = sum(r[0] for r in rows4)
+    k4_ms = sum(r[0] for r in rows4 if "score_pairs_v2" in r[2])
+    if rows4:
+        log(f"per-shift K4 mode: device kernels per chunk {kernel4_ms:.4f} ms in "
+            f"{sum(r[1] for r in rows4):.1f} launches of {len(rows4)} kernels: K4 {k4_ms:.4f} "
+            f"ms, rest {kernel4_ms - k4_ms:.4f} ms; beside the K2 mode's K2 {k2_ms:.4f} ms")
+    summary.update({"step4_kernel_ms": kernel4_ms, "step4_k4_ms": k4_ms})
     return summary
 
 

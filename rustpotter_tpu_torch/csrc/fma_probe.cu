@@ -16,7 +16,8 @@
 // so that the compiler keeps every step: fmaf(half, wt, acc) with a run-time
 // `half` cannot be split or folded, and it equals the TPU's acc + 0.5 * wt
 // exactly (0.5 * wt is exact). The reps loop is not unrolled, as the TPU's
-// fori_loop, except V3's over its index period; the S steps inside it are.
+// fori_loop, except V3's and V4's over their index periods; the S steps
+// inside it are.
 //
 // What each measures:
 //   V1 fma            S independent FMA chains (the fp32 issue rate);
@@ -28,7 +29,11 @@
 //                     unrolled over the index period, is FFMAs alone (a
 //                     run-time remainder and a load per FMA run at 26x its
 //                     bound, PERF.md);
-//   V4 dynload_cheap  the same with index (r & 31) + i;
+//   V4 dynload_cheap  the same with index (r & 31) + i, which repeats every
+//                     32 reps and reads rows 0 ... 30 + S: x's rows in
+//                     registers and the rep loop unrolled over 64 reps, as
+//                     V3 (a per-lane load per FMA ran at an eighth of the
+//                     FMA peak, PERF.md);
 //   V5 sload          FMAs fed by s at a dynamic row from shared memory (all
 //                     lanes one address: a broadcast);
 //   V6 smemload       V5's function with s read by a warp-uniform global
@@ -89,20 +94,21 @@ __global__ void __launch_bounds__(BLOCK) probe_fma_dep(Args a) {
 
 __host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
-// V3: the index sequence (r * S + i) % ROWS repeats every PERIOD reps, so the
-// rep loop is unrolled over one period and every index is a compile-time
-// register index: each lane loads its ROWS values of x once, and the loop
-// holds the PERIOD * S FFMAs alone, no index arithmetic and no load. The
-// last reps % PERIOD reps run straight-line after it (no second loop).
-// __fmaf_rn is never split or contracted, so every step stays the fmaf of
-// the plain version's order.
-template <int S>
-__global__ void __launch_bounds__(BLOCK) probe_dynload(Args a) {
-  constexpr int PERIOD = ROWS / gcd(ROWS, S);  // 8 reps at S = 8, 2 at S = 32
+// V3 and V4: one FMA chain fed by x at a row that depends on the rep r and
+// the step i alone, through Index::row(r, i), whose sequence repeats every
+// Index::PERIOD reps and reads rows 0 ... Index::NX - 1. So the rep loop is
+// unrolled over one period and every row is a compile-time register index:
+// each lane loads its NX values of x once, and the loop holds the PERIOD * S
+// FFMAs alone, no index arithmetic and no load. The last reps % PERIOD reps
+// run straight-line after it (no second loop). __fmaf_rn is never split or
+// contracted, so every step stays the fmaf of the plain version's order.
+template <int S, class Index>
+__device__ __forceinline__ void register_chain(const Args& a) {
+  constexpr int PERIOD = Index::PERIOD, NX = Index::NX;
   const int l = lane_of();
-  float xr[ROWS];
+  float xr[NX];
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k) xr[k] = a.x[k * TILE + l];
+  for (int k = 0; k < NX; ++k) xr[k] = a.x[k * TILE + l];
   float acc = xr[0] * 0.0f;
   const int full = a.reps - a.reps % PERIOD;
 #pragma unroll 1
@@ -110,31 +116,47 @@ __global__ void __launch_bounds__(BLOCK) probe_dynload(Args a) {
 #pragma unroll
     for (int q = 0; q < PERIOD; ++q) {
 #pragma unroll
-      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[(q * S + i) % ROWS], acc);
+      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[Index::row(q, i)], acc);
     }
   }
-  // rep full + q reads rows (q * S + i) % ROWS: full * S is a multiple of ROWS
+  // rep full + q reads the rows of rep q: full is a multiple of the period
 #pragma unroll
   for (int q = 0; q < PERIOD - 1; ++q) {
     if (full + q < a.reps) {
 #pragma unroll
-      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[(q * S + i) % ROWS], acc);
+      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[Index::row(q, i)], acc);
     }
   }
   store(a, acc);
 }
 
+// V3's rows: rem(r * S + i, ROWS), period 64 / gcd(64, S) (8 reps at S = 8,
+// 2 at S = 32), all ROWS rows.
+template <int S>
+struct DynloadRows {
+  static constexpr int PERIOD = ROWS / gcd(ROWS, S), NX = ROWS;
+  __host__ __device__ static constexpr int row(int r, int i) { return (r * S + i) % ROWS; }
+};
+
+// V4's rows: (r & 31) + i, rows 0 ... 30 + S (39 at S = 8, 63 at S = 32).
+// The index repeats every 32 reps; the loop takes two repeats, 64 reps: at
+// S = 8 a loop of 32 reps (256 FFMAs) took 1.57 ms and one of 64 (512) 1.08,
+// both FFMAs alone (PERF.md; the cause is not visible on the card).
+template <int S>
+struct CheapRows {
+  static constexpr int PERIOD = 64, NX = 31 + S;
+  static_assert(NX <= ROWS, "V4 reads rows 0 ... 30 + S of x");
+  __host__ __device__ static constexpr int row(int r, int i) { return (r & 31) + i; }
+};
+
+template <int S>
+__global__ void __launch_bounds__(BLOCK) probe_dynload(Args a) {
+  register_chain<S, DynloadRows<S>>(a);
+}
+
 template <int S>
 __global__ void __launch_bounds__(BLOCK) probe_dynload_cheap(Args a) {
-  const int l = lane_of();
-  float acc = a.x[l] * 0.0f;
-#pragma unroll 1
-  for (int r = 0; r < a.reps; ++r) {
-    const int base = r & 31;
-#pragma unroll
-    for (int i = 0; i < S; ++i) acc = fmaf(a.half, __ldg(a.x + (base + i) * TILE + l), acc);
-  }
-  store(a, acc);
+  register_chain<S, CheapRows<S>>(a);
 }
 
 template <int S>

@@ -105,6 +105,26 @@ def k2_smem_bytes(band: int, C: int) -> int:
     return 4 * (2 * band + 2 * k2_producers(band) - 1) * (2 * band) * LANES
 
 
+K4_W_MAX = 19  # K4's ring form takes w <= 19, its row form the wider bands
+K4_PRODUCERS = 4  # the ring form's producer warps (csrc/fused_dtw_v2.cu Q)
+
+
+def k4_form(band: int) -> str:
+    """The form K4's build takes at this band (csrc/fused_dtw_v2.cu
+    RING_FORM, chosen from RP_W alone): "ring" up to K4_W_MAX, the largest
+    band whose shared rings fit the opt-in, "row" beyond."""
+    return "ring" if band <= K4_W_MAX else "row"
+
+
+def k4_smem_bytes(band: int, C: int) -> int:
+    """K4's shared memory (csrc/fused_dtw_v2.cu SMEM_BYTES): in the ring
+    form the cost ring and the dotm ring, 2w + 2Q - 1 rows x (2w + 1) x
+    LANES floats, whatever C; none in the row form."""
+    if k4_form(band) == "row":
+        return 0
+    return 4 * (2 * band + 2 * K4_PRODUCERS - 1) * (2 * band + 1) * LANES
+
+
 def k5_smem_bytes(band: int, C: int) -> int:
     """K5's column ring and rwn ring (csrc/fused_dtw_v1.cu SMEM_BYTES):
     2w+1 slots x (C + MAX_JOBS) x LANES floats."""

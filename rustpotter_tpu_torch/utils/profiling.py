@@ -9,7 +9,7 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
   - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
     `time_cuda`, `device_kernels`, the work and byte counts of the fused DTW
     kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `k2_executed`,
-    `linear_bytes`, `shift_bytes`) and `bound`;
+    `k4_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
   - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
     shared memory from its build log, and the warps per SM they allow.
 """
@@ -221,6 +221,20 @@ def k2_executed(lens, w, C, B):
     col = 3 * C + 1 + 2 * w * (2 * C + 3)
     row = 2 * (2 * w) + 2 * (2 * w - 1)
     return B * sum((n + w - 2) * col + (n - 1) * row for n in lens if n >= 2)
+
+
+def k4_executed(lens, w, C, B):
+    """FLOPs that K4's ring form (csrc/fused_dtw_v2.cu, w <= 19) executes,
+    counted as `dp_work(..., dotm=True)` counts them. Per stream and pair of
+    length n >= 2: the dotm prologue's 2w + Q - 1 rows (2C each); the n+w-2
+    column steps of the producer warps, each with one dotm row (2C), rwn
+    (3C+1) and the 2w band costs of the column, unguarded (a dot, 2C, and
+    the mean correction, 3, each, the invalid cells included); and the DP
+    warp's n-1 DP rows (add + min per slot, then the add + min chain)."""
+    col = 2 * C + 3 * C + 1 + 2 * w * (2 * C + 3)
+    row = 2 * (2 * w) + 2 * (2 * w - 1)
+    prologue = (2 * w + 4 - 1) * 2 * C  # Q = 4 producer warps
+    return B * sum(prologue + (n + w - 2) * col + (n - 1) * row for n in lens if n >= 2)
 
 
 def linear_bytes(Lm, C, B, P):

@@ -12,13 +12,16 @@ Bands: w = 5 throughout, and where a kernel's shared memory grows with the
 band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
 6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K2 2, 5, 6, 8, 9 and
 W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 6, 8 and 37 at
-C = 16), with the ValueError past each limit.
+C = 16), with the ValueError past each limit. K4 takes every band: its ring
+form 2, 5, 6, 8, 9 and W_MAX = 19 at C = 16 (its rings pass 48 KB from 9),
+its row form 20, 21 and 24.
 
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
 probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds), V3
-bit-exact at reps 13, 16 and 2000 (its steps add exact halves in the plain
-version's order); event scores rtol 2e-5 / atol 2e-5 (the CPU slice test's).
+bit-exact at reps 13, 16 and 2000 and V4 at reps 13, 16, 32, 45, 100 and 2000
+(their steps add exact halves in the plain version's order); event scores
+rtol 2e-5 / atol 2e-5 (the CPU slice test's).
 """
 import numpy as np
 import pytest
@@ -209,6 +212,33 @@ def test_k4_matches_plain_version_on_card(cuda_device, nb):
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL_V2)
 
 
+# K4 at C = 16: pairs of length 1 and 2, and pairs long enough that the ring
+# form reuses a ring row at every place in a round up to its W_MAX
+K4_LM = 80
+K4_LENS = (K4_LM, 2, 1, 71, 36, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 33, 50])
+@pytest.mark.parametrize("w", [2, 5, 6, 8, 9, fd.K4_W_MAX, 20, 21, 24])
+def test_k4_bands_at_c16_match_plain_version_on_card(cuda_device, w, nb):
+    """K4 on both sides of its change of form (the ring form up to W_MAX =
+    19, whose rings pass 48 KB from 9; the row form beyond)."""
+    rng = np.random.default_rng(70 + w + nb)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    c, p = 16, len(K4_LENS)
+    templates = rng.normal(0, 1, (p, K4_LM, c))
+    args = (t(rng.normal(0, 1, (nb, K4_LM, c))), t(rng.normal(0, 0.2, (nb, p, c))),
+            t(templates), t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), K4_LENS, w)
+    before = fd.LAUNCHES["fused_dtw_v2"]
+    got = fd.fused_dtw_batch(*args)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["fused_dtw_v2"] == before + 1
+    want = fd.fused_dtw_batch_ref(*args)
+    np.testing.assert_array_equal(np.isinf(got.cpu().numpy()), np.isinf(want.cpu().numpy()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL_V2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,lens", [(1, LENS), (33, LENS), (50, LENS),
                                      (33, tuple(40 - 2 * (i % 5) for i in range(11)))])
@@ -252,6 +282,21 @@ def test_v3_is_bit_exact_against_plain_version_on_card(cuda_device, streams, rep
     torch.cuda.synchronize()
     assert fma_probe.LAUNCHES["dynload"] == before + 1
     want = fma_probe.plain("dynload", x, s, reps, streams)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy())
+
+
+@pytest.mark.cuda
+# V4's loop takes 64 reps: 13-45 run its straight-line remainder alone, 100 and
+# 2000 both
+@pytest.mark.parametrize("reps", [13, 16, 32, 45, 100, 2000])
+@pytest.mark.parametrize("streams", [8, 32])
+def test_v4_is_bit_exact_against_plain_version_on_card(cuda_device, streams, reps):
+    x, s = fma_probe.inputs(cuda_device)
+    before = fma_probe.LAUNCHES["dynload_cheap"]
+    got = fma_probe.probe("dynload_cheap", x, s, reps, streams, tiles=132)
+    torch.cuda.synchronize()
+    assert fma_probe.LAUNCHES["dynload_cheap"] == before + 1
+    want = fma_probe.plain("dynload_cheap", x, s, reps, streams)
     np.testing.assert_array_equal(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy())
 
 
