@@ -106,7 +106,7 @@ PROFILE_ROWS = 20
 SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw_v1.cu")
 K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
 # wider bands, held once at C = 16: K5's rings and K1's, K2's and K4's rings
-# grow with w (K2's and K4's pass 48 KB of shared memory from w = 9); K4
+# grow with w (K2's passes 48 KB of shared memory from w = 9, K4's from 8); K4
 # takes its row form past w = 19
 WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8), ("fused_dtw_v3.cu", 9),
         ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21))

@@ -13,7 +13,7 @@ band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
 6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K2 2, 5, 6, 8, 9 and
 W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 6, 8 and 37 at
 C = 16), with the ValueError past each limit. K4 takes every band: its ring
-form 2, 5, 6, 8, 9 and W_MAX = 19 at C = 16 (its rings pass 48 KB from 9),
+form 2, 5, 6, 8, 9 and W_MAX = 19 at C = 16 (its rings pass 48 KB from 8),
 its row form 20, 21 and 24.
 
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
@@ -223,7 +223,7 @@ K4_LENS = (K4_LM, 2, 1, 71, 36, 9)
 @pytest.mark.parametrize("w", [2, 5, 6, 8, 9, fd.K4_W_MAX, 20, 21, 24])
 def test_k4_bands_at_c16_match_plain_version_on_card(cuda_device, w, nb):
     """K4 on both sides of its change of form (the ring form up to W_MAX =
-    19, whose rings pass 48 KB from 9; the row form beyond)."""
+    19, whose rings pass 48 KB from 8; the row form beyond)."""
     rng = np.random.default_rng(70 + w + nb)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
     c, p = 16, len(K4_LENS)
