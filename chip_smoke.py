@@ -12,7 +12,11 @@ Phases, each of which raises (non-zero exit) when it fails:
      banded_dtw, K4 fused_dtw_v2, K5 fused_dtw_v1) against its plain PyTorch
      version on the card, at the unit-test shapes and at the bench shapes
      (K3 bit for bit at w in {2, 5, 6, 8} with L*w odd and even; K1 and K5
-     also once at w = 8, C = 16),
+     also once at w = 8, C = 16, K5 at w = 37 too, and K5 held to K4 on
+     the same inputs (the share of bit-equal sims, and the instructions
+     with the immediate 1 of a 1 - x*y in both SASS), with the ptxas report
+     of each K5 build and its SASS row loop, which must hold fewer
+     conditional branches than band cells per step),
      with its time (CUDA events over back-to-back launches, median of 20;
      K5's from kernel_probe --v1 in phase 5), the plain version's time and
      its bound; K1 and K2 also with the gate mixed and closed, with the
@@ -46,8 +50,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
      default K2), fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
-     peak), V3's and V4's ptxas registers and spills at S = 8 and 32 and
-     every opcode of their SASS rep loops (which must hold no LDG or LDL),
+     peak), V3's, V4's and V6's ptxas registers and spills at S = 8 and 32
+     and every opcode of their SASS rep loops (which must hold no LDG, LDL,
+     LDS or LDC),
      and the host ingest library's decode; K5 and every probe must have
      launched.
 The line before the last is the kernels JSON; the last line is the result
@@ -72,6 +77,8 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     bound,
     device_kernels,
     dp_work,
+    immediate_ops,
+    innermost_loop,
     k1_bytes,
     k3_work,
     k1_executed,
@@ -79,8 +86,11 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     k2_executed,
     k4_executed,
     linear_bytes,
+    loop_facts,
     ptxas_resources,
     resident_warps,
+    sass_functions,
+    sass_listing,
     shift_bytes,
     time_cuda,
 )
@@ -107,9 +117,9 @@ SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw
 K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
 # wider bands, held once at C = 16: K5's rings and K1's, K2's and K4's rings
 # grow with w (K2's passes 48 KB of shared memory from w = 9, K4's from 8); K4
-# takes its row form past w = 19
-WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v4.cu", 8), ("fused_dtw_v3.cu", 9),
-        ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21))
+# takes its row form past w = 19, K5 one row per step at w = 37
+WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v1.cu", 37), ("fused_dtw_v4.cu", 8),
+        ("fused_dtw_v3.cu", 9), ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21))
 
 
 def log(*a):
@@ -479,10 +489,22 @@ def k3_phase(dev, record):
                                       flops, nbytes)
 
 
+def _k_insns(source, C, w, kernel):
+    """The SASS instructions of the function `kernel` in the build of
+    `source` at (C, w)."""
+    from rustpotter_tpu_torch import _build
+
+    lib = _build.build(source, {"RP_C": C, "RP_W": w})
+    return next(i for f, i in sass_functions(sass_listing(lib, _build.nvcc())).items()
+                if kernel in f)
+
+
 def k5_phase(dev, record):
-    """K5 (fused_dtw_batch, variant 1) against fused_dtw_batch_ref, and the
-    plain version's time. The kernel's time and bound come from kernel_probe
-    --v1 in the tools phase, on the same inputs."""
+    """K5 (fused_dtw_batch, variant 1) against fused_dtw_batch_ref and beside
+    K4, the plain version's time, and each build's ptxas report and SASS row
+    loop. The kernel's time and bound come from kernel_probe --v1 in the
+    tools phase, on the same inputs."""
+    from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import fused_dtw as fd
     from rustpotter_tpu_torch.tools import kernel_probe
 
@@ -507,12 +529,45 @@ def k5_phase(dev, record):
     worst = max(worst, err)
     plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
     log(f"K5 bench shapes: max|d| {err:.3e}; plain {plain_ms:.3f} ms")
-    # a wider band, w = 8 at C = 16 (52,224 B of rings: dynamic shared memory)
-    args8 = (*args[:5], 8)
-    err8 = compare(fd.fused_dtw_batch(*args8, variant=1), fd.fused_dtw_batch_ref(*args8), "K5",
-                   ATOL_V2)
-    worst = max(worst, err8)
-    log(f"K5 bench shapes at w=8: max|d| {err8:.3e}")
+    # K4 on the same inputs: the same operations in the same order, but for
+    # the cost of one band slot, whose product K4's compiled code rounds
+    k4, k5 = fd.fused_dtw_batch(*args, variant=2), fd.fused_dtw_batch(*args, variant=1)
+    err4 = compare(k5, k4, "K5 against K4", ATOL_V2)
+    k4_ones = immediate_ops(_k_insns("fused_dtw_v2.cu", 16, w, "score_pairs_v2"), "1")
+    log(f"K5 bench shapes: {float((k5 == k4).float().mean()):.4%} of the sims bit-equal to "
+        f"K4's on the same inputs, max|d| {err4:.3e}; instructions with the immediate 1 in "
+        f"K4's SASS {dict(k4_ones)}")
+    # the wider bands at C = 16: w = 8 (rings in dynamic shared memory), w = 37
+    # (one row per step, the largest band whose rings fit the opt-in)
+    for wide in (wb for src, wb in WIDE if src == "fused_dtw_v1.cu"):
+        argsw = (*args[:5], wide)
+        errw = compare(fd.fused_dtw_batch(*argsw, variant=1), fd.fused_dtw_batch_ref(*argsw),
+                       "K5", ATOL_V2)
+        worst = max(worst, errw)
+        log(f"K5 bench shapes at w={wide} ({fd.k5_rows_per_step(wide, 16)} rows per step): "
+            f"max|d| {errw:.3e}")
+    for c, wb in [(8, w), (16, w)] + [(16, wb) for src, wb in WIDE if src == "fused_dtw_v1.cu"]:
+        d = {"RP_C": c, "RP_W": wb}
+        r = ptxas_resources(_build.build_log("fused_dtw_v1.cu", d))
+        smem = fd.k5_smem_bytes(wb, c)  # static or dynamic, by the build
+        threads = 32 * min(len(kernel_probe.LENS), fd.MAX_JOBS)
+        insns = _k_insns("fused_dtw_v1.cu", c, wb, "score_pairs_v1")
+        loop = loop_facts(insns, *innermost_loop(insns, ("BAR",)))
+        lds = {k: v for k, v in sorted(loop["full_ops"].items()) if k.startswith("LDS")}
+        imad_hi = sum(v for k, v in loop["full_ops"].items() if k.startswith("IMAD.HI"))
+        log(f"K5 build C={c} w={wb} ({fd.k5_rows_per_step(wb, c)} rows per step, ptxas): "
+            f"{r['registers']} registers, {r['spill_bytes']} bytes of spill stores, {smem} bytes "
+            f"of shared memory per block of {threads} threads: "
+            f"{resident_warps(r['registers'], threads, smem)} warps per SM; SASS row loop: "
+            f"{loop['insns']} instructions, {loop['basic_blocks']} basic blocks, "
+            f"{loop['conditional_branches']} conditional branches, FFMA {loop['ops']['FFMA']}, "
+            f"LDS {lds}, IMAD.HI {imad_hi}, BAR {loop['ops']['BAR']}; instructions with the "
+            f"immediate 1 {dict(immediate_ops(insns, '1'))}")
+        # a guard per band cell would make a conditional branch per cell
+        cells = 2 * wb * fd.k5_rows_per_step(wb, c)
+        if loop["conditional_branches"] >= cells:
+            raise AssertionError(f"K5 C={c} w={wb}: {loop['conditional_branches']} conditional "
+                                 f"branches in the row loop, {cells} band cells: guarded cells")
     record["fused_dtw_v1"] = {
         "name": "fused_dtw_v1", "route": "cuda",
         "source": "rustpotter_tpu_torch/csrc/fused_dtw_v1.cu",
@@ -593,14 +648,14 @@ def tools_phase(dev, record):
     rows, chip = fma_probe.measure(dev)
     loops = fma_probe.rep_loops(fma_probe.sass_listing())
     probe_log = _build.build_log(fma_probe.SOURCE, {})
-    for label, name in (("V3", "dynload"), ("V4", "dynload_cheap")):
+    for label, name in (("V3", "dynload"), ("V4", "dynload_cheap"), ("V6", "smemload")):
         for S in (8, 32):
             # the mangled name: length-prefixed identifier, then <S>
             r = ptxas_resources(probe_log, f"{len(name) + 6}probe_{name}ILi{S}E")
             loop = loops[(name, S)]
             log(f"{label} {name} S={S}: {r['registers']} registers, {r['spill_bytes']} bytes "
                 f"of spill stores (ptxas); SASS rep loop {dict(loop)}")
-            if loop["LDG"] or loop["LDL"]:
+            if any(loop[op] for op in ("LDG", "LDL", "LDS", "LDC")):
                 raise AssertionError(f"{label} S={S}: the rep loop loads ({dict(loop)})")
     for r in rows:
         log(f"fma_probe {r['label']:10s} {r['ms'] * 1e3:10.1f} us  {r['steps_per_us']:12.1f} "

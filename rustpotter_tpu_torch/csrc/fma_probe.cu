@@ -16,8 +16,8 @@
 // so that the compiler keeps every step: fmaf(half, wt, acc) with a run-time
 // `half` cannot be split or folded, and it equals the TPU's acc + 0.5 * wt
 // exactly (0.5 * wt is exact). The reps loop is not unrolled, as the TPU's
-// fori_loop, except V3's and V4's over their index periods; the S steps
-// inside it are.
+// fori_loop, except V3's, V4's and V6's over their index periods; the S
+// steps inside it are.
 //
 // What each measures:
 //   V1 fma            S independent FMA chains (the fp32 issue rate);
@@ -36,8 +36,13 @@
 //                     FMA peak, PERF.md);
 //   V5 sload          FMAs fed by s at a dynamic row from shared memory (all
 //                     lanes one address: a broadcast);
-//   V6 smemload       V5's function with s read by a warp-uniform global
-//                     load, the T' pattern of K1-K5.
+//   V6 smemload       V5's function with s in the TPU's scalar memory, whose
+//                     Hopper form is the constant bank: s is copied into a
+//                     __constant__ array before each launch, and the rep
+//                     loop, unrolled over the 32 reps of the period of
+//                     r & 31, reads each s value at an immediate offset,
+//                     through uniform registers (a warp-uniform global load
+//                     per FMA ran at 4.3x its bound, PERF.md).
 // Bound: operations (reps * S FMAs per lane); the bytes are x, s and out.
 #include <cuda_runtime.h>
 
@@ -94,40 +99,52 @@ __global__ void __launch_bounds__(BLOCK) probe_fma_dep(Args a) {
 
 __host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
-// V3 and V4: one FMA chain fed by x at a row that depends on the rep r and
-// the step i alone, through Index::row(r, i), whose sequence repeats every
-// Index::PERIOD reps and reads rows 0 ... Index::NX - 1. So the rep loop is
-// unrolled over one period and every row is a compile-time register index:
-// each lane loads its NX values of x once, and the loop holds the PERIOD * S
-// FFMAs alone, no index arithmetic and no load. The last reps % PERIOD reps
-// run straight-line after it (no second loop). __fmaf_rn is never split or
-// contracted, so every step stays the fmaf of the plain version's order.
-template <int S, class Index>
-__device__ __forceinline__ void register_chain(const Args& a) {
-  constexpr int PERIOD = Index::PERIOD, NX = Index::NX;
-  const int l = lane_of();
-  float xr[NX];
-#pragma unroll
-  for (int k = 0; k < NX; ++k) xr[k] = a.x[k * TILE + l];
-  float acc = xr[0] * 0.0f;
-  const int full = a.reps - a.reps % PERIOD;
+// The rep loop unrolled over PERIOD reps, whose steps depend on the rep and
+// the step index alone: step(q, i, acc) is step i of a rep whose index
+// repeats every PERIOD reps, at rep q of the period. Unrolled, every q and i
+// is a compile-time constant, so the loop holds the PERIOD * S steps and its
+// loop instructions alone. The last reps % PERIOD reps run straight-line
+// after it (no second loop): rep full + q takes the steps of rep q, full
+// being a multiple of the period.
+template <int S, int PERIOD, class Step>
+__device__ __forceinline__ float unrolled_chain(float acc, int reps, const Step& step) {
+  const int full = reps - reps % PERIOD;
 #pragma unroll 1
   for (int r = 0; r < full; r += PERIOD) {
 #pragma unroll
     for (int q = 0; q < PERIOD; ++q) {
 #pragma unroll
-      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[Index::row(q, i)], acc);
+      for (int i = 0; i < S; ++i) acc = step(q, i, acc);
     }
   }
-  // rep full + q reads the rows of rep q: full is a multiple of the period
 #pragma unroll
   for (int q = 0; q < PERIOD - 1; ++q) {
-    if (full + q < a.reps) {
+    if (full + q < reps) {
 #pragma unroll
-      for (int i = 0; i < S; ++i) acc = __fmaf_rn(a.half, xr[Index::row(q, i)], acc);
+      for (int i = 0; i < S; ++i) acc = step(q, i, acc);
     }
   }
-  store(a, acc);
+  return acc;
+}
+
+// V3 and V4: one FMA chain fed by x at a row that depends on the rep r and
+// the step i alone, through Index::row(r, i), whose sequence repeats every
+// Index::PERIOD reps and reads rows 0 ... Index::NX - 1. So the rep loop is
+// unrolled over one period and every row is a compile-time register index:
+// each lane loads its NX values of x once, and the loop holds the PERIOD * S
+// FFMAs alone, no index arithmetic and no load. __fmaf_rn is never split or
+// contracted, so every step stays the fmaf of the plain version's order.
+template <int S, class Index>
+__device__ __forceinline__ void register_chain(const Args& a) {
+  constexpr int NX = Index::NX;
+  const int l = lane_of();
+  float xr[NX];
+#pragma unroll
+  for (int k = 0; k < NX; ++k) xr[k] = a.x[k * TILE + l];
+  const float half = a.half;
+  store(a, unrolled_chain<S, Index::PERIOD>(xr[0] * 0.0f, a.reps, [&](int q, int i, float acc) {
+          return __fmaf_rn(half, xr[Index::row(q, i)], acc);
+        }));
 }
 
 // V3's rows: rem(r * S + i, ROWS), period 64 / gcd(64, S) (8 reps at S = 8,
@@ -176,18 +193,23 @@ __global__ void __launch_bounds__(BLOCK) probe_sload(Args a) {
   store(a, acc);
 }
 
+// V6's s, in the constant bank: rp_fma_probe copies the caller's s here on
+// the launch's stream before each V6 launch, as the TPU copies s into SMEM.
+__constant__ float s_const[32 * 16];
+
+// V6: V5's steps with s[(r & 31) * 16 + i % 16] read from the constant bank
+// at an immediate offset. The index repeats every 32 reps, and the loop takes
+// one repeat: ptxas then feeds the FFMAs from uniform registers (ULDC). A
+// loop of two repeats (V4's 64 reps) took 1.9x as long: each s value used
+// twice, ptxas made the FFMAs read the bank directly or loaded s into
+// registers (LDC), and at S = 32 spilled (PERF.md).
 template <int S>
 __global__ void __launch_bounds__(BLOCK) probe_smemload(Args a) {
   const int l = lane_of();
-  float acc = a.x[l] * 0.0f;
   const float wt = a.x[TILE + l];
-#pragma unroll 1
-  for (int r = 0; r < a.reps; ++r) {
-    const int row = r & 31;
-#pragma unroll
-    for (int i = 0; i < S; ++i) acc = fmaf(__ldg(a.s + row * 16 + i % 16), wt, acc);
-  }
-  store(a, acc);
+  store(a, unrolled_chain<S, 32>(a.x[l] * 0.0f, a.reps, [&](int q, int i, float acc) {
+          return fmaf(s_const[(q & 31) * 16 + i % 16], wt, acc);
+        }));
 }
 
 template <int S>
@@ -218,6 +240,11 @@ extern "C" int rp_fma_probe(int kernel, int S, const void* x, const void* s, voi
   const Args a{static_cast<const float*>(x), static_cast<const float*>(s),
                static_cast<float*>(out), reps, half};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kernel == 5) {
+    const cudaError_t err = cudaMemcpyToSymbolAsync(s_const, s, sizeof(s_const), 0,
+                                                    cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (S == 8) return launch<8>(kernel, a, tiles, st);
   if (S == 32) return launch<32>(kernel, a, tiles, st);
   return (int)cudaErrorInvalidValue;

@@ -125,10 +125,24 @@ def k4_smem_bytes(band: int, C: int) -> int:
     return 4 * (2 * band + 2 * K4_PRODUCERS - 1) * (2 * band + 1) * LANES
 
 
+def k5_rows_per_step(band: int, C: int) -> int:
+    """K5's DP rows per step (csrc/fused_dtw_v1.cu RS): 3, but 2 at
+    6 <= w <= 12 and w > 28, and fewer where that ring would pass the opt-in."""
+    want = 3 if band <= 5 or 13 <= band <= 28 else 2
+    for rows in range(want, 1, -1):
+        if _k5_ring_bytes(band, C, rows) <= _build.SMEM_OPTIN:
+            return rows
+    return 1
+
+
+def _k5_ring_bytes(band: int, C: int, rows: int) -> int:
+    return 4 * (2 * band + 2 * rows - 1) * (C + MAX_JOBS) * LANES
+
+
 def k5_smem_bytes(band: int, C: int) -> int:
     """K5's column ring and rwn ring (csrc/fused_dtw_v1.cu SMEM_BYTES):
-    2w+1 slots x (C + MAX_JOBS) x LANES floats."""
-    return 4 * (2 * band + 1) * (C + MAX_JOBS) * LANES
+    2w + 2RS - 1 slots x (C + MAX_JOBS) x LANES floats."""
+    return _k5_ring_bytes(band, C, k5_rows_per_step(band, C))
 
 
 def _check_smem(name: str, nbytes: int, band: int, C: int) -> None:

@@ -20,9 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
-import re
-import subprocess
 import sys
 from collections import Counter
 from functools import lru_cache
@@ -113,7 +110,9 @@ def probe(name: str, x: torch.Tensor, s: torch.Tensor, reps: int, streams: int,
           tiles: int) -> torch.Tensor:
     """Probe `name` on `tiles` tiles: (tiles, 8, 128), each tile the TPU
     kernel's output for x. CPU tensors run the plain version; CUDA tensors
-    launch the kernel (a failed build or launch raises)."""
+    launch the kernel (a failed build or launch raises); V6 first copies s
+    into the library's constant bank on the same stream, as the TPU kernel
+    has s copied into its scalar memory."""
     if name not in KERNELS:
         raise ValueError(f"unknown probe {name!r}: one of {sorted(KERNELS)}")
     if tuple(x.shape) != (ROWS, *TILE) or tuple(s.shape) != (32, 16):
@@ -145,9 +144,7 @@ def default_tiles(device) -> int:
 
 def sass_listing() -> str:
     """`cuobjdump -sass` of the built probe library."""
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    return subprocess.run([cuobjdump, "-sass", str(_build.build(SOURCE, {}))],
-                          capture_output=True, text=True, check=True).stdout
+    return profiling.sass_listing(_build.build(SOURCE, {}), _build.nvcc())
 
 
 def sass_opcodes() -> dict:
@@ -157,8 +154,17 @@ def sass_opcodes() -> dict:
 
 
 FP_OPS = ("FFMA", "FADD", "FMUL")
-# /*addr*/ [@predicate] OPCODE[.modifiers] operands ;
-_INSN = re.compile(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)\S*\s*([^;]*);")
+
+
+def _probe_key(function: str):
+    """(probe, S) of a probe kernel's mangled name, or None."""
+    for name in KERNELS:
+        ident = f"probe_{name}"
+        for S in (8, 32):
+            # the mangled name: length-prefixed identifier, then <S>
+            if f"{len(ident)}{ident}ILi{S}E" in function:
+                return name, S
+    return None
 
 
 def rep_loops(sass: str) -> dict:
@@ -168,37 +174,16 @@ def rep_loops(sass: str) -> dict:
     loop that holds floating-point work. Instructions before or after it
     (the chains' set-up, the final sum) do not count. Raises unless each
     kernel has exactly one such loop."""
-    kernels, current = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            current = None
-            for name in KERNELS:
-                ident = f"probe_{name}"
-                for S in (8, 32):
-                    # the mangled name: length-prefixed identifier, then <S>
-                    if f"{len(ident)}{ident}ILi{S}E" in line:
-                        current = kernels.setdefault((name, S), [])
-            continue
-        m = _INSN.match(line)
-        if current is not None and m:
-            current.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
     out = {}
-    for key, insns in kernels.items():
-        loops = []
-        for addr, op, operand in insns:
-            target = re.fullmatch(r"0x([0-9a-f]+)", operand)
-            if op == "BRA" and target and int(target.group(1), 16) < addr:
-                lo = int(target.group(1), 16)
-                ops = Counter(o for a, o, _ in insns if lo <= a <= addr)
-                if any(ops[o] for o in FP_OPS):
-                    loops.append((lo, addr, ops))
-        inner = [(lo, hi, ops) for lo, hi, ops in loops
-                 if not any(lo <= lo2 and hi2 <= hi and (lo2, hi2) != (lo, hi)
-                            for lo2, hi2, _ in loops)]
-        if len(inner) != 1:
-            raise ValueError(f"probe {key}: {len(inner)} innermost loops with floating-point "
-                             "work in the SASS, expected 1")
-        out[key] = inner[0][2]
+    for function, insns in profiling.sass_functions(sass).items():
+        key = _probe_key(function)
+        if key is None:
+            continue
+        try:
+            lo, hi = profiling.innermost_loop(insns, FP_OPS)
+        except ValueError as e:
+            raise ValueError(f"probe {key}: {e} (floating-point work) in the SASS") from None
+        out[key] = profiling.loop_facts(insns, lo, hi)["ops"]
     return out
 
 

@@ -11,13 +11,18 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
     kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `k2_executed`,
     `k4_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
   - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
-    shared memory from its build log, and the warps per SM they allow.
+    shared memory from its build log, and the warps per SM they allow;
+  - `sass_listing`, `sass_functions`, `sass_loops`, `innermost_loop`,
+    `loop_facts` and `immediate_ops`: a built library's SASS, its loops, what
+    a loop holds and which instructions take an immediate.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import re
+import subprocess
+from collections import Counter
 from dataclasses import dataclass
 from typing import Optional
 
@@ -305,3 +310,83 @@ def resident_warps(registers: int, threads: int, smem_bytes: int) -> int:
     blocks = min(SM90_REGISTERS // per_warp // warps, SM90_WARPS // warps, SM90_BLOCKS,
                  SM90_SMEM // (smem_bytes + SM90_SMEM_PER_BLOCK))
     return blocks * warps
+
+
+# ------------------------------------------------------------------- SASS
+
+# /*addr*/ [@predicate] OPCODE[.modifiers] operands ;
+SASS_INSN = re.compile(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z0-9]+)(\S*)\s*([^;]*);")
+_BLOCK_ENDS = ("BRA", "BRX", "EXIT", "RET", "JMP")
+
+
+def sass_listing(library, nvcc: str) -> str:
+    """`cuobjdump -sass` of a built library, with the cuobjdump beside `nvcc`."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def sass_functions(sass: str) -> dict:
+    """{mangled function name: [(address, opcode, modifiers, operands,
+    predicated)]} of a `cuobjdump -sass` listing."""
+    out, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = out.setdefault(line.split("Function :", 1)[1].strip(), [])
+            continue
+        m = SASS_INSN.match(line)
+        if current is not None and m:
+            current.append((int(m.group(1), 16), m.group(3), m.group(4), m.group(5).strip(),
+                            m.group(2) is not None))
+    return out
+
+
+def _target(operands: str) -> Optional[int]:
+    m = re.fullmatch(r"(?:`\()?0x([0-9a-f]+)\)?", operands)
+    return int(m.group(1), 16) if m else None
+
+
+def sass_loops(insns) -> list:
+    """Every loop of a function's instructions: the (first, last) addresses
+    from a backward branch's target to the branch."""
+    return [(t, addr) for addr, op, _, operands, _ in insns
+            if op == "BRA" and (t := _target(operands)) is not None and t < addr]
+
+
+def innermost_loop(insns, holds) -> tuple:
+    """The innermost loop that holds an instruction whose opcode is in
+    `holds`; raises unless there is exactly one."""
+    loops = [(lo, hi) for lo, hi in sass_loops(insns)
+             if any(lo <= a <= hi and op in holds for a, op, *_ in insns)]
+    inner = [(lo, hi) for lo, hi in loops
+             if not any(lo <= lo2 and hi2 <= hi and (lo2, hi2) != (lo, hi) for lo2, hi2 in loops)]
+    if len(inner) != 1:
+        raise ValueError(f"{len(inner)} innermost loops holding {'/'.join(holds)}, expected 1")
+    return inner[0]
+
+
+def immediate_ops(insns, value: str) -> Counter:
+    """The instructions that take the immediate `value` as an operand, by
+    opcode (e.g. value "1": the FFMAs and FADDs of a 1 - x * y)."""
+    pattern = re.compile(rf"(^|, )-?{re.escape(value)}(,|$)")
+    return Counter(op for _, op, _, operands, _ in insns if pattern.search(operands))
+
+
+def loop_facts(insns, lo: int, hi: int) -> dict:
+    """What the span lo ... hi of a function holds: its instructions, their
+    opcodes (`ops`; `full_ops` with their modifiers, e.g. LDS.128, IMAD.HI),
+    its conditional branches and its basic blocks (a block starts at lo, at
+    a branch target inside the span and after a branch or exit)."""
+    span = [i for i in insns if lo <= i[0] <= hi]
+    leaders = {lo}
+    for k, (addr, op, _, operands, _) in enumerate(span):
+        if op in _BLOCK_ENDS:
+            t = _target(operands)
+            if t is not None and lo <= t <= hi:
+                leaders.add(t)
+            if k + 1 < len(span):
+                leaders.add(span[k + 1][0])
+    return {"insns": len(span), "ops": Counter(op for _, op, *_ in span),
+            "full_ops": Counter(op + mods for _, op, mods, *_ in span),
+            "conditional_branches": sum(op == "BRA" and pred for _, op, _, _, pred in span),
+            "basic_blocks": len(leaders)}

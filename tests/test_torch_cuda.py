@@ -11,8 +11,8 @@ runs where only PyTorch is installed:
 Bands: w = 5 throughout, and where a kernel's shared memory grows with the
 band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
 6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K2 2, 5, 6, 8, 9 and
-W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 6, 8 and 37 at
-C = 16), with the ValueError past each limit. K4 takes every band: its ring
+W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 2, 5, 6, 8, 9,
+19, 20 and 37 at C = 16), with the ValueError past each limit. K4 takes every band: its ring
 form 2, 5, 6, 8, 9 and W_MAX = 19 at C = 16 (its rings pass 48 KB from 8),
 its row form 20, 21 and 24.
 
@@ -20,7 +20,11 @@ Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
 probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds), V3
 bit-exact at reps 13, 16 and 2000 and V4 at reps 13, 16, 32, 45, 100 and 2000
-(their steps add exact halves in the plain version's order); event scores
+(their steps add exact halves in the plain version's order); V6 bit-equal
+to V5 at reps 13, 16, 64 and 2000 (the same operations in the same order),
+K5 held to K4 at w = 5 and 9 at rtol 3e-6 / atol 1e-4, most sims bit-equal
+(K4's compiled code rounds one band slot's cost product, K5 fuses every
+one); event scores
 rtol 2e-5 / atol 2e-5 (the CPU slice test's).
 """
 import numpy as np
@@ -258,6 +262,70 @@ def test_k5_matches_plain_version_on_card(cuda_device, nb, lens):
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL_V2)
 
 
+# K5 at C = 16: pairs of length 1 and 2, and pairs long enough that every
+# ring slot is reused at every place of a step at every tested band
+K5_LM = 136
+K5_LENS = (K5_LM, 2, 1, 135, 50, 9)
+
+
+def _k5_args(nb, lens, w, seed, device, c=16):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    p = len(lens)
+    templates = rng.normal(0, 1, (p, K5_LM, c))
+    return (t(rng.normal(0, 1, (nb, K5_LM, c))), t(rng.normal(0, 0.2, (nb, p, c))),
+            t(templates), t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), lens, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,lens", [(1, K5_LENS), (33, K5_LENS), (50, K5_LENS),
+                                     (33, tuple(K5_LM - 7 * i for i in range(11)))])
+@pytest.mark.parametrize("w", [2, 5, 9, 19, 20, 37])
+def test_k5_bands_at_c16_match_plain_version_on_card(cuda_device, w, nb, lens):
+    """K5 at C = 16 in each of its rows per step (3 at w = 2, 5, 19, 20, 2 at
+    9, 1 at 37; its rings pass 48 KB from w = 7), on 1, 33 and 50 streams and
+    on 11 pairs (a second block row)."""
+    args = _k5_args(nb, lens, w, 100 + w + nb + len(lens), cuda_device)
+    before = fd.LAUNCHES["fused_dtw_v1"]
+    got = fd.fused_dtw_batch(*args, variant=1)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["fused_dtw_v1"] == before + 1
+    want = fd.fused_dtw_batch_ref(*args)
+    np.testing.assert_array_equal(np.isinf(got.cpu().numpy()), np.isinf(want.cpu().numpy()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL_V2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [5, 6])
+def test_k5_scalar_ring_matches_plain_version_on_card(cuda_device, c):
+    """C not a multiple of 4 (an mfcc_size of 5 or 6): K5's ring takes one
+    value per load, [slot][C][32], in place of the chunk-major LDS.128 form."""
+    args = _k5_args(33, K5_LENS, 5, 300 + c, cuda_device, c)
+    got = fd.fused_dtw_batch(*args, variant=1)
+    want = fd.fused_dtw_batch_ref(*args)
+    np.testing.assert_array_equal(np.isinf(got.cpu().numpy()), np.isinf(want.cpu().numpy()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL_V2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [33, 8192])
+@pytest.mark.parametrize("w", [5, 9])
+def test_k5_matches_k4_on_card(cuda_device, w, nb):
+    """K5 and K4 take each dot, dotm and rwn (rsqrtf) in the same order and
+    the same DP, but not quite the same cost: K5 fuses 1 - (dot - dotm) rwn
+    into one FMA in every band slot, while K4's compiled code (its SASS:
+    2w - 1 FFMAs and one FADD with the immediate 1) rounds the product of
+    one slot, 2w - 1, before the sum. So most sims are the same bits and
+    the rest differ by an ulp or two: held at rtol 3e-6 / atol 1e-4 (the
+    JAX kernels' test of the two), with at least 95 % bit-equal."""
+    args = _k5_args(nb, K5_LENS, w, 200 + w, cuda_device)
+    k5 = fd.fused_dtw_batch(*args, variant=1).cpu().numpy()
+    k4 = fd.fused_dtw_batch(*args, variant=2).cpu().numpy()
+    np.testing.assert_array_equal(np.isinf(k5), np.isinf(k4))
+    np.testing.assert_allclose(k5, k4, rtol=RTOL, atol=ATOL_V2)
+    assert np.mean(k5 == k4) >= 0.95
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("streams", [8, 32])
 @pytest.mark.parametrize("name", list(fma_probe.KERNELS))
@@ -298,6 +366,23 @@ def test_v4_is_bit_exact_against_plain_version_on_card(cuda_device, streams, rep
     assert fma_probe.LAUNCHES["dynload_cheap"] == before + 1
     want = fma_probe.plain("dynload_cheap", x, s, reps, streams)
     np.testing.assert_array_equal(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy())
+
+
+@pytest.mark.cuda
+# V6's loop takes 64 reps: 13 and 16 run its straight-line remainder alone,
+# 64 the loop alone, 2000 both
+@pytest.mark.parametrize("reps", [13, 16, 64, 2000])
+@pytest.mark.parametrize("streams", [8, 32])
+def test_v6_is_bit_equal_to_v5_on_card(cuda_device, streams, reps):
+    """V6 (s in the constant bank) takes V5's steps (s from shared memory)
+    in V5's order: the same fmaf sequence, so the same bits."""
+    x, s = fma_probe.inputs(cuda_device)
+    before = fma_probe.LAUNCHES["smemload"]
+    got = fma_probe.probe("smemload", x, s, reps, streams, tiles=132)
+    want = fma_probe.probe("sload", x, s, reps, streams, tiles=132)
+    torch.cuda.synchronize()
+    assert fma_probe.LAUNCHES["smemload"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda

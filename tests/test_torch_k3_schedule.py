@@ -24,7 +24,9 @@ Tolerance: none. K3 is adds and mins only, so every result is bit-exact.
 """
 import re
 import subprocess
+import tempfile
 from collections import deque
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -171,7 +173,7 @@ def _cu_constants(source, wanted, bands, C):
     """{band: {name: value}} of the .cu's compile-time constants at (band,
     C), evaluated by the host C++ compiler: the `constexpr` and `using`
     lines of the source's anonymous namespace become members of a class
-    template over (RP_W, RP_C)."""
+    template over (RP_W, RP_C), beside csrc/smem.cuh's SMEM_OPTIN."""
     text = (_build.CSRC / source).read_text()
     body = text[text.index("namespace {"):]
     lines = [ln for ln in body.splitlines()
@@ -181,14 +183,16 @@ def _cu_constants(source, wanted, bands, C):
     prints = "\n".join(
         f'  std::printf("{w} {name} %lld\\n", (long long)K<{w}, {C}>::{name});'
         for w in bands for name in wanted)
-    cpp = (f"#include <cstdio>\ntemplate <int RP_W, int RP_C> struct K {{\n{members}\n}};\n"
+    cpp = (f"#include <cstdio>\nconstexpr int SMEM_OPTIN = {_build.SMEM_OPTIN};  // csrc/smem.cuh\n"
+           f"template <int RP_W, int RP_C> struct K {{\n{members}\n}};\n"
            f"int main() {{\n{prints}\n  return 0;\n}}\n")
-    exe = _build.BUILD / f"constants_{source.split('.')[0]}_{C}"
-    _build.BUILD.mkdir(exist_ok=True)
-    src = exe.with_suffix(".cpp")
-    src.write_text(cpp)
-    subprocess.run([_build.cxx(), "-std=c++17", "-o", str(exe), str(src)], check=True)
-    res = subprocess.run([str(exe)], capture_output=True, text=True, check=True).stdout
+    # a directory of its own: test files that read one source run in parallel
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = Path(tmp) / f"constants_{source.split('.')[0]}_{C}"
+        src = exe.with_suffix(".cpp")
+        src.write_text(cpp)
+        subprocess.run([_build.cxx(), "-std=c++17", "-o", str(exe), str(src)], check=True)
+        res = subprocess.run([str(exe)], capture_output=True, text=True, check=True).stdout
     got = {}
     for w, name, value in (ln.split() for ln in res.splitlines()):
         got.setdefault(int(w), {})[name] = int(value)

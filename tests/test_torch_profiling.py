@@ -125,3 +125,69 @@ def test_ptxas_resources_picks_one_entry_function_of_a_library():
 ])
 def test_resident_warps_on_an_sm90_sm(registers, threads, smem, warps):
     assert profiling.resident_warps(registers, threads, smem) == warps
+
+
+def _sass(body: str) -> str:
+    """A `cuobjdump -sass` listing of one function whose instructions are
+    `body`'s lines, 16 bytes apart from 0x0000."""
+    lines = [f"        /*{16 * k:04x}*/                   {ins} ;"
+             for k, ins in enumerate(body.strip().splitlines())]
+    return "\t\tFunction : _ZN12_GLOBAL__N_114score_pairs_v1ILb0EEEvNS_4ArgsE\n" + "\n".join(lines)
+
+
+# a row loop (0x10 ... 0xc0) around a column-load loop (0x20 ... 0x40): in the
+# guarded form each band cell branches round its dot, in the branch-free form a
+# select takes +inf
+GUARDED = """
+MOV R1, c[0x0][0x28]
+LDG.E R4, desc[UR4][R2.64]
+STS [R5], R4
+@P0 BRA 0x20
+BAR.SYNC.DEFER_BLOCKING 0x0
+@!P1 BRA 0x90
+LDS R6, [R7]
+FFMA R8, -R6, R9, 1
+@!P2 BRA 0xb0
+LDS.128 R12, [R7+0x200]
+FFMA R10, -R12, R9, 1
+@P3 BRA 0x10
+EXIT
+"""
+BRANCH_FREE = """
+MOV R1, c[0x0][0x28]
+LDG.E R4, desc[UR4][R2.64]
+STS [R5], R4
+@P0 BRA 0x20
+BAR.SYNC.DEFER_BLOCKING 0x0
+LDS.128 R6, [R7]
+FFMA R8, -R6, R9, 1
+LDS.128 R12, [R7+0x200]
+FFMA R10, -R12, R9, 1
+FSEL R8, R8, +INF , P1
+FSEL R10, R10, +INF , P2
+@P3 BRA 0x10
+EXIT
+"""
+
+
+@pytest.mark.parametrize("body,blocks,branches,lds", [
+    (GUARDED, 6, 4, {"LDS": 1, "LDS.128": 1}),
+    (BRANCH_FREE, 3, 2, {"LDS.128": 2}),
+], ids=["guarded", "branch_free"])
+def test_sass_loop_facts_of_a_row_loop(body, blocks, branches, lds):
+    """The row loop is the innermost loop that holds the barrier; its basic
+    blocks, conditional branches and loads by width, and the instructions
+    with the immediate 1, as chip_smoke.py reads them for K5."""
+    (name, insns), = profiling.sass_functions(_sass(body)).items()
+    assert "score_pairs_v1" in name
+    assert profiling.sass_loops(insns) == [(0x20, 0x30), (0x10, 0xb0)]
+    lo, hi = profiling.innermost_loop(insns, ("BAR",))
+    assert (lo, hi) == (0x10, 0xb0)
+    facts = profiling.loop_facts(insns, lo, hi)
+    assert (facts["basic_blocks"], facts["conditional_branches"]) == (blocks, branches)
+    assert {k: v for k, v in facts["full_ops"].items() if k.startswith("LDS")} == lds
+    assert facts["ops"]["FFMA"] == 2 and facts["insns"] == 11
+    assert profiling.immediate_ops(insns, "1") == {"FFMA": 2}
+    assert profiling.innermost_loop(insns, ("STS",)) == (0x20, 0x30)
+    with pytest.raises(ValueError, match="0 innermost loops holding MUFU"):
+        profiling.innermost_loop(insns, ("MUFU",))
