@@ -44,8 +44,9 @@
 //     thread reads a column's C values with C/4 LDS.128, and a quarter-warp's
 //     LDS.128 covers 128 contiguous bytes, free of bank conflicts with no
 //     swizzle; other C take [slot][C][32] and LDS.32. Reading 4 values per
-//     load took 27-31 % off the time over the same bytes: the issue of the
-//     loads, not shared-memory bandwidth, bounded the scalar ring (PERF.md).
+//     load took 27-31 % off the time over the same bytes: the number of load
+//     instructions, not shared-memory bandwidth, bounded the scalar ring
+//     (PERF.md).
 //   - each pair-thread computes rwn = rsqrt(|W[c] - m|^2) (0 for a zero
 //     norm) of each column entering the ring from its own mean, into its own
 //     entry of a shared rwn ring (read back only by the same thread: no
