@@ -50,9 +50,10 @@ Phases, each of which raises (non-zero exit) when it fails:
      five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
      default K2), fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
-     peak), V3's, V4's and V6's ptxas registers and spills at S = 8 and 32
-     and every opcode of their SASS rep loops (which must hold no LDG, LDL,
-     LDS or LDC),
+     peak), V3's, V4's, V5's and V6's ptxas registers and spills at S = 8
+     and 32 and every opcode of their SASS rep loops (which must hold no
+     LDG, LDL or LDC; V3's, V4's and V6's no LDS either, and V5's its
+     shared loads of s, each feeding fma_probe.sload_ffma_per_load FFMAs),
      and the host ingest library's decode; K5 and every probe must have
      launched.
 The line before the last is the kernels JSON; the last line is the result
@@ -98,13 +99,9 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
 # kernels vs their plain versions: the JAX kernel tests' own tolerances (K3,
 # adds and mins only, must be bit-exact)
 RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
-# the fp32 probes vs their plain versions, by reps: V1-V4 add exact halves in
-# the plain version's order (bit-exact, rtol 0). V5 and V6 fuse into one FMA
-# the product s*x that the plain version rounds first. At reps = 2000, S = 8
-# their largest |d|/|plain| on an NVIDIA H100 80GB HBM3 (700 W) is 1.947e-6
-# (the inputs are fixed, so it repeats); rtol is about twice that, far under
-# the worst case of 2*reps*S*2^-24 = 1.9e-3 for sums of terms of one sign.
-PROBE_RTOL = {16: 1e-6, 2000: 4e-6}
+# the fp32 probes vs their plain versions: V1-V4 add exact halves in the plain
+# version's order (bit-exact, rtol 0); V5 and V6 fuse a product that the plain
+# version rounds first (rtol by reps and S: fma_probe.PROBE_RTOL)
 EV_RTOL, EV_ATOL = 2e-5, 2e-5  # event scores, card vs CPU
 BENCH_STREAMS = 8192  # bench.py's B
 TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
@@ -596,7 +593,7 @@ def probe_phase(dev, record):
         ms = time_cuda(lambda: out.append(fma_probe.plain(name, x, s, reps, S)), samples=1,
                        per=1, warmup=0)
         want = out[0].expand_as(got)
-        rtol = PROBE_RTOL[reps] if name in ("sload", "smemload") else 0.0
+        rtol = fma_probe.PROBE_RTOL[reps, S] if name in ("sload", "smemload") else 0.0
         torch.testing.assert_close(got, want, rtol=rtol, atol=0,
                                    msg=lambda m: f"{name} reps={reps} S={S}: {m}")
         d = (got - want).abs()
@@ -646,17 +643,26 @@ def tools_phase(dev, record):
     log(f"tools: K5 {probes[1]['ms']:.4f} ms beside K4 {probes[2]['ms']:.4f} ms on the same "
         "inputs")
     rows, chip = fma_probe.measure(dev)
-    loops = fma_probe.rep_loops(fma_probe.sass_listing())
+    loops = fma_probe.rep_loop_facts(fma_probe.sass_listing())
     probe_log = _build.build_log(fma_probe.SOURCE, {})
-    for label, name in (("V3", "dynload"), ("V4", "dynload_cheap"), ("V6", "smemload")):
+    for label, name in (("V3", "dynload"), ("V4", "dynload_cheap"), ("V5", "sload"),
+                        ("V6", "smemload")):
         for S in (8, 32):
             # the mangled name: length-prefixed identifier, then <S>
             r = ptxas_resources(probe_log, f"{len(name) + 6}probe_{name}ILi{S}E")
-            loop = loops[(name, S)]
+            facts = loops[(name, S)]
+            loop = facts["ops"]
             log(f"{label} {name} S={S}: {r['registers']} registers, {r['spill_bytes']} bytes "
-                f"of spill stores (ptxas); SASS rep loop {dict(loop)}")
-            if any(loop[op] for op in ("LDG", "LDL", "LDS", "LDC")):
+                f"of spill stores (ptxas); SASS rep loop {dict(facts['full_ops'])}")
+            # V5 reads s from shared memory in its loop, the others load nothing there
+            banned = ("LDG", "LDL", "LDC") if name == "sload" else ("LDG", "LDL", "LDS", "LDC")
+            if any(loop[op] for op in banned):
                 raise AssertionError(f"{label} S={S}: the rep loop loads ({dict(loop)})")
+            if name == "sload":
+                want = fma_probe.sload_ffma_per_load(S)
+                if not loop["LDS"] or loop["FFMA"] != want * loop["LDS"]:
+                    raise AssertionError(f"V5 S={S}: the rep loop holds {loop['FFMA']} FFMAs "
+                                         f"and {loop['LDS']} shared loads, not {want} per load")
     for r in rows:
         log(f"fma_probe {r['label']:10s} {r['ms'] * 1e3:10.1f} us  {r['steps_per_us']:12.1f} "
             f"steps/us  {r['flops_per_step']} FLOP/step  {r['tflops']:7.3f} TFLOP/s  SASS "

@@ -3,11 +3,11 @@
 //
 // Replace the six TPU probe kernels of tools/vpu_probe.py (k_fma, k_fma_dep,
 // k_dynload, k_dynload_cheap, k_sload, k_smemload). Each computes its TPU
-// kernel's function lane by lane: thread `lane` of tile g computes lane
-// `lane` of the TPU kernel's (1, 8, 128) output for the same x, and writes it
-// to out[g]. A grid of G tiles (the caller sizes it to fill the card) writes
-// (G, 8, 128); every tile is the same. The plain versions are in
-// rustpotter_tpu_torch/tools/fma_probe.py.
+// kernel's function lane by lane: a thread computes lane `lane` of the TPU
+// kernel's (1, 8, 128) output for the same x (V5: 32 lanes of it), and writes
+// it to out[g] of its tile g. A grid of G tiles (the caller sizes it to fill
+// the card) writes (G, 8, 128); every tile is the same. The plain versions
+// are in rustpotter_tpu_torch/tools/fma_probe.py.
 //
 // Operands (fp32): x (rows = 64, 8 * 128), s (32, 16), out (G, 8 * 128).
 // S (the TPU probe's `streams`, 8 or 32) and the row count of x (ROWS = 64,
@@ -17,7 +17,8 @@
 // `half` cannot be split or folded, and it equals the TPU's acc + 0.5 * wt
 // exactly (0.5 * wt is exact). The reps loop is not unrolled, as the TPU's
 // fori_loop, except V3's, V4's and V6's over their index periods; the S
-// steps inside it are.
+// steps inside it are. Every lane's steps are the plain version's, in its
+// order.
 //
 // What each measures:
 //   V1 fma            S independent FMA chains (the fp32 issue rate);
@@ -35,7 +36,11 @@
 //                     V3 (a per-lane load per FMA ran at an eighth of the
 //                     FMA peak, PERF.md);
 //   V5 sload          FMAs fed by s at a dynamic row from shared memory (all
-//                     lanes one address: a broadcast);
+//                     lanes one address: a broadcast). One warp takes a whole
+//                     tile, 32 lanes per thread, so each broadcast LDS.128
+//                     of s feeds 32 FMA chains, as the TPU's one scalar load
+//                     feeds a whole (8, 128) tile's FMA (one lane per thread
+//                     ran at 38 % of the FMA peak, PERF.md);
 //   V6 smemload       V5's function with s in the TPU's scalar memory, whose
 //                     Hopper form is the constant bank: s is copied into a
 //                     __constant__ array before each launch, and the rep
@@ -49,8 +54,10 @@
 namespace {
 
 constexpr int TILE = 8 * 128;  // lanes of a TPU (8, 128) tile
-constexpr int BLOCK = 256;     // threads per block; a tile is 4 blocks
+constexpr int BLOCK = 256;     // threads per block; a tile is 4 blocks (not V5's)
 constexpr int ROWS = 64;       // rows of x: tools/vpu_probe.py's static n_in
+constexpr int SLOAD_LANES = 32;                  // V5: lanes per thread
+constexpr int SLOAD_BLOCK = TILE / SLOAD_LANES;  // V5: one warp per tile
 
 struct Args {
   const float* x;
@@ -176,21 +183,58 @@ __global__ void __launch_bounds__(BLOCK) probe_dynload_cheap(Args a) {
   register_chain<S, CheapRows<S>>(a);
 }
 
+// V5: s[(r & 31) * 16 + i % 16] * wt from shared memory. Thread t of block
+// g takes lanes t + SLOAD_BLOCK * j (j < SLOAD_LANES) of tile g: one warp
+// holds the tile's 1,024 FMA chains, as a TPU vreg group holds the (8, 128)
+// tile, and each lane's chain takes the plain version's steps in its order.
+// s stays in shared memory, as the TPU kernel's templates stay in VMEM: that
+// is what V5 measures (V6 reads it from the constant bank, V4 from
+// registers). A rep reads its row's min(S, 16) values, at a run-time row base
+// and immediate offsets, as broadcast LDS.128 (all lanes one address), and
+// feeds each to the thread's 32 chains. Each LDS.128 costs the SM about 4-5
+// FFMA issue slots, so the loads per FFMA bound the loop: the parent, one
+// lane per thread, took 2 LDS.128 per 8 FFMAs and 2.71 ms at reps = 2000, S
+// = 8. Here the loop holds 2 LDS.128, 256 FFMAs and 5 loop instructions per
+// rep at S = 8 (4 and 1,024 at S = 32, each value used twice), 78 registers
+// (88), no spills: 1.10 ms, 94 % of its bound (NVIDIA H100 80GB HBM3, 700.00
+// W, PERF.md). The launch bounds ask for the 16 tiles per SM of
+// fma_probe.TILES_PER_SM; without them ptxas moved the values into uniform
+// registers (R2UR, 12 loop instructions) and took 4 % longer. Loops of 64 KB
+// and more (4 reps per pass at S = 32) ran at half the rate: unroll nothing.
 template <int S>
-__global__ void __launch_bounds__(BLOCK) probe_sload(Args a) {
-  __shared__ float s[32 * 16];
-  for (int i = threadIdx.x; i < 32 * 16; i += BLOCK) s[i] = a.s[i];
+__global__ void __launch_bounds__(SLOAD_BLOCK, 16) probe_sload(Args a) {
+  __shared__ __align__(16) float s[32 * 16];
+  for (int i = threadIdx.x; i < 32 * 16; i += SLOAD_BLOCK) s[i] = a.s[i];
   __syncthreads();
-  const int l = lane_of();
-  float acc = a.x[l] * 0.0f;
-  const float wt = a.x[TILE + l];
+  constexpr int NV = S < 16 ? S : 16;  // values of s a rep reads
+  float acc[SLOAD_LANES], wt[SLOAD_LANES];
+#pragma unroll
+  for (int j = 0; j < SLOAD_LANES; ++j) {
+    const int l = threadIdx.x + SLOAD_BLOCK * j;
+    acc[j] = a.x[l] * 0.0f;
+    wt[j] = a.x[TILE + l];
+  }
 #pragma unroll 1
   for (int r = 0; r < a.reps; ++r) {
-    const int row = r & 31;
+    const float4* row = reinterpret_cast<const float4*>(s + (r & 31) * 16);
+    float v[NV];
 #pragma unroll
-    for (int i = 0; i < S; ++i) acc = fmaf(s[row * 16 + i % 16], wt, acc);
+    for (int c = 0; c < NV / 4; ++c) {
+      const float4 q = row[c];
+      v[4 * c] = q.x;
+      v[4 * c + 1] = q.y;
+      v[4 * c + 2] = q.z;
+      v[4 * c + 3] = q.w;
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int j = 0; j < SLOAD_LANES; ++j) acc[j] = fmaf(v[i % 16], wt[j], acc[j]);
+    }
   }
-  store(a, acc);
+  float* out = a.out + (size_t)blockIdx.x * TILE + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < SLOAD_LANES; ++j) out[SLOAD_BLOCK * j] = acc[j];
 }
 
 // V6's s, in the constant bank: rp_fma_probe copies the caller's s here on
@@ -220,7 +264,7 @@ int launch(int kernel, const Args& a, int tiles, cudaStream_t stream) {
     case 1: probe_fma_dep<S><<<grid, block, 0, stream>>>(a); break;
     case 2: probe_dynload<S><<<grid, block, 0, stream>>>(a); break;
     case 3: probe_dynload_cheap<S><<<grid, block, 0, stream>>>(a); break;
-    case 4: probe_sload<S><<<grid, block, 0, stream>>>(a); break;
+    case 4: probe_sload<S><<<(unsigned)tiles, SLOAD_BLOCK, 0, stream>>>(a); break;  // a warp a tile
     case 5: probe_smemload<S><<<grid, block, 0, stream>>>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -14,7 +14,9 @@ DTW kernels' rooflines.
 `probe` is the wrapper of the CUDA kernels in csrc/fma_probe.cu: on a CPU
 tensor it runs the probe's plain version, on a CUDA tensor it launches the
 kernel (a failed build or launch raises). `plain` holds the plain versions:
-the TPU kernels' loops in torch, with the additions in the same order.
+the TPU kernels' loops in torch, with the additions in the same order. V5
+(sload) takes one warp per tile, SLOAD_LANES lanes per thread; the others
+one lane per thread.
 """
 from __future__ import annotations
 
@@ -45,6 +47,19 @@ STREAMS = 8  # chains, or steps per rep (its STREAMS)
 ROWS = 64  # rows of x (its n_in)
 TILE = (8, 128)
 TILES_PER_SM = 16  # the grid: 16 tiles of 1024 lanes per SM, many waves
+# V5's grid (csrc/fma_probe.cu's SLOAD_LANES and SLOAD_BLOCK): thread t of
+# block g takes lanes t + SLOAD_BLOCK * j (j < SLOAD_LANES) of tile g
+SLOAD_LANES = 32
+SLOAD_BLOCK = TILE[0] * TILE[1] // SLOAD_LANES
+# V5 and V6 against their plain versions, by (reps, S): the kernels fuse into
+# one FMA the product s*x that the plain version rounds first, so they differ
+# by a few rounding steps. Largest max|d|/|plain| on an NVIDIA H100 80GB HBM3
+# (700 W; the inputs are fixed, so it repeats): 3.717e-7 at reps 13-33,
+# 1.947e-6 at reps 2000 and S = 8, 4.504e-6 at S = 32. Each rtol is about
+# twice the largest, far under the worst case of 2*reps*S*2^-24 (1.9e-3 at
+# reps 2000, S = 8) for sums of terms of one sign.
+PROBE_RTOL = {**{(reps, S): 1e-6 for reps in (13, 16, 31, 33) for S in (8, 32)},
+              (2000, 8): 4e-6, (2000, 32): 1e-5}
 # the runs of tools/vpu_probe.py's __main__: (label, probe, S)
 RUNS = (
     ("fma", "fma", 8),
@@ -167,9 +182,9 @@ def _probe_key(function: str):
     return None
 
 
-def rep_loops(sass: str) -> dict:
-    """Every opcode in the rep loop of each probe kernel in a `cuobjdump
-    -sass` listing, as a Counter keyed (probe, S). A loop is the span from a
+def rep_loop_facts(sass: str) -> dict:
+    """`profiling.loop_facts` of the rep loop of each probe kernel in a
+    `cuobjdump -sass` listing, keyed (probe, S). A loop is the span from a
     backward branch's target to the branch; the rep loop is the innermost
     loop that holds floating-point work. Instructions before or after it
     (the chains' set-up, the final sum) do not count. Raises unless each
@@ -183,8 +198,21 @@ def rep_loops(sass: str) -> dict:
             lo, hi = profiling.innermost_loop(insns, FP_OPS)
         except ValueError as e:
             raise ValueError(f"probe {key}: {e} (floating-point work) in the SASS") from None
-        out[key] = profiling.loop_facts(insns, lo, hi)["ops"]
+        out[key] = profiling.loop_facts(insns, lo, hi)
     return out
+
+
+def rep_loops(sass: str) -> dict:
+    """Every opcode in the rep loop of each probe kernel (`rep_loop_facts`),
+    as a Counter keyed (probe, S)."""
+    return {key: facts["ops"] for key, facts in rep_loop_facts(sass).items()}
+
+
+def sload_ffma_per_load(streams: int) -> int:
+    """FFMAs per shared load in V5's rep loop: a rep reads its row's
+    min(S, 16) values of s as LDS.128 and feeds each value to the thread's
+    SLOAD_LANES chains at every one of the S steps that use it."""
+    return SLOAD_LANES * streams // (min(streams, 16) // 4)
 
 
 def loop_opcodes(sass: str) -> dict:

@@ -18,10 +18,12 @@ its row form 20, 21 and 24.
 
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
-probes rtol 1e-6 (V5 and V6 fuse a product the plain version rounds), V3
+probes rtol 1e-6 at reps 16 (V5 and V6 fuse a product the plain version
+rounds; V5 at every reps tested at fma_probe.PROBE_RTOL), V3
 bit-exact at reps 13, 16 and 2000 and V4 at reps 13, 16, 32, 45, 100 and 2000
 (their steps add exact halves in the plain version's order); V6 bit-equal
-to V5 at reps 13, 16, 64 and 2000 (the same operations in the same order),
+to V5 at reps 13, 16, 31, 33, 64 and 2000 (the same operations in the same
+order),
 K5 held to K4 at w = 5 and 9 at rtol 3e-6 / atol 1e-4, most sims bit-equal
 (K4's compiled code rounds one band slot's cost product, K5 fuses every
 one); event scores
@@ -369,9 +371,29 @@ def test_v4_is_bit_exact_against_plain_version_on_card(cuda_device, streams, rep
 
 
 @pytest.mark.cuda
-# V6's loop takes 64 reps: 13 and 16 run its straight-line remainder alone,
-# 64 the loop alone, 2000 both
-@pytest.mark.parametrize("reps", [13, 16, 64, 2000])
+# V5 takes one warp per tile, so any tile count is whole blocks: 1 and 133
+# (not a multiple of the 132 SMs); its rep loop has no remainder, and reps
+# covers a part of the 32-rep period of r & 31, one period, one and a part,
+# and many
+@pytest.mark.parametrize("tiles", [1, 133])
+@pytest.mark.parametrize("reps", [13, 16, 31, 33, 2000])
+@pytest.mark.parametrize("streams", [8, 32])
+def test_v5_matches_plain_version_on_card(cuda_device, streams, reps, tiles):
+    x, s = fma_probe.inputs(cuda_device)
+    before = fma_probe.LAUNCHES["sload"]
+    got = fma_probe.probe("sload", x, s, reps, streams, tiles=tiles)
+    torch.cuda.synchronize()
+    assert fma_probe.LAUNCHES["sload"] == before + 1
+    assert got.shape == (tiles, 8, 128)
+    want = fma_probe.plain("sload", x, s, reps, streams)
+    torch.testing.assert_close(got, want.expand_as(got),
+                               rtol=fma_probe.PROBE_RTOL[reps, streams], atol=0)
+
+
+@pytest.mark.cuda
+# V6's loop takes 32 reps: 13, 16 and 31 run its straight-line remainder
+# alone, 64 the loop alone (two passes), 33 and 2000 both
+@pytest.mark.parametrize("reps", [13, 16, 31, 33, 64, 2000])
 @pytest.mark.parametrize("streams", [8, 32])
 def test_v6_is_bit_equal_to_v5_on_card(cuda_device, streams, reps):
     """V6 (s in the constant bank) takes V5's steps (s from shared memory)
