@@ -55,7 +55,21 @@ Phases, each of which raises (non-zero exit) when it fails:
      LDG, LDL or LDC; V3's, V4's and V6's no LDS either, and V5's its
      shared loads of s, each feeding fma_probe.sload_ffma_per_load FFMAs),
      and the host ingest library's decode; K5 and every probe must have
-     launched.
+     launched;
+  6. NN phase (K1, K2, K4): `nn_medium` (an NN wakeword alone) and `mixed`
+     (the bench DTW wakeword beside it) through BatchedDetector at B=8192:
+     the correctness pass with a MEDIUM classifier that fires on the bench
+     utterance (stream 0 must fire, streams 0-3 must give a device="cpu"
+     run's events at B=4, K1 must launch once per chunk with the DTW
+     wakeword and never without), then the `nn_medium` recipe's model of the
+     same shapes timed as in phase 3 and split by torch.profiler into
+     front-end, NN GEMMs, K1 and the rest; the single-stream Rustpotter with
+     `mixed` (3 K2 launches per frame, the cpu run's detections); the bands
+     21 and 24, past K1's and K2's rings, through BatchedDetector, make_step
+     and Rustpotter at B=64 on a 30-frame bench wakeword (each routes to K4,
+     3 launches per chunk or frame and no other kernel; the cpu run's
+     events); and the NN wakeword added to a live B=8192 DTW fleet after 10
+     chunks (the chunks after it give the cpu run's events at B=4).
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -103,6 +117,7 @@ RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 # version's order (bit-exact, rtol 0); V5 and V6 fuse a product that the plain
 # version rounds first (rtol by reps and S: fma_probe.PROBE_RTOL)
 EV_RTOL, EV_ATOL = 2e-5, 2e-5  # event scores, card vs CPU
+NN_RTOL, NN_ATOL = 1e-4, 1e-3  # NN logits and scores, card vs CPU
 BENCH_STREAMS = 8192  # bench.py's B
 TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
 TIMED_WINDOWS = 5
@@ -745,29 +760,42 @@ def run_correctness(process, states, stream0, noise):
     return [torch.stack(f).cpu().numpy() for f in zip(*evs)]
 
 
-def match_events(gpu, cpu, what):
+def match_events(gpu, cpu, what, rtol=EV_RTOL, atol=EV_ATOL):
     """Raises unless the card's events of streams 0-3 equal the CPU run's:
-    fired, ww and counter exactly, scores within (EV_RTOL, EV_ATOL) where an
+    fired, ww and counter exactly, scores within (rtol, atol) where an
     event fired. Returns (events, max |d| of the scores)."""
     for j, name in ((0, "fired"), (1, "ww"), (4, "counter")):
         np.testing.assert_array_equal(gpu[j], cpu[j], err_msg=f"{what}: event {name}, card vs cpu")
     fired = cpu[0]
     worst = 0.0
     for j, name in ((2, "score"), (3, "avg_score"), (6, "scores")):
-        np.testing.assert_allclose(gpu[j][fired], cpu[j][fired], rtol=EV_RTOL, atol=EV_ATOL,
+        np.testing.assert_allclose(gpu[j][fired], cpu[j][fired], rtol=rtol, atol=atol,
                                    err_msg=f"{what}: event {name}, card vs cpu")
         if fired.any():
             worst = max(worst, float(np.abs(gpu[j][fired] - cpu[j][fired]).max()))
     return int(fired.sum()), worst
 
 
+def match_detections(gpu_dets, cpu_dets, what, rtol=EV_RTOL, atol=EV_ATOL):
+    """Raises unless two single-stream runs detect at the same frames with
+    the same name, counter, gain and scores. Returns max |d| of the scores."""
+    assert [i for i, _ in gpu_dets] == [i for i, _ in cpu_dets], what
+    worst = 0.0
+    for (_, g), (_, c) in zip(gpu_dets, cpu_dets):
+        assert (g.name, g.counter, g.gain, list(g.scores)) == (
+            c.name, c.counter, c.gain, list(c.scores)), (what, g, c)
+        gv = np.array([g.score, g.avg_score, *g.scores.values()])
+        cv = np.array([c.score, c.avg_score, *c.scores.values()])
+        np.testing.assert_allclose(gv, cv, rtol=rtol, atol=atol, err_msg=what)
+        worst = max(worst, float(np.abs(gv - cv).max()))
+    return worst
+
+
 def slice_phase(dev, record):
     import torch
 
     from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
-    from rustpotter_tpu_torch.ops import frontend
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
-    from rustpotter_tpu_torch.runtime.stream_step import prepare_chunk
     from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
 
     B, T = BENCH_STREAMS, TIMED_CHUNKS
@@ -806,18 +834,38 @@ def slice_phase(dev, record):
     log(f"slice: streams 0-3 match the cpu run at B=4 ({n_events} events, "
         f"max|d score| {worst:.3e})")
 
-    # timed loop: windows of 34 chunks of noise with the frames on the card;
-    # the host clock spreads between windows, so the median window is kept
+    t, rows, _ = chunk_timing(det, noise)
+    k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
+    log(f"slice: {t['streams_rt']:.1f} realtime streams, median of {TIMED_WINDOWS} windows "
+        f"(range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; B={B}, {T} chunks per "
+        f"window, {t['chunk_ms']:.4f} ms/chunk host clock)")
+    if not rows:
+        log("slice: the profiler recorded no device time: the breakdown is not measured")
+    else:
+        log(f"slice: device kernels per chunk {t['kernel_ms']:.4f} ms in "
+            f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: front-end "
+            f"{t['front_ms']:.4f} ms, K1 {k1_ms:.4f} ms, rest "
+            f"{t['kernel_ms'] - t['front_ms'] - k1_ms:.4f} ms; device idle "
+            f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
+    for ms, count, name in rows[:PROFILE_ROWS]:
+        log(f"profile: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {name[:110]}")
+    return {**t, "k1_chunk_ms": k1_ms}
+
+
+def chunk_timing(det, noise):
+    """det.process_chunk on `noise` (B, 480) on the card: the host clock of
+    TIMED_WINDOWS windows of TIMED_CHUNKS chunks (the median window is kept:
+    the host clock spreads between windows) and torch.profiler's (CUPTI)
+    device kernel rows of the chunk and of its front-end alone. Returns
+    (streams_rt and its range, host and device ms per chunk; rows; front rows)."""
+    import torch
+
+    from rustpotter_tpu_torch.ops import frontend
+    from rustpotter_tpu_torch.runtime.stream_step import prepare_chunk
+
+    B, T, C = noise.shape[0], TIMED_CHUNKS, det.static.mfcc_size
     states, windows = timed_windows(lambda s, f: det.process_chunk(det.params, s, f),
                                     det.init_states(), noise)
-    elapsed = float(np.median(windows))
-    chunk_ms = elapsed / T * 1e3
-    streams_rt = B * T * 0.03 / elapsed
-    rt_range = (B * T * 0.03 / max(windows), B * T * 0.03 / min(windows))
-
-    # where a chunk's time goes: device kernel time by torch.profiler (CUPTI),
-    # against the host clock of the timed loop
-    C = det.static.mfcc_size
 
     def front():
         st, shifts = prepare_chunk(det.static, states, noise)
@@ -826,25 +874,12 @@ def slice_phase(dev, record):
 
     rows = device_kernels(lambda: det.process_chunk(det.params, states, noise), PROFILED_CHUNKS)
     front_rows = device_kernels(front, PROFILED_CHUNKS)
-    kernel_ms = sum(r[0] for r in rows)
-    front_ms = sum(r[0] for r in front_rows)
-    k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
-    log(f"slice: {streams_rt:.1f} realtime streams, median of {TIMED_WINDOWS} windows "
-        f"(range {rt_range[0]:.1f}-{rt_range[1]:.1f}; B={B}, {T} chunks per window, "
-        f"median wall {elapsed:.4f} s, {chunk_ms:.4f} ms/chunk host clock)")
-    if not rows:
-        log("slice: the profiler recorded no device time: the breakdown is not measured")
-    else:
-        log(f"slice: device kernels per chunk {kernel_ms:.4f} ms in "
-            f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: front-end "
-            f"{front_ms:.4f} ms, K1 {k1_ms:.4f} ms, rest {kernel_ms - front_ms - k1_ms:.4f} ms; "
-            f"device idle {100 * (1 - kernel_ms / chunk_ms):.1f} % of the host clock")
-    for ms, count, name in rows[:PROFILE_ROWS]:
-        log(f"profile: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {name[:110]}")
-    return {"streams_rt": streams_rt, "streams_rt_min": rt_range[0],
-            "streams_rt_max": rt_range[1], "chunk_ms": chunk_ms, "kernel_ms": kernel_ms,
-            "front_ms": front_ms, "k1_chunk_ms": k1_ms}
-
+    audio_s = B * T * 0.03
+    return ({"streams_rt": audio_s / float(np.median(windows)),
+             "streams_rt_min": audio_s / max(windows), "streams_rt_max": audio_s / min(windows),
+             "chunk_ms": float(np.median(windows)) / T * 1e3,
+             "kernel_ms": sum(r[0] for r in rows), "front_ms": sum(r[0] for r in front_rows)},
+            rows, front_rows)
 
 
 # ------------------------------------------------------- per-shift slice
@@ -897,14 +932,7 @@ def per_shift_phase(dev, record):
         f"for {n} frames")
     assert gpu_dets, "correctness guard: the single-stream Rustpotter did not fire"
     assert launches["fused_dtw_v3"] == 3 * n, (launches, n)
-    assert [i for i, _ in gpu_dets] == [i for i, _ in cpu_dets]
-    worst = 0.0
-    for (_, g), (_, c) in zip(gpu_dets, cpu_dets):
-        assert (g.name, g.counter, g.gain) == (c.name, c.counter, c.gain), (g, c)
-        gv = np.array([g.score, g.avg_score, *g.scores.values()])
-        cv = np.array([c.score, c.avg_score, *c.scores.values()])
-        np.testing.assert_allclose(gv, cv, rtol=EV_RTOL, atol=EV_ATOL)
-        worst = max(worst, float(np.abs(gv - cv).max()))
+    worst = match_detections(gpu_dets, cpu_dets, "Rustpotter")
     rp_ms = float(np.median(secs)) * 1e3
     log(f"per-shift: Rustpotter detections match the cpu run (max|d score| {worst:.3e}); "
         f"{rp_ms:.4f} ms per process_audio, median of {n} (range "
@@ -1012,6 +1040,203 @@ def per_shift_phase(dev, record):
     return summary
 
 
+# ------------------------------------------------------------------- NN
+
+def nn_cell(dev, card, name, correct_ww, timed_ww, stream0_np, noise_np, cfg):
+    """One NN cell of BatchedDetector at B=8192: the correctness pass with
+    `correct_ww` (stream 0 must fire, streams 0-3 must give a device="cpu"
+    run's events at B=4, K1 must launch once per chunk with a DTW wakeword
+    and never without), then `timed_ww` (the same shapes) on the host clock
+    and split by torch.profiler into front-end, NN GEMMs, K1 and the rest."""
+    import torch
+
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.utils.profiling import step_roofline
+
+    B = BENCH_STREAMS
+    noise = torch.tensor(noise_np, device=dev)
+    det = BatchedDetector(correct_ww, cfg, batch_size=B, device=dev)
+    n = stream0_np.shape[0]
+    reset_counts()
+    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), det.init_states(),
+                          torch.tensor(stream0_np, device=dev), noise)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    fired0 = int(gpu[0][:, 0].sum())
+    want_k1 = n if det.static.n_dtw else 0
+    log(f"{name}: correctness pass {n} chunks at B={B}, stream 0 fired {fired0}x, launches "
+        f"{launches}")
+    assert fired0 >= 1, f"correctness guard: {name} did not fire on stream 0"
+    assert launches["fused_dtw_v4"] == want_k1, (name, launches, want_k1)
+    assert sum(launches.values()) == want_k1, f"{name}: other kernels launched"
+    cpu_det = BatchedDetector(correct_ww, cfg, batch_size=4, device="cpu")
+    cpu = run_correctness(lambda s, f: cpu_det.process_chunk(cpu_det.params, s, f),
+                          cpu_det.init_states(), torch.tensor(stream0_np),
+                          torch.tensor(noise_np[:4]))
+    n_events, worst = match_events(gpu, cpu, name, NN_RTOL, NN_ATOL)
+    log(f"{name}: streams 0-3 match the cpu run at B=4 ({n_events} events, max|d score| "
+        f"{worst:.3e})")
+
+    det = BatchedDetector(timed_ww, cfg, batch_size=B, device=dev)
+    t, rows, front_rows = chunk_timing(det, noise)
+    gemm = lambda rs: sum(r[0] for r in rs if "gemm" in r[2].lower())
+    nn_ms = gemm(rows) - gemm(front_rows)
+    k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
+    rest_ms = t["kernel_ms"] - t["front_ms"] - nn_ms - k1_ms
+    gflop = step_roofline(det.static).gemm_flops * B / 1e9
+    log(f"{name} [{card}]: {t['streams_rt']:.1f} realtime streams, median of {TIMED_WINDOWS} "
+        f"windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; B={B}, "
+        f"{TIMED_CHUNKS} chunks per window, {t['chunk_ms']:.4f} ms/chunk host clock); "
+        f"{gflop:.2f} GFLOP of products per chunk (step_roofline)")
+    if not rows:
+        log(f"{name}: the profiler recorded no device time: the breakdown is not measured")
+    else:
+        log(f"{name} [{card}]: device kernels per chunk {t['kernel_ms']:.4f} ms in "
+            f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: front-end "
+            f"{t['front_ms']:.4f} ms, NN GEMMs {nn_ms:.4f} ms, K1 {k1_ms:.4f} ms, rest "
+            f"{rest_ms:.4f} ms; device idle "
+            f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
+    for ms, count, kname in rows[:PROFILE_ROWS]:
+        log(f"profile {name}: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
+    return {f"{name}_{k}": v for k, v in {**t, "nn_gemm_ms": nn_ms, "k1_ms": k1_ms}.items()}
+
+
+def nn_phase(dev, card):
+    """NN wakewords, the F1 bands and wakeword management on the card (see
+    the module docstring, phase 6)."""
+    import copy
+    from functools import partial
+
+    import torch
+
+    from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.state import init_state
+    from rustpotter_tpu_torch.runtime.stream_step import make_step
+    from rustpotter_tpu_torch.synthetic import (
+        build_bench_nn_wakeword,
+        build_bench_wakeword,
+        build_firing_nn_wakeword,
+        correctness_stream,
+    )
+
+    B = BENCH_STREAMS
+    ww, utterance = build_bench_wakeword(device=dev)
+    firing = build_firing_nn_wakeword(utterance, device=dev)
+    medium = build_bench_nn_wakeword()
+    cfg = RustpotterConfig()
+    cfg.detector.score_mode = ScoreMode.MAX
+    cfg.detector.avg_threshold = 0.2
+    noise_np = np.random.default_rng(0).normal(0, 0.05, (B, 480)).astype(np.float32)
+    stream0_np = correctness_stream(firing.train_size, utterance)
+    summary = {}
+    # (a) nn_medium and (b) mixed at B=8192
+    summary.update(nn_cell(dev, card, "nn_medium", [("n", firing)], [("n", medium)],
+                           stream0_np, noise_np, cfg))
+    summary.update(nn_cell(dev, card, "mixed", [("w", ww), ("n", firing)],
+                           [("w", ww), ("n", medium)], stream0_np, noise_np, cfg))
+
+    # (c) the single-stream Rustpotter with mixed: K2, 3 launches per frame
+    rps = []
+    for d in (dev, "cpu"):
+        rp = Rustpotter(cfg, device=d)
+        rp.add_wakeword("w", ww)
+        rp.add_wakeword("n", firing)
+        rps.append(rp)
+    reset_counts()
+    gpu_dets, secs = play_single_stream(rps[0], stream0_np)
+    launches = read_counts()
+    cpu_dets, _ = play_single_stream(rps[1], stream0_np)
+    n = len(stream0_np)
+    assert gpu_dets, "correctness guard: Rustpotter with mixed did not fire"
+    assert launches["fused_dtw_v3"] == 3 * n and sum(launches.values()) == 3 * n, launches
+    worst = match_detections(gpu_dets, cpu_dets, "Rustpotter mixed", NN_RTOL, NN_ATOL)
+    rp_ms = float(np.median(secs)) * 1e3
+    log(f"Rustpotter mixed [{card}]: fired at frames {[i for i, _ in gpu_dets]} as "
+        f"{[d.name for _, d in gpu_dets]}, as the cpu run (max|d score| {worst:.3e}); K2 "
+        f"launches {launches['fused_dtw_v3']} for {n} frames; {rp_ms:.4f} ms per process_audio, "
+        f"median of {n} host clock")
+    summary["rp_mixed_ms"] = rp_ms
+
+    # (d) F1: bands past K1's and K2's rings route to K4 (3 launches per
+    # chunk or frame), on the short bench wakeword at a small B
+    ww30, utt30 = build_bench_wakeword(device=dev, longest=30)
+    small_b = 64
+    paths = {
+        "BatchedDetector": lambda det: lambda s, f: det.process_chunk(det.params, s, f),
+        "make_step": lambda det: partial(make_step(det.static), det.params),
+    }
+    for band in (21, 24):
+        cfg_b = copy.deepcopy(cfg)
+        cfg_b.detector.band_size = band
+        sizes = ((dev, small_b), ("cpu", 4))
+        dets = {d: BatchedDetector([("w", ww30)], cfg_b, batch_size=b, device=d) for d, b in sizes}
+        assert dets[dev].static.dtw_k4_for_band and dets[dev].static.dtw_fused_variant == 2
+        s0 = correctness_stream(dets[dev].static.max_mfcc_frames, utt30)
+        n = len(s0)
+        for path, runner in paths.items():
+            runs = {}
+            for d, b in sizes:
+                reset_counts()
+                runs[d] = run_correctness(runner(dets[d]), init_state(dets[d].static, b, d),
+                                          torch.tensor(s0, device=d),
+                                          torch.tensor(noise_np[:b], device=d))
+                if d == dev:
+                    torch.cuda.synchronize()
+                    launches = read_counts()
+            n_events, worst = match_events(runs[dev], runs["cpu"], f"F1 w={band} {path}")
+            assert int(runs[dev][0][:, 0].sum()) >= 1, f"F1 w={band} {path}: stream 0 silent"
+            assert launches["fused_dtw_v2"] == 3 * n == sum(launches.values()), (
+                band, path, launches)
+            log(f"F1 w={band} {path} at B={small_b}: {n} chunks, K4 launches "
+                f"{launches['fused_dtw_v2']}, K1 {launches['fused_dtw_v4']}, K2 "
+                f"{launches['fused_dtw_v3']}; streams 0-3 match the cpu run ({n_events} events, "
+                f"max|d score| {worst:.3e})")
+        dets_rp = {}
+        for d, _ in sizes:
+            dets_rp[d] = Rustpotter(cfg_b, device=d)
+            dets_rp[d].add_wakeword("w", ww30)
+        reset_counts()
+        gpu_dets, _ = play_single_stream(dets_rp[dev], s0)
+        launches = read_counts()
+        cpu_dets, _ = play_single_stream(dets_rp["cpu"], s0)
+        assert gpu_dets, f"F1 w={band} Rustpotter did not fire"
+        worst = match_detections(gpu_dets, cpu_dets, f"F1 w={band} Rustpotter")
+        assert launches["fused_dtw_v2"] == 3 * n == sum(launches.values()), launches
+        log(f"F1 w={band} Rustpotter: fired at frames {[i for i, _ in gpu_dets]} as the cpu run "
+            f"(max|d score| {worst:.3e}); K4 launches {launches['fused_dtw_v2']} for {n} frames")
+
+    # (e) M6b: the NN wakeword joins a live B=8192 DTW fleet mid-stream;
+    # the same calls on the CPU at B=4
+    split = 10
+    outs = {}
+    for d, b in ((dev, B), ("cpu", 4)):
+        det = BatchedDetector([("w", ww)], cfg, batch_size=b, device=d)
+        noise = torch.tensor(noise_np[:b], device=d)
+        s0 = torch.tensor(stream0_np, device=d)
+        run = lambda s, f: det.process_chunk(det.params, s, f)
+        reset_counts()
+        states = det.init_states()
+        before = run_correctness(run, states, s0[:split], noise)
+        states = det.add_wakeword("n", firing, states)
+        assert det.wakeword_names == ("w", "n") and states.win.shape[0] == firing.train_size
+        outs[d] = (before, run_correctness(run, states, s0[split:], noise))
+        if d == dev:
+            torch.cuda.synchronize()
+            launches = read_counts()
+    assert launches["fused_dtw_v4"] == len(stream0_np), launches
+    match_events(outs[dev][0], outs["cpu"][0], "M6b before the add")
+    n_events, worst = match_events(outs[dev][1], outs["cpu"][1], "M6b after the add", NN_RTOL,
+                                   NN_ATOL)
+    fired0 = int(outs[dev][1][0][:, 0].sum())
+    assert fired0 >= 1, "M6b: stream 0 did not fire after the NN wakeword joined"
+    log(f"M6b: NN wakeword added to the live B={B} DTW fleet after {split} chunks; the "
+        f"{len(stream0_np) - split} chunks after it match the cpu run at B=4 ({n_events} "
+        f"events, stream 0 fired {fired0}x, max|d score| {worst:.3e}); K1 launches "
+        f"{launches['fused_dtw_v4']}")
+    return summary
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1049,6 +1274,7 @@ def main() -> int:
     summary = slice_phase(dev, record)
     summary.update(per_shift_phase(dev, record))
     summary.update(tools_phase(dev, record))
+    summary.update(nn_phase(dev, card))
     log(json.dumps({"card": card, **summary}))
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,27 +1,42 @@
 """Batched streaming runtime: N concurrent audio streams on one device.
 
 The counterpart of `rustpotter_tpu.runtime.batch.BatchedDetector`: one call
-advances every stream 30 ms; wakeword templates are shared by all streams.
-Stream lifecycle is mask-based: `reset_streams` clears any subset of streams
-(admit/retire).
+advances every stream 30 ms; wakeword templates and NN weights are shared by
+all streams. Stream lifecycle is mask-based: `reset_streams` clears any
+subset of streams (admit/retire).
+
+Runtime management (parity: the reference's src/detector.rs:257-346):
+  - `add_wakeword` / `remove_wakeword` rebuild the bundle and MIGRATE live
+    stream state — the reference keeps its MFCC window, filters and partial
+    detections across a wakeword change. Window and gain shapes that grow or
+    shrink with max_mfcc_frames are padded or truncated keeping the newest
+    entries; a partial detection pointing at a removed wakeword is dropped.
+  - `update_detector_config` resets stream state (window, extractor, VAD,
+    partial) but KEEPS filter state — the reference's update_detector_config
+    calls reset(), which does not touch the filters (detector.rs:263-287).
+  - `update_filters_config` additionally rebuilds the filters with fresh
+    state (detector.rs:283-287); the stream steps do not run filters yet
+    (ROADMAP M7), so enabling one raises NotImplementedError.
+A rebuild that raises leaves the detector as it was.
 
 Differences from the JAX runtime: `process_chunk` updates the states in place
 (the counterpart of donating them) and still returns them; `process_sequence`
-is a loop of `process_chunk`. Wakeword add/remove with state migration and
-the `update_*config` calls are a later slice (ROADMAP M6).
+is a loop of `process_chunk`. Migration is a host-side step outside the
+chunk: it reads the shared cursor once.
 """
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import RustpotterConfig
+from ..config import DetectorConfig, FiltersConfig, RustpotterConfig
 from ..constants import SAMPLES_PER_FRAME
 from ..device import DeviceLike, resolve_device
-from ..wakewords.files import WakewordRef
-from .bundle import StepParams, build_bundle
+from ..wakewords.files import load_wakeword
+from .bundle import StepParams, StepStatic, Wakeword, build_bundle
 from .state import Event, StreamState, init_state
 from .stream_step import make_batched_chunk
 
@@ -31,13 +46,85 @@ from .stream_step import make_batched_chunk
 _RESET_SKIP_FIELDS = frozenset({"rot", "win"})
 
 
+def _keep_newest(arr: torch.Tensor, axis: int, new_len: int) -> torch.Tensor:
+    """Resize a shift-register axis (newest entries at the END): truncate the
+    oldest entries or zero-pad in front."""
+    old_len = arr.shape[axis]
+    if new_len <= old_len:
+        return arr.narrow(axis, old_len - new_len, new_len)
+    shape = list(arr.shape)
+    shape[axis] = new_len - old_len
+    return torch.cat([arr.new_zeros(shape), arr], dim=axis)
+
+
+def _pad_tail(arr: torch.Tensor, axis: int, new_len: int) -> torch.Tensor:
+    """Resize a payload axis (entries at the FRONT): truncate or zero-pad."""
+    old_len = arr.shape[axis]
+    if new_len <= old_len:
+        return arr.narrow(axis, 0, new_len)
+    shape = list(arr.shape)
+    shape[axis] = new_len - old_len
+    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+
+
+def migrate_states(
+    old: StepStatic,
+    new: StepStatic,
+    states: StreamState,
+    batch_size: int,
+    reset_stream: bool = False,
+    reset_filters: bool = False,
+) -> StreamState:
+    """Carry live stream state across a bundle rebuild (see the module
+    docstring), in the serving layout: window (F, C, B), one shared cursor.
+    Returns fresh tensors on the states' device."""
+    dev = states.win.device
+    fresh = init_state(new, batch_size, dev)
+    if reset_stream:
+        out = fresh
+        if not reset_filters:
+            out = out._replace(
+                bp=states.bp.clone(),
+                gain_win=_keep_newest(states.gain_win, -1, new.gain_window_size).clone(),
+                gain_count=torch.clamp(states.gain_count, max=new.gain_window_size),
+                gain=states.gain.clone(),
+            )
+        # the encoder/resampler is not part of reset() (detector.rs:290-302)
+        return out._replace(rs_overlap=states.rs_overlap.clone(),
+                            rms_level=states.rms_level.clone())
+
+    # wakeword add/remove: carry everything, resizing shape-bearing fields
+    remap = np.full((max(len(old.names), 1),), -1, np.int32)
+    for i, n in enumerate(old.names):
+        if n in new.names:
+            remap[i] = new.names.index(n)
+    new_ww = torch.tensor(remap, device=dev)[states.partial_ww.long()]
+    keep = ~(states.partial_active & (new_ww < 0))
+    # linearize the circular window (newest frame last) before resizing; the
+    # migrated state restarts with a fresh cursor
+    win_lin = torch.roll(states.win, -(int(states.rot) + 1), dims=0)
+    F = new.max_mfcc_frames
+    return states._replace(
+        win=_keep_newest(win_lin, 0, F).contiguous(),
+        rot=torch.tensor(F - 1, dtype=torch.int32, device=dev),
+        win_count=torch.clamp(states.win_count, max=F),
+        gain_win=_keep_newest(states.gain_win, -1, new.gain_window_size).clone(),
+        gain_count=torch.clamp(states.gain_count, max=new.gain_window_size),
+        partial_scores=_pad_tail(states.partial_scores, -1, new.smax).clone(),
+        partial_ww=torch.where(keep, torch.clamp(new_ww, min=0), 0).to(torch.int32),
+        partial_active=states.partial_active & keep,
+        partial_counter=torch.where(keep, states.partial_counter, 0).to(torch.int32),
+        countdown=torch.where(keep, states.countdown, 0).to(torch.int32),
+    )
+
+
 class BatchedDetector:
     """Fixed-capacity batch of independent detector streams on `device`
     (default: the CUDA card; RuntimeError without one)."""
 
     def __init__(
         self,
-        wakewords: List[Tuple[str, WakewordRef]],
+        wakewords: List[Tuple[str, Wakeword]],
         config: Optional[RustpotterConfig] = None,
         batch_size: int = 1024,
         device: DeviceLike = None,
@@ -46,15 +133,88 @@ class BatchedDetector:
         self.device = resolve_device(device)
         self.config = config if config is not None else RustpotterConfig()
         self.batch_size = batch_size
-        self._wakewords = list(wakewords)
-        self.static, self.params = build_bundle(
-            self._wakewords, self.config, self.device, in_graph_resample
-        )
-        self._chunk = make_batched_chunk(self.static)
+        self._in_graph_resample = in_graph_resample
+        self._install(list(wakewords), self.config)
+
+    # ------------------------------------------------------------- build
+
+    def _install(self, wakewords: List[Tuple[str, Wakeword]],
+                 config: RustpotterConfig) -> None:
+        """Build the bundle and the chunk for `wakewords` under `config`,
+        and only then adopt them: a build that raises changes nothing."""
+        static, params = build_bundle(wakewords, config, self.device,
+                                      self._in_graph_resample)
+        chunk = make_batched_chunk(static)
+        self._wakewords, self.config = wakewords, config
+        self.static, self.params, self._chunk = static, params, chunk
+
+    def _rebuild(self, wakewords, config, states, reset_stream=False,
+                 reset_filters=False) -> Optional[StreamState]:
+        old_static = self.static
+        self._install(wakewords, config)
+        if states is None:
+            return None
+        return migrate_states(old_static, self.static, states, self.batch_size,
+                              reset_stream=reset_stream, reset_filters=reset_filters)
+
+    # --------------------------------------------------- wakeword management
 
     @property
     def wakeword_names(self) -> Tuple[str, ...]:
         return self.static.names
+
+    def add_wakeword(self, name: str, wakeword: Wakeword,
+                     states: Optional[StreamState] = None) -> Optional[StreamState]:
+        """Add (or replace) a wakeword on the live detector. Stream state is
+        carried over (detector.rs:304-346: no reset on add); pass the current
+        states to receive the migrated ones. Raises ValueError on an
+        mfcc_size mismatch, leaving the detector unchanged."""
+        ww = [(k, w) for k, w in self._wakewords if k != name] + [(name, wakeword)]
+        return self._rebuild(ww, self.config, states)
+
+    def add_wakeword_from_file(self, name: str, path: str,
+                               states: Optional[StreamState] = None) -> Optional[StreamState]:
+        return self.add_wakeword(name, load_wakeword(path), states)
+
+    def remove_wakeword(self, name: str,
+                        states: Optional[StreamState] = None) -> Optional[StreamState]:
+        """Remove a wakeword; stream state carries over, except partials that
+        pointed at the removed wakeword (dropped). Raises KeyError if absent,
+        ValueError when removing the last wakeword (the batched step has no
+        empty configuration — retire the detector instead)."""
+        if name not in dict(self._wakewords):
+            raise KeyError(name)
+        ww = [(k, w) for k, w in self._wakewords if k != name]
+        if not ww:
+            raise ValueError("cannot remove the last wakeword of a BatchedDetector")
+        return self._rebuild(ww, self.config, states)
+
+    # ------------------------------------------------------- config updates
+
+    def update_detector_config(self, det_config: DetectorConfig,
+                               states: Optional[StreamState] = None) -> Optional[StreamState]:
+        """Reference parity (detector.rs:263-280): score params propagate to
+        live detectors and stream state resets — filters keep their state."""
+        config = copy.copy(self.config)
+        config.detector = det_config
+        return self._rebuild(self._wakewords, config, states, reset_stream=True)
+
+    def update_filters_config(self, filters_config: FiltersConfig,
+                              states: Optional[StreamState] = None) -> Optional[StreamState]:
+        """Reference parity (detector.rs:283-287): filters rebuilt with fresh
+        state, stream state resets. An enabled filter raises
+        NotImplementedError (ROADMAP M7)."""
+        config = copy.copy(self.config)
+        config.filters = filters_config
+        return self._rebuild(self._wakewords, config, states, reset_stream=True,
+                             reset_filters=True)
+
+    def update_config(self, config: RustpotterConfig,
+                      states: Optional[StreamState] = None) -> Optional[StreamState]:
+        return self._rebuild(self._wakewords, config, states, reset_stream=True,
+                             reset_filters=True)
+
+    # ------------------------------------------------------------ lifecycle
 
     def init_states(self) -> StreamState:
         return init_state(self.static, self.batch_size, self.device)

@@ -1,26 +1,47 @@
 """Detector bundle: static configuration + padded parameter tensors.
 
 All DTW wakewords are padded into dense (D, K, L, C) tensors scored in one
-batched pass; per-wakeword thresholds are resolved at build (wakeword
-overrides ride in the file — reference wakeword_ref.rs:16-17, applied at
-wakeword_comp.rs:83,95). The counterpart of `rustpotter_tpu.runtime.bundle`,
-DTW wakewords only: NN wakewords (ROADMAP M9) and in-graph resampling
-(ROADMAP M8) raise NotImplementedError.
+batched pass; NN wakewords keep one (W, b) tuple per model, scored one model
+after another (distinct architectures). Per-wakeword thresholds are resolved
+at build (wakeword overrides ride in the file — reference
+wakeword_ref.rs:16-17, applied at wakeword_comp.rs:83,95). The counterpart
+of `rustpotter_tpu.runtime.bundle`; in-graph resampling (ROADMAP M8) raises
+NotImplementedError.
+
+The DTW kernels are chosen here, from the band and the MFCC size: where the
+requested mode's kernels cannot take the band (K1's and K2's rings pass the
+shared-memory opt-in from w = 21, K3's tile from w = 76), the bundle takes
+K4, whose row form takes every band. The choice is static and the same on
+every device, so the CPU runs the same mode through K4's plain version.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, fields
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..audio.filters import band_pass_coefficients
 from ..config import RustpotterConfig, ScoreMode
 from ..constants import DETECTOR_INTERNAL_SAMPLE_RATE
 from ..device import DeviceLike, resolve_device
+from ..ops import banded_dtw
+from ..ops.fused_dtw import k1_smem_bytes, k2_smem_bytes
 from ..wakewords.files import WakewordModel, WakewordRef
+from ..wakewords.nn import params_from_tensor_data
+
+Wakeword = Union[WakewordRef, WakewordModel]
+
+
+@dataclass(frozen=True)
+class NNMeta:
+    train_size: int
+    labels: Tuple[str, ...]
+    none_idx: int  # -1 if "none" not among labels
+    m_type: str = "tiny"  # ModelType value
 
 
 @dataclass(frozen=True)
@@ -46,11 +67,12 @@ class StepStatic:
     kmax: int
     lmax: int
     la_max: int
+    nn_meta: Tuple[NNMeta, ...] = ()
     # static per-pair DP lengths: all template lengths (padded with 1s to
     # kmax per wakeword, in order) followed by per-wakeword avg lengths
     dtw_pair_lens: Tuple[int, ...] = ()
     smax: int = 1  # width of the per-detection scores payload
-    names: Tuple[str, ...] = ()
+    names: Tuple[str, ...] = ()  # wakeword keys, DTW first then NN
     dtw_template_names: Tuple[Tuple[str, ...], ...] = ()
     input_samples: int = 480
     input_rate: int = DETECTOR_INTERNAL_SAMPLE_RATE
@@ -58,9 +80,11 @@ class StepStatic:
     # K1 in the batched chunk, and in the per-shift step K2 (variant >= 3)
     # or K4 (variant 2); False = band_costs then the banded DP, K3. The
     # tensor's device picks kernel or plain version, so None means fused on
-    # every device.
+    # every device. dtw_k4_for_band is True where the band passed the
+    # requested mode's kernels and the bundle took K4 (`choose_dtw_kernels`).
     dtw_fused: Optional[bool] = None
     dtw_fused_variant: int = 3
+    dtw_k4_for_band: bool = False
 
 
 @dataclass(frozen=True)
@@ -75,18 +99,24 @@ class StepParams:
     dtw_has_avg: torch.Tensor  # (D,) bool
     dtw_threshold: torch.Tensor  # (D,) f32, resolved
     dtw_avg_threshold: torch.Tensor  # (D,) f32, resolved
+    nn_params: Tuple  # per NN wakeword: a tuple of (W (out, in), b (out,)) f32
     gain_ref_sqrt: torch.Tensor  # () f32 (sqrt of target rms level; NaN if none)
-    threshold: torch.Tensor  # () f32 (global)
-    avg_threshold: torch.Tensor  # () f32 (global)
+    threshold: torch.Tensor  # () f32 (global, the NN wakewords' threshold)
+    avg_threshold: torch.Tensor  # () f32 (global, the NN wakewords' threshold)
 
     @staticmethod
     def from_numpy(d: dict, device: DeviceLike = None) -> "StepParams":
-        """From numpy arrays keyed by field name (extra keys are ignored)."""
+        """From numpy arrays keyed by field name (extra keys are ignored);
+        `nn_params` is a sequence, per NN wakeword, of (W, b) pairs (absent
+        means none)."""
         dev = resolve_device(device)
-        return StepParams(**{
-            f.name: torch.tensor(np.asarray(d[f.name]), device=dev)
-            for f in fields(StepParams)
-        })
+        t = lambda a: torch.tensor(np.asarray(a), device=dev)
+        out = {f.name: t(d[f.name]) for f in fields(StepParams) if f.name != "nn_params"}
+        out["nn_params"] = tuple(
+            tuple((t(np.asarray(w, np.float32)), t(np.asarray(b, np.float32))) for w, b in model)
+            for model in d.get("nn_params", ())
+        )
+        return StepParams(**out)
 
 
 def rust_f32_max(a: float, b: float) -> float:
@@ -98,34 +128,55 @@ def rust_f32_max(a: float, b: float) -> float:
     return max(a, b)
 
 
+def choose_dtw_kernels(band: int, mfcc_size: int, dtw_fused: Optional[bool],
+                       variant: int) -> Tuple[Optional[bool], int, bool]:
+    """(dtw_fused, variant, k4_for_band): the requested mode where its kernels
+    take the band, else K4 (fused, variant 2). Fused variant >= 3 runs K1 in
+    the batched chunk and K2 in the per-shift step, whose rings must fit the
+    shared-memory opt-in (`k1_smem_bytes`, `k2_smem_bytes`); dtw_fused False
+    runs K3, which takes w <= banded_dtw.W_MAX. K4 takes every band >= 2."""
+    if dtw_fused is False:
+        fits = band <= banded_dtw.W_MAX
+    elif variant >= 3:
+        fits = max(k1_smem_bytes(band, mfcc_size),
+                   k2_smem_bytes(band, mfcc_size)) <= _build.SMEM_OPTIN
+    else:
+        fits = True
+    if fits:
+        return dtw_fused, variant, False
+    return True, 2, True
+
+
 def build_bundle(
-    wakewords: List[Tuple[str, WakewordRef]],
+    wakewords: List[Tuple[str, Wakeword]],
     config: RustpotterConfig,
     device: DeviceLike = None,
     in_graph_resample: bool = False,
     dtw_fused: Optional[bool] = None,
 ) -> Tuple[StepStatic, StepParams]:
-    """(StepStatic, StepParams on `device`) for DTW wakewords. With
-    dtw_fused None, RUSTPOTTER_FUSED ("1" or "0") decides if it is set;
+    """(StepStatic, StepParams on `device`) for DTW and NN wakewords (DTW
+    first in `names`, then NN, each in the order given). With dtw_fused
+    None, RUSTPOTTER_FUSED ("1" or "0") decides if it is set;
     RUSTPOTTER_FUSED_VARIANT sets the fused variant (default 3), as in the
-    JAX package."""
+    JAX package; then `choose_dtw_kernels` checks the band."""
     if in_graph_resample:
         raise NotImplementedError("in-graph resampling: ROADMAP M8")
-    if any(isinstance(w, WakewordModel) for _, w in wakewords):
-        raise NotImplementedError("NN wakewords: ROADMAP M9")
     if dtw_fused is None and "RUSTPOTTER_FUSED" in os.environ:
         dtw_fused = os.environ["RUSTPOTTER_FUSED"] == "1"
     fused_variant = int(os.environ.get("RUSTPOTTER_FUSED_VARIANT", "3"))
     det = config.detector
-    refs = list(wakewords)
-    if not refs:
+    refs = [(k, w) for k, w in wakewords if isinstance(w, WakewordRef)]
+    models = [(k, w) for k, w in wakewords if isinstance(w, WakewordModel)]
+    if not refs and not models:
         raise ValueError("no wakewords")
-    mfcc_size = refs[0][1].mfcc_size
-    for _, w in refs:
+    mfcc_size = (refs + models)[0][1].mfcc_size
+    for _, w in refs + models:
         if w.mfcc_size != mfcc_size:
             raise ValueError(
                 "Usage of wakewords with different mfcc size is not supported"
             )
+    dtw_fused, fused_variant, k4_for_band = choose_dtw_kernels(
+        det.band_size, mfcc_size, dtw_fused, fused_variant)
 
     # max window length and gain target (detector.rs:328-346)
     max_frames = 0
@@ -133,23 +184,28 @@ def build_bundle(
     for _, w in refs:
         max_frames = max(max_frames, max(len(m) for m in w.samples_features.values()))
         target_rms = rust_f32_max(target_rms, w.rms_level)
+    for _, w in models:
+        max_frames = max(max_frames, w.train_size)
+        target_rms = rust_f32_max(target_rms, w.rms_level)
 
+    # the DTW arrays keep one (unused) row when there is no DTW wakeword
     D = len(refs)
-    kmax = max(len(w.samples_features) for _, w in refs)
-    lmax = max(len(m) for _, w in refs for m in w.samples_features.values())
+    Dp = max(D, 1)
+    kmax = max((len(w.samples_features) for _, w in refs), default=1)
+    lmax = max((len(m) for _, w in refs for m in w.samples_features.values()), default=1)
     la_max = max(
         (len(w.avg_features) for _, w in refs if w.avg_features is not None), default=1
     )
     C = mfcc_size
 
-    d_templates = np.zeros((D, kmax, lmax, C), np.float32)
-    d_lens = np.ones((D, kmax), np.int32)
-    d_kvalid = np.ones((D,), np.int32)
-    d_avg = np.zeros((D, la_max, C), np.float32)
-    d_avg_len = np.ones((D,), np.int32)
-    d_has_avg = np.zeros((D,), bool)
-    d_th = np.zeros((D,), np.float32)
-    d_avg_th = np.zeros((D,), np.float32)
+    d_templates = np.zeros((Dp, kmax, lmax, C), np.float32)
+    d_lens = np.ones((Dp, kmax), np.int32)
+    d_kvalid = np.ones((Dp,), np.int32)
+    d_avg = np.zeros((Dp, la_max, C), np.float32)
+    d_avg_len = np.ones((Dp,), np.int32)
+    d_has_avg = np.zeros((Dp,), bool)
+    d_th = np.zeros((Dp,), np.float32)
+    d_avg_th = np.zeros((Dp,), np.float32)
     template_names: List[Tuple[str, ...]] = []
     for i, (_, w) in enumerate(refs):
         items = sorted(w.samples_features.items())  # deterministic order
@@ -166,6 +222,18 @@ def build_bundle(
         d_avg_th[i] = (
             w.avg_threshold if w.avg_threshold is not None else det.avg_threshold
         )
+
+    nn_meta = []
+    nn_params = []
+    for _, w in models:
+        labels = tuple(w.labels)
+        nn_meta.append(NNMeta(
+            train_size=w.train_size, labels=labels,
+            none_idx=labels.index("none") if "none" in labels else -1,
+            m_type=w.m_type.value,
+        ))
+        nn_params.append(params_from_tensor_data(w.weights))
+    smax = max([int(d_kvalid.max()) if D else 1] + [len(m.labels) for m in nn_meta])
 
     static = StepStatic(
         mfcc_size=mfcc_size,
@@ -194,12 +262,14 @@ def build_bundle(
         kmax=int(kmax),
         lmax=int(lmax),
         la_max=int(la_max),
+        nn_meta=tuple(nn_meta),
         dtw_pair_lens=tuple(int(x) for x in d_lens.reshape(-1)) + tuple(int(x) for x in d_avg_len),
-        smax=int(d_kvalid.max()),
-        names=tuple(k for k, _ in refs),
+        smax=int(smax),
+        names=tuple([k for k, _ in refs] + [k for k, _ in models]),
         dtw_template_names=tuple(template_names),
         dtw_fused=dtw_fused,
         dtw_fused_variant=fused_variant,
+        dtw_k4_for_band=k4_for_band,
     )
     fixed_gain_ref = config.filters.gain_normalizer.gain_ref
     gain_ref = fixed_gain_ref if fixed_gain_ref is not None else target_rms
@@ -213,6 +283,7 @@ def build_bundle(
             dtw_has_avg=d_has_avg,
             dtw_threshold=d_th,
             dtw_avg_threshold=d_avg_th,
+            nn_params=nn_params,
             gain_ref_sqrt=np.float32(
                 np.sqrt(gain_ref) if gain_ref == gain_ref and gain_ref >= 0 else np.nan
             ),

@@ -3,8 +3,9 @@
 A serving fleet that moves from the JAX runtime to this one keeps its live
 streams: take the JAX `StepParams` and batched `StreamState` leaves as numpy
 arrays (keyed by field name; the window already in the serving layout
-(F, C, B), `rot` a scalar), build the port's tensors from them, and continue.
-`states_to_numpy` goes the other way.
+(F, C, B), `rot` a scalar, `nn_params` per NN wakeword a sequence of (W, b)
+pairs), build the port's tensors from them, and continue. `states_to_numpy`
+goes the other way.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from .state import StreamState
 
 
 def params_from_numpy(d: dict, device: DeviceLike = None) -> StepParams:
-    """The port's StepParams from numpy arrays keyed by field name. Keys the
-    port does not hold yet (NN weights, ROADMAP M9) are ignored."""
+    """The port's StepParams from numpy arrays keyed by field name, the NN
+    weights under `nn_params` (per model, its (W, b) pairs in layer order)."""
     return StepParams.from_numpy(d, device)
 
 

@@ -4,9 +4,8 @@ The counterpart of `rustpotter_tpu.runtime.detector`, with public-API parity
 with the reference's src/detector.rs (Rustpotter struct): new /
 add_wakeword* / remove_wakeword(s) / process_bytes / process_samples /
 update_config / reset / getters, and RustpotterDetection
-(detector.rs:486-501). DTW wakewords only: an NN wakeword raises
-NotImplementedError (ROADMAP M9), and so does input at another rate than
-16 kHz (ROADMAP M8).
+(detector.rs:486-501), for DTW and NN wakewords. Input at another rate than
+16 kHz raises NotImplementedError (ROADMAP M8).
 
 The audio encoder (byte decode, downmix) runs on the host as the
 reference's; everything from the 480-sample f32 frame onward is
@@ -81,8 +80,8 @@ class Rustpotter:
         try:
             self._rebuild()
         except (ValueError, NotImplementedError):
-            # e.g. mismatched mfcc size (detector.rs:308-320), or a wakeword
-            # kind the port does not run yet: keep the prior set
+            # e.g. mismatched mfcc size (detector.rs:308-320): keep the
+            # prior set
             self.wakewords = prev
             self._rebuild()
             raise
@@ -232,10 +231,17 @@ class Rustpotter:
 
     def _decode(self, ww, score, avg, counter, gain, scores_vec) -> RustpotterDetection:
         st = self._static
-        key = st.names[ww]
-        labels = st.dtw_template_names[ww]
+        wakeword = dict(self.wakewords)[st.names[ww]]
+        if isinstance(wakeword, WakewordRef):
+            labels = st.dtw_template_names[ww]
+            name = wakeword.name
+        else:
+            labels = st.nn_meta[ww - st.n_dtw].labels
+            # an NN detection is named by its winning label, which the
+            # scores payload (the logits) gives back
+            name = labels[int(np.argmax(scores_vec[: len(labels)]))]
         return RustpotterDetection(
-            name=dict(self.wakewords)[key].name,
+            name=name,
             avg_score=avg,
             score=score,
             scores={k: float(scores_vec[i]) for i, k in enumerate(labels)},

@@ -30,12 +30,18 @@ With `dtw_fused` False or a variant below 3, the batched chunk scores each
 shift's virtual window through `_dtw_scores` instead of K1, as the JAX
 package's fallback does.
 
-Not ported yet: NN heads (ROADMAP M9), filters (M7) and in-graph resampling
-(M8).
+NN wakewords (`_nn_scores_one` per shift, `_nn_scores_chunk` per chunk) are
+fp32 GEMMs and elementwise work, as in the JAX package, which has no Pallas
+kernel there: the first layer's weights are rotated into the window's
+physical frame order by an index on the device, so neither step reads the
+cursor on the host. The best candidate is chosen over the DTW wakewords
+first, then the NN ones (`_combine_batched`).
+
+Not ported yet: filters (ROADMAP M7) and in-graph resampling (M8).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,7 +58,8 @@ from ..ops.fused_dtw import (
     score_linear,
     score_shift,
 )
-from ..ops.scoring import cost_to_score
+from ..ops.scoring import cost_to_score, nn_inverse_similarity
+from ..wakewords.nn import forward_tail
 from .bundle import StepParams, StepStatic
 from .state import Event, StreamState, VAD_VOICE_FRAMES
 
@@ -197,18 +204,45 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
 
 
-class ChunkConstants(NamedTuple):
-    """What DTW scoring needs from a parameter set and nothing else: built
-    once per StepParams by `chunk_constants`, not per chunk or shift."""
+class NNConstants(NamedTuple):
+    """One NN wakeword's first layer, laid out for the stream steps."""
 
-    seq_a: torch.Tensor  # (P, Lm, C) raw templates, then the avg templates
-    tset: TemplateSet  # the kernels' T' (P, Lm, C), padded copy and pair lengths
-    t_all: torch.Tensor  # (P,) pair lengths: CMN coverage of each pair
-    inv_t: torch.Tensor  # (1, P, 1) f32: 1/t, folded into the mean masks
-    gate_bounds: torch.Tensor  # (D,) sim-domain avg-gate bounds
+    w1f: torch.Tensor  # (h1, ts, C) first-layer weights by logical frame
+    w1p: torch.Tensor  # (h1, F, C) the same, zero rows beyond train_size
+    wsum: torch.Tensor  # (h1, C) the sum over frames: folds the CMN mean
+
+
+class ChunkConstants(NamedTuple):
+    """What scoring needs from a parameter set and nothing else: built once
+    per StepParams by `chunk_constants`, not per chunk or shift. The DTW
+    fields are None in a bundle without DTW wakewords."""
+
+    seq_a: Optional[torch.Tensor]  # (P, Lm, C) raw templates, then the avg templates
+    tset: Optional[TemplateSet]  # the kernels' T' (P, Lm, C), padded copy and pair lengths
+    t_all: Optional[torch.Tensor]  # (P,) pair lengths: CMN coverage of each pair
+    inv_t: Optional[torch.Tensor]  # (1, P, 1) f32: 1/t, folded into the mean masks
+    gate_bounds: Optional[torch.Tensor]  # (D,) sim-domain avg-gate bounds
+    nn: Tuple[NNConstants, ...] = ()  # per NN wakeword
+
+
+def _nn_constants(static: StepStatic, params: StepParams) -> Tuple[NNConstants, ...]:
+    F, C = static.max_mfcc_frames, static.mfcc_size
+    out = []
+    for meta, layers in zip(static.nn_meta, params.nn_params):
+        w1 = layers[0][0]
+        w1f = w1.reshape(w1.shape[0], meta.train_size, C)
+        out.append(NNConstants(
+            w1f=w1f,
+            w1p=torch.nn.functional.pad(w1f, (0, 0, 0, F - meta.train_size)),
+            wsum=torch.sum(w1f, dim=1),
+        ))
+    return tuple(out)
 
 
 def chunk_constants(static: StepStatic, params: StepParams) -> ChunkConstants:
+    nn = _nn_constants(static, params)
+    if not static.n_dtw:
+        return ChunkConstants(None, None, None, None, None, nn)
     D, K, L = static.n_dtw, static.kmax, static.lmax
     Lm = max(L, static.la_max)
     C = static.mfcc_size
@@ -224,6 +258,7 @@ def chunk_constants(static: StepStatic, params: StepParams) -> ChunkConstants:
         t_all=t_all,
         inv_t=(1.0 / t_all.to(torch.float32))[None, :, None],
         gate_bounds=_avg_gate_bounds(static, params, params.dtw_avg_len).contiguous(),
+        nn=nn,
     )
 
 
@@ -295,6 +330,116 @@ def _dtw_scores_chunk(static: StepStatic, params: StepParams, consts: ChunkConst
     return [_dtw_post(static, params, sims3[:, s]) for s in range(3)]
 
 
+def _nn_post(static: StepStatic, params: StepParams, logits: torch.Tensor, j: int):
+    """Per-stream NN label/score logic from the logits (B, labels). Parity:
+    wakeword_nn.rs:47-124,161-163, as the JAX package's `_nn_post`. Returns
+    (detected (B,), score (B,), avg_score (B,), scores_vec (B, smax))."""
+    meta = static.nn_meta[j]
+    n_labels = len(meta.labels)
+    # Rust max_by returns the LAST maximal element on ties
+    label_idx = n_labels - 1 - torch.argmax(torch.flip(logits, (-1,)), dim=-1)
+    label_prob = torch.amax(logits, dim=-1)
+    none_prob = (logits[:, meta.none_idx] if meta.none_idx >= 0
+                 else torch.zeros_like(label_prob))
+    ref10 = torch.tensor(static.score_ref * 10.0, dtype=torch.float32)
+    score = nn_inverse_similarity(label_prob, none_prob, ref10)
+    calc_avg = params.avg_threshold != 0.0
+    # 'second' prob: the reference's reversed max_by comparator makes this
+    # the MINIMUM of the probs not equal to label_prob (wakeword_nn.rs:75-88)
+    others = logits != label_prob[:, None]
+    second = torch.where(
+        torch.any(others, dim=-1),
+        torch.amin(torch.where(others, logits, INF), dim=-1),
+        0.0,
+    )
+    avg_score = torch.where(calc_avg, nn_inverse_similarity(label_prob, second, ref10), 0.0)
+    is_word = label_idx != meta.none_idx
+    detected = is_word & (score >= params.threshold) & (avg_score >= params.avg_threshold)
+    scores_vec = torch.nn.functional.pad(logits, (0, static.smax - n_labels))
+    return detected, score, avg_score, scores_vec
+
+
+def _nn_scores_one(static: StepStatic, params: StepParams, consts: ChunkConstants,
+                   win: torch.Tensor, rot: torch.Tensor, j: int):
+    """Score NN wakeword j on the live circular window (F, C, B) of every
+    stream. Parity: wakeword_nn.rs:139-163,47-124, as the JAX package's
+    `_nn_scores_one`: instead of gathering the logical-order window, the
+    first layer's weights are rotated into physical frame order (zero rows
+    beyond train_size, so stale slots contribute nothing):
+      sum_i x_log[i]·W[i] = sum_f x_phys[f]·W[(f - rot - 1) mod F],
+    the rotation an index on the device. CMN is order-free, so its mean
+    uses the rotated mask."""
+    ts = static.nn_meta[j].train_size
+    F, C, B = win.shape
+    nnc = consts.nn[j]
+    lidx = (torch.arange(F, device=win.device) - rot.long() - 1) % F  # logical index
+    lmask = (lidx < ts).to(torch.float32)
+    mean = torch.einsum("f,fcb->cb", lmask, win) / ts  # over the logical first ts
+    x = win - mean[None]
+    w1r = nnc.w1p.index_select(1, lidx)  # (h1, F, C)
+    h1 = w1r.shape[0]
+    b1 = params.nn_params[j][0][1]
+    hid = w1r.reshape(h1, F * C) @ x.reshape(F * C, B) + b1[:, None]  # (h1, B)
+    logits = forward_tail(params.nn_params[j], hid.T)  # (B, labels)
+    return _nn_post(static, params, logits, j)
+
+
+def _nn_scores_chunk(static: StepStatic, params: StepParams, consts: ChunkConstants,
+                     win: torch.Tensor, new: torch.Tensor, rot0: torch.Tensor, j: int):
+    """NN det_outs for all 3 shifts of a chunk, from the virtual windows, as
+    the JAX package's `_nn_scores_chunk`. The first layer folds the circular
+    rotation and the CMN subtraction into one GEMM against the PRE-chunk
+    window:
+      dot(x - mean, W) = dot(x, W - wsum⊗maskA/ts) - wsum·mean_new,
+    ((3·h1, F·C) @ (F·C, B)); the new rows enter as rank-1 corrections
+    W_row · (new - old_row) at their logical positions, which are static.
+    Every read of an old row is an index_select (a copy), enqueued before
+    the chunk's window writes. The tail layers run on the 3 shifts merged
+    into one (h, 3B) batch. Returns a list of 3 per-shift tuples."""
+    ts = static.nn_meta[j].train_size
+    F, C, B = win.shape
+    nnc = consts.nn[j]
+    h1 = nnc.w1f.shape[0]
+    dev = win.device
+    ar3 = torch.arange(3, device=dev)
+    slots = (rot0.long() + 1 + ar3) % F
+    maskA, maskB = _chunk_slot_masks(F, torch.full((1,), ts, device=dev), rot0)
+    # shift s sees cursor rot0 + 1 + s: physical frame f holds logical
+    # (f - rot0 - 2 - s) mod F
+    lidx3 = (torch.arange(F, device=dev)[None, :] - rot0.long() - 2 - ar3[:, None]) % F
+    w1r3 = nnc.w1p.index_select(1, lidx3.reshape(-1)).reshape(h1, 3, F, C).transpose(0, 1)
+    # fold the CMN mean over the OLD-window rows into the weights, so the
+    # window is contracted once per chunk
+    w1m3 = w1r3 - nnc.wsum[None, :, None, :] * maskA[:, 0, None, :, None] / ts
+    main = (w1m3.reshape(3 * h1, F * C) @ win.reshape(F * C, B)).reshape(3, h1, B)
+    corr = [torch.zeros((h1, B), device=dev) for _ in range(3)]
+    old = win.index_select(0, slots)  # (3, C, B): a copy, read before the writes
+    for s in range(3):
+        for j0 in range(s + 1):
+            pos = F - (s + 1) + j0  # logical position of new row j0 at shift s
+            if pos < ts:
+                corr[s] = corr[s] + nnc.w1f[:, pos, :] @ (new[j0] - old[j0])
+    # new-row part of the CMN mean (the old-row part is folded above)
+    mean_new = torch.einsum("sj,jcb->scb", maskB[:, 0], new) / ts  # (3, C, B)
+    b1 = params.nn_params[j][0][1]
+    hid3 = (
+        main + torch.stack(corr)
+        - torch.einsum("hc,scb->shb", nnc.wsum, mean_new)
+        + b1[None, :, None]
+    )  # (3, h1, B)
+    x = hid3.transpose(0, 1).reshape(h1, 3 * B)
+    for wl, bl in params.nn_params[j][1:]:
+        x = wl @ torch.relu(x) + bl[:, None]
+    logits3 = x.reshape(-1, 3, B)  # (labels, 3, B)
+    return [_nn_post(static, params, logits3[:, s].T, j) for s in range(3)]
+
+
+def _nn_column(out):
+    """An NN wakeword's per-stream tuple as one column of the wakeword axis."""
+    d, sc, a, v = out
+    return d[:, None], sc[:, None], a[:, None], v[:, None, :]
+
+
 def _combine_batched(det_list, score_list, avg_list, scores_list):
     """Best-candidate selection over the wakeword axis, batched on streams
     (detector.rs:433-447): argmax of the detected scores, first on ties."""
@@ -315,10 +460,13 @@ def _combine_batched(det_list, score_list, avg_list, scores_list):
 def run_wakeword_detectors(static: StepStatic, params: StepParams,
                            consts: ChunkConstants, win: torch.Tensor, rot: torch.Tensor):
     """All wakewords → best candidate per stream (parity:
-    detector.rs:433-447). DTW wakewords only: bundles with NN wakewords are
-    refused at build (ROADMAP M9)."""
-    d, sc, a, m = _dtw_scores(static, params, consts, win, rot)
-    return _combine_batched([d], [sc], [a], [m])
+    detector.rs:433-447): the DTW wakewords, then each NN wakeword."""
+    cols = []
+    if static.n_dtw:
+        cols.append(_dtw_scores(static, params, consts, win, rot))
+    for j in range(len(static.nn_meta)):
+        cols.append(_nn_column(_nn_scores_one(static, params, consts, win, rot, j)))
+    return _combine_batched(*zip(*cols))
 
 
 def run_wakeword_detectors_chunk(static: StepStatic, params: StepParams,
@@ -326,10 +474,14 @@ def run_wakeword_detectors_chunk(static: StepStatic, params: StepParams,
                                  new: torch.Tensor, rot0: torch.Tensor):
     """All wakewords × all 3 shifts → 3 per-shift det_out tuples
     (parity: detector.rs:433-447 per shift)."""
-    return [
-        _combine_batched([d], [sc], [a], [m])
-        for d, sc, a, m in _dtw_scores_chunk(static, params, consts, win, new, rot0)
-    ]
+    per_shift = [[] for _ in range(3)]
+    if static.n_dtw:
+        for s, out in enumerate(_dtw_scores_chunk(static, params, consts, win, new, rot0)):
+            per_shift[s].append(out)
+    for j in range(len(static.nn_meta)):
+        for s, out in enumerate(_nn_scores_chunk(static, params, consts, win, new, rot0, j)):
+            per_shift[s].append(_nn_column(out))
+    return [_combine_batched(*zip(*cols)) for cols in per_shift]
 
 
 # ----------------------------------------------------------- shift stages

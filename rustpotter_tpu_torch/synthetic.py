@@ -1,25 +1,38 @@
-"""The bench wakeword and its correctness audio, built with the port alone.
+"""The bench wakewords and their correctness audio, built with the port alone.
 
 `build_bench_wakeword` is the counterpart of `bench.build_bench_wakeword`:
 a 5-template DTW wakeword from synthesized utterances (chirp + noise), lengths
 100/98/96/94/92 × mfcc_size frames, with real audio behind it so detection is
 testable. `correctness_stream` is the stream-0 audio of `bench.correctness_pass`.
+
+`build_bench_nn_wakeword` is the `nn_medium` recipe of tools/bench_suite.py
+(a MEDIUM classifier with seeded random weights: it never fires), and
+`build_firing_nn_wakeword` a MEDIUM classifier of the same shapes that
+fires on the bench utterance and stays silent on noise and silence.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .device import DeviceLike
+from .constants import SAMPLES_PER_SHIFT
+from .device import DeviceLike, resolve_device
 from .mfcc.averager import average_templates
 from .mfcc.offline import mfcc_pipeline
-from .wakewords.files import WakewordRef
+from .ops import frontend
+from .wakewords.files import ModelType, WakewordModel, WakewordRef
+from .wakewords.nn import init_params, params_to_tensor_data
+
+NN_TRAIN_SIZE = 168  # the nn_medium scenario's train_size (frames)
+NN_LABELS = ("bench", "none")
 
 
-def bench_utterances() -> list:
-    """The 5 synthesized utterances, longest first (numpy, seeded)."""
+def bench_utterances(longest: int = 100) -> list:
+    """The 5 synthesized utterances of longest, longest - 2, ... MFCC frames,
+    longest first (numpy, seeded)."""
     words = []
     for i in range(5):
-        frames = 100 - 2 * i
+        frames = longest - 2 * i
         n = (frames + 3) * 160
         rng = np.random.default_rng(100 + i)
         t = np.arange(n) / 16000.0
@@ -30,10 +43,12 @@ def bench_utterances() -> list:
     return words
 
 
-def build_bench_wakeword(mfcc_size: int = 16, device: DeviceLike = None):
+def build_bench_wakeword(mfcc_size: int = 16, device: DeviceLike = None,
+                         longest: int = 100):
     """Returns (WakewordRef, utterance of template 0). MFCCs are computed on
-    `device` (default: the CUDA card)."""
-    words = bench_utterances()
+    `device` (default: the CUDA card). `longest` shortens the utterances
+    (and so the templates) where a run needs a short window."""
+    words = bench_utterances(longest)
     feats = {
         f"s{i}.wav": mfcc_pipeline(w, mfcc_size + 1, device)
         for i, w in enumerate(words)
@@ -56,3 +71,45 @@ def correctness_stream(F: int, utterance: np.ndarray) -> np.ndarray:
     )
     n = len(s) // 480
     return s[: n * 480].reshape(n, 480)
+
+
+def build_bench_nn_wakeword(mfcc_size: int = 16) -> WakewordModel:
+    """The `nn_medium` wakeword: MEDIUM, train_size 168, labels
+    ["bench", "none"], weights from init_params(seed 3), so its layers are
+    2688 → 56 → 28 → 2 at mfcc_size 16."""
+    params = init_params(ModelType.MEDIUM, NN_TRAIN_SIZE * mfcc_size, mfcc_size,
+                         len(NN_LABELS), seed=3)
+    return WakewordModel(labels=list(NN_LABELS), train_size=NN_TRAIN_SIZE,
+                         mfcc_size=mfcc_size, m_type=ModelType.MEDIUM,
+                         weights=params_to_tensor_data(params), rms_level=0.05)
+
+
+def build_firing_nn_wakeword(utterance: np.ndarray, mfcc_size: int = 16,
+                             train_size: int = NN_TRAIN_SIZE,
+                             device: DeviceLike = None) -> WakewordModel:
+    """A MEDIUM classifier that fires on `correctness_stream(train_size,
+    utterance)`: first-layer unit 0 is the CMN'd MFCC window that ends just
+    after the utterance, scaled to give 1 there (a normalized correlation);
+    layer 2's unit 0 passes max(0, 10·(h0 - 0.6)); the "bench" logit is 10×
+    that and the "none" logit a constant 1. Every other weight comes from
+    init_params(seed 4) and reaches no logit. MFCCs are computed on `device`
+    (default: the CUDA card)."""
+    F, C = train_size, mfcc_size
+    stream = correctness_stream(F, utterance).reshape(-1)
+    x = torch.as_tensor(stream, device=resolve_device(device))
+    frames = frontend.frames_from_shifts(frontend.pre_emphasis(x.reshape(-1, SAMPLES_PER_SHIFT)))
+    mfcc = frontend.mfcc_from_frames(frames, C + 1).cpu().numpy().astype(np.float64)
+    end = (F // 3 + 4) * 3 + len(utterance) // SAMPLES_PER_SHIFT + 2  # frames
+    tpl = mfcc[end - F:end] - mfcc[end - F:end].mean(axis=0)
+    params = init_params(ModelType.MEDIUM, F * C, C, len(NN_LABELS), seed=4)
+    (w1, b1), (w2, b2), (w3, b3) = params
+    w1[0] = (tpl.reshape(-1) / np.sum(tpl * tpl)).astype(np.float32)
+    b1[0] = 0.0
+    w2[0] = 0.0
+    w2[0, 0], b2[0] = 10.0, -6.0
+    w3[:] = 0.0
+    w3[0, 0] = 10.0
+    b3[:] = (0.0, 1.0)
+    return WakewordModel(labels=list(NN_LABELS), train_size=F, mfcc_size=C,
+                         m_type=ModelType.MEDIUM, weights=params_to_tensor_data(params),
+                         rms_level=0.05)

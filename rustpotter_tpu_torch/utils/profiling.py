@@ -30,6 +30,8 @@ import numpy as np
 import torch
 
 from ..runtime.bundle import StepStatic
+from ..wakewords.files import ModelType
+from ..wakewords.nn import layer_sizes
 
 
 @contextlib.contextmanager
@@ -89,8 +91,7 @@ def step_roofline(static: StepStatic) -> StepCost:
     the fused per-shift path (circular window, K2), counted as the JAX model
     counts it: the cost band and rwn stay on chip (no HBM charge), CMN means
     and dot(T', m) are matrix products, the window is written one row per
-    shift. DTW wakewords only: the port's StepStatic holds none other, since
-    `build_bundle` refuses NN wakewords (ROADMAP M9)."""
+    shift; each NN wakeword adds its MLP's products per shift."""
     C = static.mfcc_size
     nc = C + 1
     F = static.max_mfcc_frames
@@ -109,6 +110,9 @@ def step_roofline(static: StepStatic) -> StepCost:
     vec += shifts * pairs * L * 3 * C
     # DP: pairs x L rows x 2w slots x ~6 ops
     vec += shifts * pairs * L * 2 * w * 6
+    for meta in static.nn_meta:
+        sizes = layer_sizes(ModelType(meta.m_type), meta.train_size * C, C, len(meta.labels))
+        gemm += shifts * 2 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
     # window read by the kernel + one-row write + dotm write and read
     hbm = shifts * 4 * (F * C + C + 2 * pairs * L)
     return StepCost(gemm_flops=float(gemm), vector_flops=float(vec), hbm_bytes=float(hbm))

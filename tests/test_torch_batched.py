@@ -31,7 +31,7 @@ from rustpotter_tpu_torch.runtime.convert import (
 )
 from rustpotter_tpu_torch.runtime.state import StreamState
 from rustpotter_tpu_torch.synthetic import correctness_stream
-from rustpotter_tpu_torch.wakewords.files import ModelType, WakewordModel, WakewordRef
+from rustpotter_tpu_torch.wakewords.files import WakewordRef
 
 torch.set_num_threads(2)
 
@@ -153,7 +153,10 @@ def _port_ww(jdet):
 
 
 def _params_equal(a: StepParams, b: StepParams) -> bool:
-    return all(torch.equal(getattr(a, f.name), getattr(b, f.name)) for f in fields(StepParams))
+    nn = lambda p: [t for layer in p.nn_params for wb in layer for t in wb]
+    return len(nn(a)) == len(nn(b)) and all(torch.equal(x, y) for x, y in zip(nn(a), nn(b))) \
+        and all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+                for f in fields(StepParams) if f.name != "nn_params")
 
 
 def test_process_sequence_equals_process_chunk(workload):
@@ -218,19 +221,16 @@ def test_default_device_is_cuda_and_never_falls_back(workload, monkeypatch):
         BatchedDetector([("w", ww)], _configs()[1], batch_size=B)
 
 
-@pytest.mark.parametrize("what", ["nn", "gain", "band_pass", "resample"])
+@pytest.mark.parametrize("what", ["gain", "band_pass", "resample"])
 def test_unported_configs_raise(workload, what):
     _, ww, _ = workload
     cfg = _configs()[1]
     wakewords, kw = [("w", ww)], {}
-    if what == "nn":
-        wakewords.append(("n", WakewordModel(labels=["none", "w"], train_size=10,
-                                             mfcc_size=16, m_type=ModelType.TINY)))
-    elif what == "gain":
+    if what == "gain":
         cfg.filters.gain_normalizer.enabled = True
     elif what == "band_pass":
         cfg.filters.band_pass.enabled = True
     else:
         kw["in_graph_resample"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP M[789]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP M[78]"):
         BatchedDetector(wakewords, cfg, batch_size=B, device="cpu", **kw)

@@ -22,8 +22,6 @@ from rustpotter_tpu_torch import RustpotterConfig, ScoreMode, VADMode
 from rustpotter_tpu_torch.runtime.bundle import StepParams, build_bundle
 from rustpotter_tpu_torch.runtime.stream_step import _reduce_mode, sort_last_axis
 from rustpotter_tpu_torch.wakewords.files import (
-    ModelType,
-    WakewordModel,
     WakewordRef,
     load_wakeword,
     save_wakeword,
@@ -68,13 +66,19 @@ def test_build_bundle_matches_jax(bench_ww, vad):
     static, params = build_bundle(
         [("w", _port_ref(bench_ww)), ("o", _port_ref(other))], cfg, device="cpu"
     )
+    assert static.dtw_k4_for_band is False  # the port's record of the band's kernel
     for f in fields(static):
+        if f.name == "dtw_k4_for_band":
+            continue
         want = getattr(jstatic, f.name)
         got = getattr(static, f.name)
         if f.name == "score_mode":
             want, got = want.value, got.value
         assert got == want, f.name
+    assert params.nn_params == jparams.nn_params == ()  # no NN wakeword here
     for f in fields(StepParams):
+        if f.name == "nn_params":
+            continue
         want = np.asarray(getattr(jparams, f.name))
         got = getattr(params, f.name).numpy()
         assert got.dtype == want.dtype, f.name
@@ -119,10 +123,7 @@ def test_sort_network_matches_jax():
         )
 
 
-def test_nn_wakeword_and_resample_are_refused(bench_ww):
-    nn = WakewordModel(labels=["none", "w"], train_size=10, mfcc_size=16, m_type=ModelType.TINY)
-    with pytest.raises(NotImplementedError, match="M9"):
-        build_bundle([("n", nn)], RustpotterConfig(), device="cpu")
+def test_in_graph_resample_is_refused(bench_ww):
     with pytest.raises(NotImplementedError, match="M8"):
         build_bundle([("w", _port_ref(bench_ww))], RustpotterConfig(), device="cpu",
                      in_graph_resample=True)
