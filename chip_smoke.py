@@ -28,7 +28,10 @@ Phases, each of which raises (non-zero exit) when it fails:
      at w = 21, with the form and the ptxas report of each build;
      then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
-     with the plain versions' time there;
+     with the plain versions' time there; then the band-pass biquad
+     (csrc/biquad.cu) bit for bit against its plain version over 3 chunks
+     with the taps carried, at B = 8192 x 480 samples and B = 1000 x 477,
+     with its time, the plain version's and its bound;
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
      wakeword runs the bench correctness pass (stream 0 must fire, every
      chunk must launch K1), streams 0-3 must give the events of a
@@ -69,7 +72,20 @@ Phases, each of which raises (non-zero exit) when it fails:
      and Rustpotter at B=64 on a 30-frame bench wakeword (each routes to K4,
      3 launches per chunk or frame and no other kernel; the cpu run's
      events); and the NN wakeword added to a live B=8192 DTW fleet after 10
-     chunks (the chunks after it give the cpu run's events at B=4).
+     chunks (the chunks after it give the cpu run's events at B=4);
+  7. audio front-end phase (K1, K2, the biquad): `dtw_filters`, the bench
+     wakeword at B=8192 with the gain normalizer and the 80-400 Hz band-pass
+     on (__graft_entry__.entry()'s filters), through BatchedDetector (K1 and
+     one biquad launch per chunk), make_step (3 K2 launches and one biquad
+     per chunk) and Rustpotter (likewise per frame); and `dtw_48k`
+     (tools/bench_suite.py's scenario: 48 kHz F32, in_graph_resample, the
+     utterance synthesized at 48 kHz) through BatchedDetector (K1, no
+     biquad), with Rustpotter at 48 kHz int16 through the host encoder.
+     Each: stream 0 must fire, streams 0-3 (or the single stream) must give
+     a device="cpu" run's events and gains, the launches per chunk are
+     asserted; the host clock, and the device time per chunk split into
+     front-end, resample GEMM, biquad, K1 (or K2) and the rest; ms per
+     process_samples and of its host encoder.
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -711,10 +727,11 @@ def tools_phase(dev, record):
 
 def _counts():
     from rustpotter_tpu_torch.ops import banded_dtw as bd
+    from rustpotter_tpu_torch.ops import biquad
     from rustpotter_tpu_torch.ops import fused_dtw as fd
     from rustpotter_tpu_torch.tools import fma_probe
 
-    return fd.LAUNCHES, bd.LAUNCHES, fma_probe.LAUNCHES
+    return fd.LAUNCHES, bd.LAUNCHES, fma_probe.LAUNCHES, biquad.LAUNCHES
 
 
 def reset_counts():
@@ -853,7 +870,7 @@ def slice_phase(dev, record):
 
 
 def chunk_timing(det, noise):
-    """det.process_chunk on `noise` (B, 480) on the card: the host clock of
+    """det.process_chunk on `noise` (B, input_samples) on the card: the host clock of
     TIMED_WINDOWS windows of TIMED_CHUNKS chunks (the median window is kept:
     the host clock spreads between windows) and torch.profiler's (CUPTI)
     device kernel rows of the chunk and of its front-end alone. Returns
@@ -868,7 +885,7 @@ def chunk_timing(det, noise):
                                     det.init_states(), noise)
 
     def front():
-        st, shifts = prepare_chunk(det.static, states, noise)
+        st, shifts = prepare_chunk(det.static, det.params, states, noise)
         cat = torch.cat([st.ext_buf, shifts.reshape(B, 480)], dim=1)
         return frontend.mfcc_from_frames(cat.unfold(1, 480, 160)[:, :3], C + 1)
 
@@ -1237,6 +1254,287 @@ def nn_phase(dev, card):
     return summary
 
 
+# ------------------------------------------------------- audio front-end
+
+BIQUAD_REPLACES = ("rustpotter_tpu/runtime/stream_step.py:503 (the band-pass lax.scan of "
+                   "prepare_chunk, not a Pallas kernel)")
+
+
+def biquad_phase(dev, record):
+    """The biquad kernel against its plain version on the card, bit for bit
+    over 3 chunks with the taps carried: at the bench shape (B = 8192, 480
+    samples, float4 loads) and at B = 1000, 477 samples (scalar loads); then
+    its time at the bench shape beside the plain version's and its bound."""
+    import torch
+
+    from rustpotter_tpu_torch.audio.filters import band_pass_coefficients
+    from rustpotter_tpu_torch.ops import biquad
+
+    coeffs = band_pass_coefficients(16000.0, 80.0, 400.0)
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for B, n in ((BENCH_STREAMS, 480), (1000, 477)):
+        s_k = s_p = torch.zeros(B, 4, device=dev)
+        for c in range(3):
+            x = torch.tensor(rng.normal(0, 0.3, (B, n)).astype(np.float32), device=dev)
+            s_k, y_k = biquad.biquad(coeffs, s_k, x)
+            s_p, y_p = biquad.biquad_plain(coeffs, s_p, x)
+            torch.cuda.synchronize()
+            worst = max(worst, float((y_k - y_p).abs().max()), float((s_k - s_p).abs().max()))
+            if not (torch.equal(y_k, y_p) and torch.equal(s_k, s_p)):
+                raise AssertionError(f"biquad B={B} n={n} chunk {c}: the kernel differs from "
+                                     f"its plain version (max |d| {worst:.3e})")
+    log(f"biquad: bit-equal to its plain version at B={BENCH_STREAMS} x 480 and B=1000 x 477, "
+        f"3 chunks with the taps carried")
+    B = BENCH_STREAMS
+    x = torch.tensor(rng.normal(0, 0.3, (B, 480)).astype(np.float32), device=dev)
+    s = torch.zeros(B, 4, device=dev)
+    ms = time_cuda(lambda: biquad.biquad(coeffs, s, x))
+    plain_ms = time_cuda(lambda: biquad.biquad_plain(coeffs, s, x), samples=3, per=1, warmup=1)
+    # 5 products and 4 sums per sample; each sample read once and written
+    # once, the taps read and written once
+    record["biquad"] = kernel_row("biquad", "biquad.cu", BIQUAD_REPLACES, worst, ms, plain_ms,
+                                  9 * B * 480, 4 * (2 * B * 480 + 2 * B * 4))
+
+
+def _front_split(rows, front_rows, resample_rows, t):
+    """The device kernel time per chunk split into the MFCC front-end, the
+    resample GEMM, the biquad, K1 and the rest, from torch.profiler rows of
+    the chunk, of its front-end alone and of the resampler alone."""
+    biquad_ms = sum(r[0] for r in rows if "biquad" in r[2])
+    k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
+    resample_ms = sum(r[0] for r in resample_rows)
+    front_ms = sum(r[0] for r in front_rows)
+    return {"front_ms": front_ms - resample_ms - biquad_ms, "resample_ms": resample_ms,
+            "biquad_ms": biquad_ms, "k1_ms": k1_ms, "rest_ms": t["kernel_ms"] - front_ms - k1_ms}
+
+
+def _log_cell(name, card, t, parts, rows):
+    """The host clock line and, where the profiler saw the device, the
+    split of the device time per chunk into `parts` {label: ms}."""
+    log(f"{name} [{card}]: {t['streams_rt']:.1f} realtime streams, median of {TIMED_WINDOWS} "
+        f"windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; B={BENCH_STREAMS}, "
+        f"{TIMED_CHUNKS} chunks per window, {t['chunk_ms']:.4f} ms/chunk host clock)")
+    if not rows:
+        log(f"{name}: the profiler recorded no device time: the breakdown is not measured")
+        return
+    split = ", ".join(f"{label} {ms:.4f} ms" for label, ms in parts.items())
+    log(f"{name} [{card}]: device kernels per chunk {t['kernel_ms']:.4f} ms in "
+        f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: {split}; device idle "
+        f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
+    for ms, count, kname in rows[:PROFILE_ROWS]:
+        log(f"profile {name}: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
+
+
+def _resample_rows(name, card, det, noise):
+    """Profile rows of the chunk's resampler alone (none at 16 kHz), and its
+    time by CUDA events beside the GEMM's bound and FLOP rate."""
+    import torch
+
+    from rustpotter_tpu_torch.audio.resampler import make_torch_resampler
+
+    B, n_in = noise.shape
+    if n_in == 480:
+        return [], {}
+    resample = make_torch_resampler(n_in, 480, noise.device)
+    overlap = torch.zeros(B, 480, device=noise.device)
+    rows = device_kernels(lambda: resample(overlap, noise), PROFILED_CHUNKS)
+    ms = time_cuda(lambda: resample(overlap, noise))
+    flops = 2 * B * n_in * 960
+    bound_ms, bound_by = bound(flops, 4 * (B * n_in + n_in * 960 + 2 * B * 480))
+    log(f"{name} resampler [{card}]: {ms:.4f} ms per chunk by CUDA events (the fp32 GEMM "
+        f"{B} x {n_in} x 960, {flops / 1e9:.2f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s, and the "
+        f"overlap add); bound {bound_ms:.4f} ms by {bound_by}")
+    for r_ms, count, kname in rows:
+        log(f"profile {name} resampler: {r_ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  "
+            f"{kname[:110]}")
+    return rows, {"resample_event_ms": ms, "resample_bound_ms": bound_ms}
+
+
+def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resample=False):
+    """One front-end cell through BatchedDetector at B=8192 (K1): the
+    correctness pass (stream 0 must fire, K1 once per chunk, the biquad once
+    per chunk with the band-pass on and never without, no other kernel),
+    streams 0-3 against a device="cpu" run at B=4, then the host clock and
+    the device split. Returns the summary and the biquad's launches."""
+    import torch
+
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+
+    B = BENCH_STREAMS
+    noise = torch.tensor(noise_np, device=dev)
+    det = BatchedDetector([("w", ww)], cfg, batch_size=B, device=dev,
+                          in_graph_resample=in_graph_resample)
+    n = stream0_np.shape[0]
+    bp = n if det.static.bp_enabled else 0
+    reset_counts()
+    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), det.init_states(),
+                          torch.tensor(stream0_np, device=dev), noise)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    fired0 = int(gpu[0][:, 0].sum())
+    log(f"{name} BatchedDetector: correctness pass {n} chunks of {det.static.input_samples} "
+        f"samples at B={B}, stream 0 fired {fired0}x, launches {launches}")
+    assert fired0 >= 1, f"correctness guard: {name} did not fire on stream 0"
+    assert launches["fused_dtw_v4"] == n and launches["biquad"] == bp, (name, launches)
+    assert sum(launches.values()) == n + bp, f"{name}: other kernels launched"
+    cpu_det = BatchedDetector([("w", ww)], cfg, batch_size=4, device="cpu",
+                              in_graph_resample=in_graph_resample)
+    cpu = run_correctness(lambda s, f: cpu_det.process_chunk(cpu_det.params, s, f),
+                          cpu_det.init_states(), torch.tensor(stream0_np),
+                          torch.tensor(noise_np[:4]))
+    n_events, worst = match_events(gpu, cpu, f"{name} BatchedDetector")
+    np.testing.assert_array_equal(gpu[5], cpu[5], err_msg=f"{name}: event gain, card vs cpu")
+    log(f"{name} BatchedDetector: streams 0-3 match the cpu run at B=4 ({n_events} events, "
+        f"max|d score| {worst:.3e}, gains equal)")
+    t, rows, front_rows = chunk_timing(det, noise)
+    resample_rows, resample_t = _resample_rows(name, card, det, noise)
+    split = {**_front_split(rows, front_rows, resample_rows, t), **resample_t}
+    _log_cell(f"{name} BatchedDetector", card, t, {
+        "front-end": split["front_ms"], "resample GEMM": split["resample_ms"],
+        "biquad": split["biquad_ms"], "K1": split["k1_ms"], "rest": split["rest_ms"]}, rows)
+    split["launches_per_chunk"] = sum(r[1] for r in rows)
+    return {f"{name}_{k}": v for k, v in {**t, **split}.items()}, launches["biquad"]
+
+
+def front_step(dev, card, name, ww, cfg, stream0_np, noise_np):
+    """The same cell through make_step at B=8192 in its default mode (K2):
+    3 K2 launches and one biquad launch per chunk, streams 0-3 against a
+    device="cpu" run, the host clock and the device split."""
+    import torch
+
+    from rustpotter_tpu_torch.runtime.bundle import build_bundle
+    from rustpotter_tpu_torch.runtime.state import init_state
+    from rustpotter_tpu_torch.runtime.stream_step import make_step
+
+    B = BENCH_STREAMS
+    noise = torch.tensor(noise_np, device=dev)
+    static, params = build_bundle([("w", ww)], cfg, dev)
+    _, params_cpu = build_bundle([("w", ww)], cfg, "cpu")
+    step = make_step(static)
+    n = stream0_np.shape[0]
+    reset_counts()
+    gpu = run_correctness(lambda s, f: step(params, s, f), init_state(static, B, dev),
+                          torch.tensor(stream0_np, device=dev), noise)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert int(gpu[0][:, 0].sum()) >= 1, f"correctness guard: {name} make_step did not fire"
+    assert launches["fused_dtw_v3"] == 3 * n and launches["biquad"] == n, (name, launches)
+    assert sum(launches.values()) == 4 * n, f"{name} make_step: other kernels launched"
+    cpu_step = make_step(static)
+    cpu = run_correctness(lambda s, f: cpu_step(params_cpu, s, f), init_state(static, 4, "cpu"),
+                          torch.tensor(stream0_np), torch.tensor(noise_np[:4]))
+    n_events, worst = match_events(gpu, cpu, f"{name} make_step")
+    np.testing.assert_array_equal(gpu[5], cpu[5], err_msg=f"{name} make_step: event gain")
+    log(f"{name} make_step: {n} chunks, K2 launches {launches['fused_dtw_v3']}, biquad "
+        f"{launches['biquad']}; streams 0-3 match the cpu run at B=4 ({n_events} events, "
+        f"max|d score| {worst:.3e})")
+    states, windows = timed_windows(lambda s, f: step(params, s, f), init_state(static, B, dev),
+                                    noise)
+    audio_s = B * TIMED_CHUNKS * 0.03
+    t = {"streams_rt": audio_s / float(np.median(windows)),
+         "streams_rt_min": audio_s / max(windows), "streams_rt_max": audio_s / min(windows),
+         "chunk_ms": float(np.median(windows)) / TIMED_CHUNKS * 1e3}
+    rows = device_kernels(lambda: step(params, states, noise), PROFILED_CHUNKS)
+    t["kernel_ms"] = sum(r[0] for r in rows)
+    gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower())
+    biquad_ms = sum(r[0] for r in rows if "biquad" in r[2])
+    k2_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
+    _log_cell(f"{name} make_step", card, t, {
+        "GEMMs": gemm_ms, "biquad": biquad_ms, "K2": k2_ms,
+        "rest": t["kernel_ms"] - gemm_ms - biquad_ms - k2_ms}, rows)
+    return {f"{name}_step_{k}": v for k, v in {
+        **t, "gemm_ms": gemm_ms, "biquad_ms": biquad_ms, "k2_ms": k2_ms,
+        "launches_per_chunk": sum(r[1] for r in rows)}.items()}
+
+
+def front_rustpotter(dev, card, name, ww, cfg, frames_np, bp):
+    """The single-stream Rustpotter through process_samples on the card and
+    on the CPU: equal detections, 3 K2 launches per frame and `bp` biquad
+    launches per frame; ms per process_samples (host encoder included) and
+    of the host encoder alone."""
+    from rustpotter_tpu_torch import Rustpotter
+
+    rps = []
+    for d in (dev, "cpu"):
+        rp = Rustpotter(cfg, device=d)
+        rp.add_wakeword_ref("w", ww)
+        rps.append(rp)
+    n = len(frames_np)
+    reset_counts()
+    gpu_dets, secs = play_single_stream(rps[0], frames_np)
+    launches = read_counts()
+    cpu_dets, _ = play_single_stream(rps[1], frames_np)
+    assert gpu_dets, f"correctness guard: {name} Rustpotter did not fire"
+    assert launches["fused_dtw_v3"] == 3 * n and launches["biquad"] == bp * n, launches
+    assert sum(launches.values()) == (3 + bp) * n, f"{name} Rustpotter: other kernels launched"
+    worst = match_detections(gpu_dets, cpu_dets, f"{name} Rustpotter")
+    enc = rps[0].wav_encoder
+    enc.reset()
+    enc_secs = []
+    for frame in frames_np:
+        t0 = time.perf_counter()
+        enc.rencode_and_resample(frame)
+        enc_secs.append(time.perf_counter() - t0)
+    rp_ms, enc_ms = float(np.median(secs)) * 1e3, float(np.median(enc_secs)) * 1e3
+    log(f"{name} Rustpotter [{card}]: fired at frames {[i for i, _ in gpu_dets]} as the cpu "
+        f"run (max|d score| {worst:.3e}, gain {[d.gain for _, d in gpu_dets]}); K2 launches "
+        f"{launches['fused_dtw_v3']}, biquad {launches['biquad']} for {n} frames of "
+        f"{len(frames_np[0])} samples; {rp_ms:.4f} ms per process_samples, median of {n} "
+        f"(range {min(secs) * 1e3:.4f}-{max(secs) * 1e3:.4f}), of which the host encoder "
+        f"{enc_ms:.4f} ms (median) host clock")
+    return {f"{name}_rp_ms": rp_ms, f"{name}_rp_encoder_ms": enc_ms}
+
+
+def front_phase(dev, card, record):
+    """The audio front-end cells (see the module docstring, phase 7):
+    `dtw_filters` (gain normalizer and band-pass on, 16 kHz) through
+    BatchedDetector, make_step and Rustpotter, and `dtw_48k` (48 kHz F32,
+    in-graph resampling) through BatchedDetector, with Rustpotter at 48 kHz
+    int16 through the host encoder."""
+    import copy
+
+    from rustpotter_tpu_torch import AudioFmt, RustpotterConfig, SampleFormat, ScoreMode
+    from rustpotter_tpu_torch.synthetic import (
+        bench_utterances,
+        build_bench_wakeword,
+        correctness_stream,
+    )
+
+    B = BENCH_STREAMS
+    ww, utterance = build_bench_wakeword(device=dev)
+    F = max(len(m) for m in ww.samples_features.values())
+    base = RustpotterConfig()
+    base.detector.score_mode = ScoreMode.MAX
+    base.detector.avg_threshold = 0.2
+    rng = np.random.default_rng(0)
+    summary = {}
+
+    # dtw_filters: __graft_entry__.entry()'s filters (default 80-400 Hz band)
+    cfg = copy.deepcopy(base)
+    cfg.filters.gain_normalizer.enabled = cfg.filters.band_pass.enabled = True
+    stream0 = correctness_stream(F, utterance)
+    noise = rng.normal(0, 0.05, (B, 480)).astype(np.float32)
+    cell, bq = front_batched(dev, card, "dtw_filters", ww, cfg, stream0, noise)
+    record["biquad"]["launches"] = bq
+    summary.update(cell)
+    summary.update(front_step(dev, card, "dtw_filters", ww, cfg, stream0, noise))
+    summary.update(front_rustpotter(dev, card, "dtw_filters", ww, cfg, stream0, 1))
+
+    # dtw_48k: tools/bench_suite.py's scenario, the utterance synthesized at 48 kHz
+    cfg = copy.deepcopy(base)
+    cfg.fmt = AudioFmt(sample_rate=48000, sample_format=SampleFormat.F32)
+    stream48 = correctness_stream(F, bench_utterances(F, 48000)[0], 1440)
+    noise48 = rng.normal(0, 0.05, (B, 1440)).astype(np.float32)
+    cell, _ = front_batched(dev, card, "dtw_48k", ww, cfg, stream48, noise48,
+                            in_graph_resample=True)
+    summary.update(cell)
+    cfg.fmt = AudioFmt(sample_rate=48000, sample_format=SampleFormat.I16)
+    frames16 = np.clip(np.round(stream48 * 32767.0), -32768, 32767).astype(np.int16)
+    summary.update(front_rustpotter(dev, card, "dtw_48k", ww, cfg, frames16, 0))
+    return summary
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1254,7 +1552,7 @@ def main() -> int:
     builds = [(src, {"RP_C": c, "RP_W": 5}) for src in SOURCES_C for c in (8, 16)]
     builds += [(src, {"RP_C": 16, "RP_W": w}) for src, w in WIDE]
     builds += [("banded_dtw.cu", {"RP_W": w}) for w in K3_BANDS]
-    builds += [("fma_probe.cu", {}), ("ingest.cpp", {})]
+    builds += [("fma_probe.cu", {}), ("biquad.cu", {}), ("ingest.cpp", {})]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _build.build(*b), builds))
     log(f"build: {len(builds)} libraries (kernel variants and the host ingest library) in "
@@ -1271,10 +1569,12 @@ def main() -> int:
     k4_phase(dev, record)
     k5_phase(dev, record)
     probe_phase(dev, record)
+    biquad_phase(dev, record)
     summary = slice_phase(dev, record)
     summary.update(per_shift_phase(dev, record))
     summary.update(tools_phase(dev, record))
     summary.update(nn_phase(dev, card))
+    summary.update(front_phase(dev, card, record))
     log(json.dumps({"card": card, **summary}))
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

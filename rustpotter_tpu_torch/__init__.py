@@ -10,7 +10,9 @@ Ported so far (ROADMAP.md), for DTW wakewords: the batched serving chunk
 (`runtime.batch.BatchedDetector`) with its kernel K1 (`ops.fused_dtw`); the
 per-shift stream step (`runtime.stream_step.make_step`) with K2 and K4
 (`ops.fused_dtw`) and K3 (`ops.banded_dtw`); the single-stream `Rustpotter`
-API on it; and the wakeword builder from 16 kHz WAV files.
+API on it; NN wakewords; the audio front-end of both steps (the gain
+normalizer, the band-pass biquad of `ops.biquad`, input at any rate resampled
+on the host or in the graph); and the wakeword builder from WAV files.
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """

@@ -1,10 +1,11 @@
-"""Audio encoder: byte decode, first-channel downmix.
+"""Audio encoder: byte decode, first-channel downmix, sample-rate conversion.
 
 Capability parity with the reference's src/audio/encoder.rs (AudioEncoder) and
 src/audio/audio_types.rs (Sample scaling by T::MAX — audio_types.rs:102-122).
-A copy of `rustpotter_tpu.audio.encoder`, host-side numpy, for 16 kHz input:
-resampling another rate to 16 kHz (the FftResampler) is ROADMAP M8, and an
-encoder for another rate raises NotImplementedError.
+A copy of `rustpotter_tpu.audio.encoder`, host-side numpy: input at another
+rate than the target is cut into `chunk_sizes` frames and resampled by the
+host `FftResampler` (1440 → 480 samples at 48 kHz). The stream steps can
+resample in the graph instead (`build_bundle(..., in_graph_resample=True)`).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 
 from ..config import AudioFmt, Endianness, SampleFormat
 from ..constants import DETECTOR_INTERNAL_SAMPLE_RATE, MFCCS_EXTRACTOR_FRAME_LENGTH_MS
+from .resampler import FftResampler, chunk_sizes
 
 _INT_SCALE = {
     SampleFormat.I8: np.float32(127.0),
@@ -46,9 +48,9 @@ def samples_to_f32(samples: np.ndarray, fmt: SampleFormat) -> np.ndarray:
 
 
 class AudioEncoder:
-    """Fixed-frame re-encoder: bytes/samples → mono f32 @ 16 kHz.
+    """Fixed-frame re-encoder: bytes/samples → mono f32 @ the target rate.
 
-    Parity: encoder.rs:63-102 (sizing), :26-62 (decode → downmix)."""
+    Parity: encoder.rs:63-102 (sizing), :26-62 (decode → downmix → resample)."""
 
     def __init__(
         self,
@@ -56,13 +58,18 @@ class AudioEncoder:
         frame_length_ms: int = MFCCS_EXTRACTOR_FRAME_LENGTH_MS,
         target_sample_rate: int = DETECTOR_INTERNAL_SAMPLE_RATE,
     ):
-        if fmt.sample_rate != target_sample_rate:
-            raise NotImplementedError(
-                f"resampling {fmt.sample_rate} Hz input to {target_sample_rate} Hz: ROADMAP M8"
-            )
         self.fmt = fmt
-        self.output_samples_per_frame = target_sample_rate * frame_length_ms // 1000
-        self.input_samples_per_frame = self.output_samples_per_frame * fmt.channels
+        out_frame = target_sample_rate * frame_length_ms // 1000
+        if fmt.sample_rate != target_sample_rate:
+            in_frame, out_frame = chunk_sizes(fmt.sample_rate, target_sample_rate, out_frame)
+            self.resampler = FftResampler(in_frame, out_frame)
+            self.input_samples_per_frame = in_frame * fmt.channels
+        else:
+            self.resampler = None
+            self.input_samples_per_frame = (
+                fmt.sample_rate * frame_length_ms // 1000 * fmt.channels
+            )
+        self.output_samples_per_frame = out_frame
 
     def get_input_frame_length(self) -> int:
         return self.input_samples_per_frame
@@ -74,7 +81,8 @@ class AudioEncoder:
         return self.input_samples_per_frame * self.fmt.sample_format.bytes_per_sample
 
     def reset(self) -> None:
-        """Nothing to reset without a resampler."""
+        if self.resampler is not None:
+            self.resampler.reset()
 
     def encode_and_resample(self, buffer: bytes) -> np.ndarray:
         samples = decode_bytes(buffer, self.fmt.sample_format, self.fmt.endianness)
@@ -88,4 +96,6 @@ class AudioEncoder:
     def reencode_to_mono_with_sample_rate(self, samples: np.ndarray) -> np.ndarray:
         if self.fmt.channels != 1:
             samples = samples[:: self.fmt.channels]  # first-channel downmix
-        return samples.astype(np.float32)
+        if self.resampler is None:
+            return samples.astype(np.float32)
+        return self.resampler.process(samples)

@@ -1,11 +1,11 @@
 """Offline WAV → MFCC extraction (wakeword building).
 
 Parity: the reference's src/mfcc/wav_file_extractor.rs:18-91 — wav parse,
-re-encode in exact frame chunks, per-chunk RMS collected with the median
-taken, MFCC extraction, cepstral mean normalization — over all shifts of a
-recording at once, through the same front-end ops as the streaming runtime
-(ops/frontend.py). A WAV at another rate than 16 kHz raises
-NotImplementedError (its resampler is ROADMAP M8).
+re-encode and resample in exact frame chunks (the host encoder: a WAV at
+44.1 or 48 kHz goes through `audio.resampler.FftResampler`), per-chunk RMS
+collected with the median taken, MFCC extraction, cepstral mean
+normalization — over all shifts of a recording at once, through the same
+front-end ops as the streaming runtime (ops/frontend.py).
 """
 from __future__ import annotations
 

@@ -15,9 +15,10 @@ Runtime management (parity: the reference's src/detector.rs:257-346):
     partial) but KEEPS filter state — the reference's update_detector_config
     calls reset(), which does not touch the filters (detector.rs:263-287).
   - `update_filters_config` additionally rebuilds the filters with fresh
-    state (detector.rs:283-287); the stream steps do not run filters yet
-    (ROADMAP M7), so enabling one raises NotImplementedError.
-A rebuild that raises leaves the detector as it was.
+    state (detector.rs:283-287): fresh biquad taps and gain window.
+A rebuild that raises leaves the detector as it was. The resampler's
+overlap (`in_graph_resample`) survives every migration, as the reference's
+encoder is not part of its reset.
 
 Differences from the JAX runtime: `process_chunk` updates the states in place
 (the counterpart of donating them) and still returns them; `process_sequence`
@@ -33,7 +34,6 @@ import numpy as np
 import torch
 
 from ..config import DetectorConfig, FiltersConfig, RustpotterConfig
-from ..constants import SAMPLES_PER_FRAME
 from ..device import DeviceLike, resolve_device
 from ..wakewords.files import load_wakeword
 from .bundle import StepParams, StepStatic, Wakeword, build_bundle
@@ -202,8 +202,7 @@ class BatchedDetector:
     def update_filters_config(self, filters_config: FiltersConfig,
                               states: Optional[StreamState] = None) -> Optional[StreamState]:
         """Reference parity (detector.rs:283-287): filters rebuilt with fresh
-        state, stream state resets. An enabled filter raises
-        NotImplementedError (ROADMAP M7)."""
+        state, stream state resets."""
         config = copy.copy(self.config)
         config.filters = filters_config
         return self._rebuild(self._wakewords, config, states, reset_stream=True,
@@ -221,23 +220,25 @@ class BatchedDetector:
 
     def _frames(self, frames) -> torch.Tensor:
         x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
-        if x.shape[-2:] != (self.batch_size, SAMPLES_PER_FRAME):
+        n = self.static.input_samples
+        if x.shape[-2:] != (self.batch_size, n):
             raise ValueError(
-                f"frames must end in ({self.batch_size}, {SAMPLES_PER_FRAME}), "
-                f"got {tuple(x.shape)}"
+                f"frames must end in ({self.batch_size}, {n}), got {tuple(x.shape)}"
             )
         return x
 
     def process_chunk(self, params: StepParams, states: StreamState,
                       frames) -> Tuple[StreamState, Event]:
-        """Advance every stream by one 480-sample chunk, frames (B, 480).
-        `states` is updated in place and returned with the Event (B,)."""
+        """Advance every stream by one 30 ms chunk, frames (B, input_samples):
+        480 samples at 16 kHz, or `static.input_samples` raw samples at the
+        input rate with `in_graph_resample` (1440 at 48 kHz). `states` is
+        updated in place and returned with the Event (B,)."""
         return self._chunk(params, states, self._frames(frames))
 
     def process_sequence(self, params: StepParams, states: StreamState,
                          frames) -> Tuple[StreamState, Event]:
-        """frames (T, B, 480): T chunks in order. Returns the states and the
-        Events stacked on a leading (T,) axis."""
+        """frames (T, B, input_samples): T chunks in order. Returns the
+        states and the Events stacked on a leading (T,) axis."""
         x = self._frames(frames)
         events = []
         for t in range(x.shape[0]):

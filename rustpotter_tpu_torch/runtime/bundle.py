@@ -5,8 +5,10 @@ batched pass; NN wakewords keep one (W, b) tuple per model, scored one model
 after another (distinct architectures). Per-wakeword thresholds are resolved
 at build (wakeword overrides ride in the file — reference
 wakeword_ref.rs:16-17, applied at wakeword_comp.rs:83,95). The counterpart
-of `rustpotter_tpu.runtime.bundle`; in-graph resampling (ROADMAP M8) raises
-NotImplementedError.
+of `rustpotter_tpu.runtime.bundle`. With `in_graph_resample` and input at
+another rate than 16 kHz, the stream steps take `input_samples` raw samples
+per chunk (`chunk_sizes`: 1440 at 48 kHz, 1323 at 44.1 kHz) and resample them
+on the device; at 16 kHz the flag changes nothing, as in the JAX package.
 
 The DTW kernels are chosen here, from the band and the MFCC size: where the
 requested mode's kernels cannot take the band (K1's and K2's rings pass the
@@ -25,8 +27,9 @@ import torch
 
 from .. import _build
 from ..audio.filters import band_pass_coefficients
+from ..audio.resampler import chunk_sizes
 from ..config import RustpotterConfig, ScoreMode
-from ..constants import DETECTOR_INTERNAL_SAMPLE_RATE
+from ..constants import DETECTOR_INTERNAL_SAMPLE_RATE, SAMPLES_PER_FRAME
 from ..device import DeviceLike, resolve_device
 from ..ops import banded_dtw
 from ..ops.fused_dtw import k1_smem_bytes, k2_smem_bytes
@@ -74,7 +77,7 @@ class StepStatic:
     smax: int = 1  # width of the per-detection scores payload
     names: Tuple[str, ...] = ()  # wakeword keys, DTW first then NN
     dtw_template_names: Tuple[Tuple[str, ...], ...] = ()
-    input_samples: int = 480
+    input_samples: int = SAMPLES_PER_FRAME  # raw samples per chunk
     input_rate: int = DETECTOR_INTERNAL_SAMPLE_RATE
     # DTW kernel selection, resolved at bundle build. None or True = fused:
     # K1 in the batched chunk, and in the per-shift step K2 (variant >= 3)
@@ -158,9 +161,14 @@ def build_bundle(
     first in `names`, then NN, each in the order given). With dtw_fused
     None, RUSTPOTTER_FUSED ("1" or "0") decides if it is set;
     RUSTPOTTER_FUSED_VARIANT sets the fused variant (default 3), as in the
-    JAX package; then `choose_dtw_kernels` checks the band."""
-    if in_graph_resample:
-        raise NotImplementedError("in-graph resampling: ROADMAP M8")
+    JAX package; then `choose_dtw_kernels` checks the band. With
+    `in_graph_resample` and input at another rate than 16 kHz, the steps
+    take chunks of `input_samples` samples at `input_rate`."""
+    input_samples, input_rate = SAMPLES_PER_FRAME, DETECTOR_INTERNAL_SAMPLE_RATE
+    if in_graph_resample and config.fmt.sample_rate != DETECTOR_INTERNAL_SAMPLE_RATE:
+        input_samples, _ = chunk_sizes(
+            config.fmt.sample_rate, DETECTOR_INTERNAL_SAMPLE_RATE, SAMPLES_PER_FRAME)
+        input_rate = config.fmt.sample_rate
     if dtw_fused is None and "RUSTPOTTER_FUSED" in os.environ:
         dtw_fused = os.environ["RUSTPOTTER_FUSED"] == "1"
     fused_variant = int(os.environ.get("RUSTPOTTER_FUSED_VARIANT", "3"))
@@ -267,6 +275,8 @@ def build_bundle(
         smax=int(smax),
         names=tuple([k for k, _ in refs] + [k for k, _ in models]),
         dtw_template_names=tuple(template_names),
+        input_samples=input_samples,
+        input_rate=input_rate,
         dtw_fused=dtw_fused,
         dtw_fused_variant=fused_variant,
         dtw_k4_for_band=k4_for_band,

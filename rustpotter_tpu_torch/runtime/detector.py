@@ -4,11 +4,11 @@ The counterpart of `rustpotter_tpu.runtime.detector`, with public-API parity
 with the reference's src/detector.rs (Rustpotter struct): new /
 add_wakeword* / remove_wakeword(s) / process_bytes / process_samples /
 update_config / reset / getters, and RustpotterDetection
-(detector.rs:486-501), for DTW and NN wakewords. Input at another rate than
-16 kHz raises NotImplementedError (ROADMAP M8).
+(detector.rs:486-501), for DTW and NN wakewords, with the gain normalizer
+and band-pass filters, at any input rate.
 
-The audio encoder (byte decode, downmix) runs on the host as the
-reference's; everything from the 480-sample f32 frame onward is
+The audio encoder (byte decode, downmix, resampling another rate to 16 kHz
+through the host `FftResampler`) runs on the host as the reference's; everything from the 480-sample f32 frame onward is
 `stream_step.make_step` at B = 1, with params and state on `device` (default:
 the CUDA card). `process_audio_sequence` is a loop of that step.
 """
@@ -79,7 +79,7 @@ class Rustpotter:
         self.wakewords.append((key, wakeword))
         try:
             self._rebuild()
-        except (ValueError, NotImplementedError):
+        except ValueError:
             # e.g. mismatched mfcc size (detector.rs:308-320): keep the
             # prior set
             self.wakewords = prev

@@ -28,12 +28,12 @@ class StreamState(NamedTuple):
     win_count: torch.Tensor  # (B,) i32
     vad_win: torch.Tensor  # (B, 50) energy shift-register (NaN = unfilled)
     vad_countdown: torch.Tensor  # (B,) i32
-    rs_overlap: torch.Tensor  # (B, 480) resampler overlap-add state (ROADMAP M8)
-    gain_win: torch.Tensor  # (B, Wg) rolling rms window (ROADMAP M7)
+    rs_overlap: torch.Tensor  # (B, 480) in-graph resampler overlap-add state
+    gain_win: torch.Tensor  # (B, Wg) rolling rms window, newest last
     gain_count: torch.Tensor  # (B,) i32
     gain: torch.Tensor  # (B,) f32: gain applied to latest frame
     rms_level: torch.Tensor  # (B,) f32: latest frame rms (pre-gain)
-    bp: torch.Tensor  # (B, 4) biquad taps x1 x2 y1 y2 (ROADMAP M7)
+    bp: torch.Tensor  # (B, 4) biquad taps x1 x2 y1 y2
     partial_active: torch.Tensor  # (B,) bool
     partial_ww: torch.Tensor  # (B,) i32 wakeword index
     partial_score: torch.Tensor  # (B,) f32

@@ -1,4 +1,4 @@
-"""The stream steps: B streams × 480 samples in → states' + Events.
+"""The stream steps: B streams × one 30 ms chunk in → states' + Events.
 
 Two counterparts of `rustpotter_tpu.runtime.stream_step`: the per-shift step
 `make_step` (one shift at a time, as the reference runs; the single-stream
@@ -37,7 +37,12 @@ physical frame order by an index on the device, so neither step reads the
 cursor on the host. The best candidate is chosen over the DTW wakewords
 first, then the NN ones (`_combine_batched`).
 
-Not ported yet: filters (ROADMAP M7) and in-graph resampling (M8).
+Both steps start with `prepare_chunk`, the audio front-end of the JAX
+package's: the in-graph resampler (one fp32 GEMM, `audio.resampler`) where
+the bundle takes chunks at another rate, the rms level, the gain normalizer
+(a rolling-rms window per stream, summed in index order) and the band-pass
+biquad (`audio.filters.band_pass_step`: the hand-written kernel of
+`ops.biquad` on the card, one launch per chunk), then pre-emphasis.
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..audio.filters import band_pass_step
+from ..audio.resampler import make_torch_resampler
 from ..config import ScoreMode
 from ..constants import SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT
 from ..ops import frontend
@@ -597,11 +604,57 @@ def detection_bookkeeping(static: StepStatic, params: StepParams,
     return state, event
 
 
-def prepare_chunk(static: StepStatic, state: StreamState, samples: torch.Tensor):
-    """Per-chunk front-end without filters or resampling: rms, then the 3
-    shifts with per-shift pre-emphasis reset (extractor.rs:87-97).
-    samples (B, 480) → (state, shifts (B, 3, 160))."""
-    state = state._replace(rms_level=frontend.rms_level(samples))
+def _window_mean(gwin: torch.Tensor, gcount: torch.Tensor) -> torch.Tensor:
+    """Mean of the last `gcount` (B,) entries of each row of the (B, Wg) shift
+    register, the newest last. The sum runs in index order, oldest first, as
+    the reference's queue and the host oracle sum it: a fixed order of fp32
+    adds gives the same bits on every device, where a reduction would not,
+    and `floor(x·10 + 0.5)` turns a last-bit difference into a 0.1 step."""
+    Wg = gwin.shape[1]
+    keep = torch.arange(Wg, device=gwin.device)[None, :] >= Wg - gcount[:, None]
+    masked = torch.where(keep, gwin, 0.0)
+    total = masked[:, 0]
+    for i in range(1, Wg):
+        total = total + masked[:, i]
+    return total / gcount.to(torch.float32)
+
+
+def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
+                  samples: torch.Tensor):
+    """Per-chunk front-end (parity: the JAX package's `prepare_chunk`):
+    resample, rms, gain normalizer (detector.rs:358-365), band-pass
+    (:366-371), then the 3 shifts with per-shift pre-emphasis reset
+    (extractor.rs:87-97). samples (B, input_samples) → (state, shifts
+    (B, 3, 160)). Nothing here reads a tensor on the host."""
+    if static.input_samples != SAMPLES_PER_FRAME:
+        resample = make_torch_resampler(static.input_samples, SAMPLES_PER_FRAME,
+                                        samples.device)
+        overlap, samples = resample(state.rs_overlap, samples)
+        state = state._replace(rs_overlap=overlap)
+    rms = frontend.rms_level(samples)
+    state = state._replace(rms_level=rms)
+    if static.gain_enabled:
+        Wg = static.gain_window_size
+        apply = ~torch.isnan(params.gain_ref_sqrt) & (rms != 0.0)
+        gwin = torch.cat([state.gain_win[:, 1:], rms[:, None]], dim=1)
+        gcount = torch.clamp(state.gain_count + 1, max=Wg)
+        mean = _window_mean(gwin, gcount)
+        # Rust f32::round is half-away-from-zero; the gain is positive
+        gain = torch.clamp(
+            torch.floor(params.gain_ref_sqrt / torch.sqrt(mean) * 10.0 + 0.5) / 10.0,
+            static.gain_min, static.gain_max,
+        )
+        gain = torch.where(apply, gain, 1.0)
+        state = state._replace(
+            gain_win=torch.where(apply[:, None], gwin, state.gain_win),
+            gain_count=torch.where(apply, gcount, state.gain_count).to(torch.int32),
+            gain=gain,
+        )
+        samples = torch.where((gain != 1.0)[:, None],
+                              torch.clamp(samples * gain[:, None], -1.0, 1.0), samples)
+    if static.bp_enabled:
+        bp, samples = band_pass_step(static.bp_coeffs, state.bp, samples.contiguous())
+        state = state._replace(bp=bp)
     shifts = frontend.pre_emphasis(samples.reshape(-1, 3, SAMPLES_PER_SHIFT))
     return state, shifts
 
@@ -629,15 +682,6 @@ def _commit(states: StreamState, new: StreamState) -> StreamState:
     return states
 
 
-def _check_supported(static: StepStatic) -> None:
-    if static.gain_enabled or static.bp_enabled:
-        raise NotImplementedError(
-            "gain normalizer and band-pass filters in the stream steps: ROADMAP M7"
-        )
-    if static.input_samples != SAMPLES_PER_FRAME:
-        raise NotImplementedError("in-graph resampling: ROADMAP M8")
-
-
 def _constants_for(static: StepStatic):
     """constants(params) -> ChunkConstants, built when a parameter set is
     first seen and reused while the same (immutable) object is passed."""
@@ -661,7 +705,8 @@ def _merge_event(event: Event, ev: Event) -> Event:
 
 
 def make_step(static: StepStatic):
-    """Build step(params, states, samples (B, 480)) -> (states, Event (B,)):
+    """Build step(params, states, samples (B, static.input_samples)) ->
+    (states, Event (B,)):
     the per-shift stream step (`rustpotter_tpu.runtime.stream_step.make_step`)
     on a batch of B >= 1 streams. The window is stream-minor (F, C, B) with
     one shared cursor `rot`, as in the batched chunk (the JAX package's vmap
@@ -674,14 +719,13 @@ def make_step(static: StepStatic):
     halts the rest of that stream's shifts in this chunk (find_map,
     detector.rs:374-375). `states` is updated in place and returned."""
     F = static.max_mfcc_frames
-    _check_supported(static)
     constants = _constants_for(static)
 
     def step(params: StepParams, states: StreamState, samples: torch.Tensor):
         B = samples.shape[0]
         dev = samples.device
         consts = constants(params)
-        st, shifts = prepare_chunk(static, states, samples)  # (B, 3, 160)
+        st, shifts = prepare_chunk(static, params, states, samples)  # (B, 3, 160)
         slots = (states.rot.long() + 1 + torch.arange(3, device=dev)) % F
         event = _no_event(static, B, dev)
         halted = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -709,7 +753,8 @@ def make_step(static: StepStatic):
 
 
 def make_batched_chunk(static: StepStatic):
-    """Build chunk(params, states, frames (B, 480)) -> (states, Event (B,)).
+    """Build chunk(params, states, frames (B, static.input_samples)) ->
+    (states, Event (B,)).
 
     `states` is updated in place and returned. The window is stream-minor
     (F, C, B), K1's native layout. `params` is immutable (a frozen
@@ -718,14 +763,13 @@ def make_batched_chunk(static: StepStatic):
     F = static.max_mfcc_frames
     if F < 3:
         raise ValueError(f"batched runtime requires max_mfcc_frames >= 3 (got {F})")
-    _check_supported(static)
     C = static.mfcc_size
     constants = _constants_for(static)
 
     def chunk(params: StepParams, states: StreamState, frames: torch.Tensor):
         B = frames.shape[0]
         dev = frames.device
-        st, shifts = prepare_chunk(static, states, frames)  # (B, 3, 160)
+        st, shifts = prepare_chunk(static, params, states, frames)  # (B, 3, 160)
         rot0 = states.rot
         slots = (rot0.long() + 1 + torch.arange(3, device=dev)) % F
         # extractor trajectory + all 3 MFCCs in one GEMM chain: the buffer

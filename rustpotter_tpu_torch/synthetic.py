@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .constants import SAMPLES_PER_SHIFT
+from .constants import DETECTOR_INTERNAL_SAMPLE_RATE, SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT
 from .device import DeviceLike, resolve_device
 from .mfcc.averager import average_templates
 from .mfcc.offline import mfcc_pipeline
@@ -27,17 +27,18 @@ NN_TRAIN_SIZE = 168  # the nn_medium scenario's train_size (frames)
 NN_LABELS = ("bench", "none")
 
 
-def bench_utterances(longest: int = 100) -> list:
+def bench_utterances(longest: int = 100, rate: int = DETECTOR_INTERNAL_SAMPLE_RATE) -> list:
     """The 5 synthesized utterances of longest, longest - 2, ... MFCC frames,
-    longest first (numpy, seeded)."""
+    longest first (numpy, seeded), sampled at `rate`: the same chirp law
+    (250 → 1150 Hz) and noise level at every rate."""
     words = []
     for i in range(5):
         frames = longest - 2 * i
-        n = (frames + 3) * 160
+        n = (frames + 3) * SAMPLES_PER_SHIFT * rate // DETECTOR_INTERNAL_SAMPLE_RATE
         rng = np.random.default_rng(100 + i)
-        t = np.arange(n) / 16000.0
+        t = np.arange(n) / float(rate)
         sig = 0.35 * np.sin(
-            2 * np.pi * np.cumsum(250 + 900 * t / t[-1]) / 16000.0
+            2 * np.pi * np.cumsum(250 + 900 * t / t[-1]) / float(rate)
         ) + 0.02 * rng.normal(size=n)
         words.append(sig.astype(np.float32))
     return words
@@ -61,16 +62,18 @@ def build_bench_wakeword(mfcc_size: int = 16, device: DeviceLike = None,
     return ww, words[0]
 
 
-def correctness_stream(F: int, utterance: np.ndarray) -> np.ndarray:
-    """(n_chunks, 480): silence prefill + the utterance + a silence tail that
-    outlasts the F-frame window plus the F/2 countdown."""
-    prefill = (F // 3 + 4) * 480
-    tail = ((F + F // 2 + 30) // 3) * 480
+def correctness_stream(F: int, utterance: np.ndarray,
+                       chunk: int = SAMPLES_PER_FRAME) -> np.ndarray:
+    """(n_chunks, chunk): silence prefill + the utterance + a silence tail
+    that outlasts the F-frame window plus the F/2 countdown, in chunks of
+    `chunk` samples (480 at 16 kHz; 1440 for an utterance at 48 kHz)."""
+    prefill = (F // 3 + 4) * chunk
+    tail = ((F + F // 2 + 30) // 3) * chunk
     s = np.concatenate(
         [np.zeros(prefill, np.float32), utterance, np.zeros(tail, np.float32)]
     )
-    n = len(s) // 480
-    return s[: n * 480].reshape(n, 480)
+    n = len(s) // chunk
+    return s[: n * chunk].reshape(n, chunk)
 
 
 def build_bench_nn_wakeword(mfcc_size: int = 16) -> WakewordModel:

@@ -2,14 +2,16 @@
 (device="cpu") against the JAX package's on the CPU: the cases of
 tests/test_batch_management.py, each run on both detectors in lockstep
 (the same audio, the same add / remove / update calls on live states), plus
-an NN wakeword added to and removed from a live DTW fleet, and an enabled
-filter refused with the detector left as it was.
+an NN wakeword added to and removed from a live DTW fleet, and the filters
+enabled on a live fleet.
 
 After every chunk the events must be equal (fired, ww, counter; scores
 rtol 2e-5 / atol 2e-5 for DTW, rtol 1e-4 / atol 1e-3 once an NN wakeword
 is in the bundle); after every call the migrated states must be equal
 (counters, flags, cursor, window length exactly; window rows at rtol 1e-5 /
-atol 1e-4; partial scores at the score tolerance).
+atol 1e-4; partial scores at the score tolerance; with the band-pass on, its
+taps at atol 1e-5, since the JAX package's scan contracts products into FMAs,
+tests/test_torch_filters.py).
 
 The wakewords are the JAX test's: a chirp built through the JAX package's
 MFCC pipeline (its features shared by both detectors) and seeded noise
@@ -142,7 +144,11 @@ class Lockstep:
     def check_states(self):
         assert self.det.wakeword_names == self.jdet.wakeword_names
         got, want = states_to_numpy(self.st), _numpy(self.jst)
-        for f in EXACT_STATE:
+        exact = EXACT_STATE
+        if self.det.static.bp_enabled:
+            exact = tuple(f for f in EXACT_STATE if f != "bp")
+            np.testing.assert_allclose(got["bp"], want["bp"], rtol=0, atol=1e-5, err_msg="bp")
+        for f in exact:
             np.testing.assert_array_equal(got[f], want[f], err_msg=f)
         for f in CLOSE_STATE:
             np.testing.assert_allclose(got[f], want[f], **self.tol, err_msg=f)
@@ -262,9 +268,9 @@ def test_remove_last_wakeword_rejected(chirp):
 
 
 def test_update_detector_config_resets_stream_keeps_filters(frames, chirp):
-    """The JAX test's calls with the filters off (the port's stream steps
-    refuse them, ROADMAP M7): the detector config resets stream state and
-    keeps the filter and encoder fields; the filters update resets them."""
+    """The JAX test's calls with the filters off: the detector config resets
+    stream state and keeps the filter and encoder fields; the filters update
+    resets them (test_update_filters_config_on_a_live_fleet turns them on)."""
     batch = same_audio(frames, 2)
     ls = Lockstep([("chirp", chirp)], 2)
     ls.run(batch[:20])
@@ -285,17 +291,40 @@ def test_update_detector_config_resets_stream_keeps_filters(frames, chirp):
     ls.run(batch[30:])
 
 
-def test_update_filters_config_with_a_filter_enabled_raises_m7(chirp):
-    det = BatchedDetector([("chirp", chirp[0])], configs()[1], batch_size=2, device="cpu")
-    states = det.init_states()
-    static, config = det.static, det.config
-    filters = RustpotterConfig().filters
-    filters.gain_normalizer.enabled = True
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        det.update_filters_config(filters, states)
-    assert det.static is static and det.config is config
-    assert not det.config.filters.gain_normalizer.enabled
-    det.process_chunk(det.params, states, np.zeros((2, 480), np.float32))
+def test_update_filters_config_on_a_live_fleet(frames, chirp):
+    """Both filters turned on mid-stream through update_filters_config, then
+    the gain normalizer off through update_config: each call rebuilds the
+    filters with fresh taps and gain window and resets the stream, as the
+    JAX package migrates; the events after each call equal its events. The
+    audio has a microphone's noise floor (tests/test_torch_filters.py takes
+    exact silence after a band-pass). The band-pass is set around the
+    chirp's 300-1200 Hz, whose templates are unfiltered, so that it fires."""
+    noisy = frames + np.random.default_rng(7).normal(0, 1e-3, frames.shape).astype(np.float32)
+    batch = staggered_batch(noisy, [0, 4], 4)
+    ls = Lockstep([("chirp", chirp)], 4)
+    ls.run(batch[:6])
+    filters = [RustpotterConfig().filters, JaxConfig().filters]
+    for f in filters:
+        f.gain_normalizer.enabled = f.band_pass.enabled = True
+        f.band_pass.low_cutoff, f.band_pass.high_cutoff = 200.0, 1300.0
+    got = ls.call("update_filters_config", tuple(filters))
+    assert ls.det.static.gain_enabled and ls.det.static.bp_enabled
+    np.testing.assert_array_equal(got["bp"], 0.0)
+    assert (got["gain_count"] == 0).all() and (got["gain"] == 1.0).all()
+    assert not got["partial_active"].any() and (got["win_count"] == 0).all()
+    ev = ls.run(batch[6:45])
+    cfgs = [RustpotterConfig(), JaxConfig()]
+    for c, f in zip(cfgs, filters):
+        c.detector.avg_threshold, c.detector.threshold = 0.2, 0.5
+        c.filters = f
+        f.gain_normalizer.enabled = False
+    cfgs[0].detector.score_mode, cfgs[1].detector.score_mode = ScoreMode.MAX, JaxScoreMode.MAX
+    got = ls.call("update_config", tuple(cfgs))
+    assert not ls.det.static.gain_enabled and ls.det.static.bp_enabled
+    np.testing.assert_array_equal(got["bp"], 0.0)
+    ls.run(batch[45:])
+    assert (ev["fired"].sum(axis=0) == 1).all()
+    assert (ev["gain"][ev["fired"]] < 1.0).all()  # the gain normalizer scaled the word
 
 
 def test_add_and_remove_nn_wakeword_on_live_fleet(frames, chirp):

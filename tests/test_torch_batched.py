@@ -222,15 +222,32 @@ def test_default_device_is_cuda_and_never_falls_back(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["gain", "band_pass", "resample"])
-def test_unported_configs_raise(workload, what):
-    _, ww, _ = workload
-    cfg = _configs()[1]
-    wakewords, kw = [("w", ww)], {}
+def test_filter_and_resample_configs_match_jax(workload, what):
+    """The configs the port once refused: the gain normalizer, the
+    band-pass, and in_graph_resample at 16 kHz (which keeps the 480-sample
+    chunk, as in the JAX package), over 12 chunks against the JAX detector.
+    tests/test_torch_filters.py and tests/test_torch_front_48k.py hold them
+    over whole streams."""
+    jww, ww, frames = workload
+    jcfg, cfg = _configs()
+    kw = {}
     if what == "gain":
-        cfg.filters.gain_normalizer.enabled = True
+        jcfg.filters.gain_normalizer.enabled = cfg.filters.gain_normalizer.enabled = True
     elif what == "band_pass":
-        cfg.filters.band_pass.enabled = True
+        jcfg.filters.band_pass.enabled = cfg.filters.band_pass.enabled = True
     else:
         kw["in_graph_resample"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP M[78]"):
-        BatchedDetector(wakewords, cfg, batch_size=B, device="cpu", **kw)
+    jdet = JaxBatchedDetector([("w", jww)], jcfg, batch_size=B, **kw)
+    det = BatchedDetector([("w", ww)], cfg, batch_size=B, device="cpu", **kw)
+    assert det.static.input_samples == jdet.static.input_samples == 480
+    jstates, states = jdet.init_states(), det.init_states()
+    for t in range(12):
+        jstates, jev = jdet.process_chunk(jdet.params, jstates, jnp.asarray(frames[t]))
+        states, ev = det.process_chunk(det.params, states, frames[t])
+        _assert_event_equal(events_to_numpy(ev)._asdict(), _jax_numpy(jev), t)
+        got, want = states_to_numpy(states), _jax_numpy(jstates)
+        _assert_state_equal(got, want, t)
+        np.testing.assert_array_equal(got["gain"], want["gain"])
+        # the JAX package's scan contracts products into FMAs: see
+        # tests/test_torch_filters.py
+        np.testing.assert_allclose(got["bp"], want["bp"], rtol=0, atol=1e-5)

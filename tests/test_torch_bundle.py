@@ -123,7 +123,18 @@ def test_sort_network_matches_jax():
         )
 
 
-def test_in_graph_resample_is_refused(bench_ww):
-    with pytest.raises(NotImplementedError, match="M8"):
-        build_bundle([("w", _port_ref(bench_ww))], RustpotterConfig(), device="cpu",
-                     in_graph_resample=True)
+def test_in_graph_resample_at_16k_keeps_the_480_sample_bundle(bench_ww):
+    """At the detector's own rate the flag changes nothing, as in the JAX
+    package (tests/test_torch_resample.py sizes the other rates)."""
+    static, params = build_bundle([("w", _port_ref(bench_ww))], RustpotterConfig(),
+                                  device="cpu", in_graph_resample=True)
+    jstatic, _ = jax_build_bundle([("w", bench_ww)], JaxConfig(), in_graph_resample=True)
+    assert (static.input_samples, static.input_rate) == (480, 16000)
+    assert (jstatic.input_samples, jstatic.input_rate) == (480, 16000)
+    plain, plain_params = build_bundle([("w", _port_ref(bench_ww))], RustpotterConfig(),
+                                       device="cpu")
+    assert static == plain
+    for f in fields(StepParams):
+        if f.name != "nn_params":
+            torch.testing.assert_close(getattr(params, f.name), getattr(plain_params, f.name),
+                                       rtol=0, atol=0, equal_nan=True, msg=f.name)

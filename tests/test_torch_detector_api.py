@@ -19,7 +19,9 @@ from rustpotter_tpu import SampleFormat as JaxSampleFormat
 from rustpotter_tpu import ScoreMode as JaxScoreMode
 from rustpotter_tpu import build_wakeword_ref_from_buffers as jax_from_buffers
 from rustpotter_tpu import build_wakeword_ref_from_files as jax_from_files
+from rustpotter_tpu.audio.encoder import AudioEncoder as JaxAudioEncoder
 from rustpotter_tpu.audio.encoder import decode_bytes as jax_decode_bytes
+from rustpotter_tpu.mfcc.offline import compute_mfccs as jax_compute_mfccs
 from rustpotter_tpu.config import Endianness as JaxEndianness
 from rustpotter_tpu.wakewords.files import WakewordRef as JaxWakewordRef
 from rustpotter_tpu_torch import (
@@ -179,17 +181,26 @@ def test_encoder_and_wav_match_jax(tmp_path):
     assert (enc.get_input_frame_length(), enc.get_output_frame_length()) == (960, 480)
     np.testing.assert_array_equal(enc.rencode_and_resample(x),
                                   x[::2].astype(np.float32) / np.float32(32767.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        AudioEncoder(AudioFmt(sample_rate=48000))
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        Rustpotter(RustpotterConfig(fmt=AudioFmt(sample_rate=48000)), device="cpu")
+    enc48 = AudioEncoder(AudioFmt(sample_rate=48000))
+    jenc48 = JaxAudioEncoder(JaxAudioFmt(sample_rate=48000))
+    assert (enc48.get_input_frame_length(), enc48.get_output_frame_length()) == (1440, 480)
+    y = rng.normal(0, 0.3, 1440).astype(np.float32)
+    np.testing.assert_array_equal(enc48.rencode_and_resample(y), jenc48.rencode_and_resample(y))
+    rp48 = Rustpotter(RustpotterConfig(fmt=AudioFmt(sample_rate=48000)), device="cpu")
+    jrp48 = JaxRustpotter(JaxConfig(fmt=JaxAudioFmt(sample_rate=48000)))
+    assert rp48.get_samples_per_frame() == jrp48.get_samples_per_frame() == 1440
     p = str(tmp_path / "x.wav")
     write_wav(p, x.astype(np.int16), 48000)
     samples, spec = read_wav(p)
     np.testing.assert_array_equal(samples, x)
     assert (spec.sample_rate, spec.channels, spec.bits_per_sample, spec.is_float) == (
         48000, 1, 16, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        compute_mfccs(p, 16, device="cpu")
+    words48 = np.concatenate([np.repeat(w, 3) for w in bench_utterances(30)[:2]])
+    p48 = str(tmp_path / "u48.wav")
+    write_wav(p48, np.round(words48 * 32767.0).astype(np.int16), 48000)
+    got, rms = compute_mfccs(p48, 16, device="cpu")
+    want, jrms = jax_compute_mfccs(p48, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-4)
+    assert rms == pytest.approx(jrms, rel=1e-6)
     with pytest.raises(ValueError, match="RIFF"):
         read_wav(b"not a wav file")

@@ -49,7 +49,7 @@ C = 8
 EV_TOL = dict(rtol=2e-5, atol=2e-5)
 WIN_TOL = dict(rtol=1e-5, atol=1e-4)
 EXACT_STATE = ("win_count", "ext_count", "partial_active", "partial_ww",
-               "partial_counter", "countdown", "vad_countdown", "rot")
+               "partial_counter", "countdown", "vad_countdown", "rot", "gain", "gain_count")
 CLOSE_STATE = ("partial_score", "partial_avg", "partial_scores", "rms_level", "ext_buf")
 
 
@@ -93,10 +93,11 @@ def _configs():
     return jcfg, cfg
 
 
-def _jax_step_run(jww, frames, fused):
+def _jax_step_run(jww, frames, fused, jcfg=None):
     """Per-chunk events and states (numpy dicts, window as (F, C, B)) of the
-    vmapped JAX per-shift step."""
-    static, params = jax_build_bundle([("w", jww)], _configs()[0], dtw_fused=fused)
+    vmapped JAX per-shift step (config `jcfg`, default `_configs()[0]`)."""
+    jcfg = _configs()[0] if jcfg is None else jcfg
+    static, params = jax_build_bundle([("w", jww)], jcfg, dtw_fused=fused)
     params = jax.tree_util.tree_map(jnp.asarray, params)
     axes = state_batch_axes()
     step = jax.jit(jax.vmap(jax_make_step(static), in_axes=(None, axes, 0), out_axes=(axes, 0)))
@@ -129,10 +130,12 @@ def _assert_state_equal(got, want, t):
     np.testing.assert_array_equal(np.isnan(got["vad_win"]), np.isnan(want["vad_win"]))
 
 
-def _port_step_run(ww, frames, events, snaps, dtw_fused, variant=3):
-    """Runs the port's make_step on `frames`, comparing every chunk with the
-    JAX run. Returns [(chunk, stream)] of every fire."""
-    static, params = build_bundle([("w", ww)], _configs()[1], "cpu", dtw_fused=dtw_fused)
+def _port_step_run(ww, frames, events, snaps, dtw_fused, variant=3, cfg=None):
+    """Runs the port's make_step on `frames` (config `cfg`, default
+    `_configs()[1]`), comparing every chunk with the JAX run. Returns
+    [(chunk, stream)] of every fire."""
+    cfg = _configs()[1] if cfg is None else cfg
+    static, params = build_bundle([("w", ww)], cfg, "cpu", dtw_fused=dtw_fused)
     static = dataclasses.replace(static, dtw_fused_variant=variant)
     step = make_step(static)
     states = init_state(static, B, "cpu")
@@ -207,10 +210,14 @@ def test_batched_chunk_fallback_matches_jax(small, monkeypatch):
     assert {**fd.LAUNCHES, **bd.LAUNCHES} == before
 
 
-def test_make_step_checks_its_static():
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        cfg = _configs()[1]
-        cfg.filters.gain_normalizer.enabled = True
-        ww = WakewordRef(name="x", samples_features={"a": np.ones((5, C), np.float32)},
-                         rms_level=0.05)
-        make_step(build_bundle([("w", ww)], cfg, "cpu")[0])
+def test_make_step_with_the_gain_normalizer_matches_jax(small):
+    """The config the port once refused: the gain normalizer on, unfused,
+    against the vmapped JAX step (tests/test_torch_filters.py holds the
+    band-pass and both filters)."""
+    ww, jww, frames = small
+    jcfg, cfg = _configs()
+    jcfg.filters.gain_normalizer.enabled = cfg.filters.gain_normalizer.enabled = True
+    events, snaps = _jax_step_run(jww, frames, fused=False, jcfg=jcfg)
+    assert any((s["gain"] < 1.0).any() for s in snaps)  # the gain acted
+    fires = _port_step_run(ww, frames, events, snaps, dtw_fused=False, cfg=cfg)
+    assert sorted(b for _, b in fires) == [0, 1, 2]
