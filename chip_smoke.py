@@ -85,7 +85,28 @@ Phases, each of which raises (non-zero exit) when it fails:
      a device="cpu" run's events and gains, the launches per chunk are
      asserted; the host clock, and the device time per chunk split into
      front-end, resample GEMM, biquad, K1 (or K2) and the rest; ms per
-     process_samples and of its host encoder.
+     process_samples and of its host encoder;
+  8. training phase (M9): synthetic.training_wavs at the `nn_medium` width
+     (MEDIUM, train_size 168, mfcc_size 16: 2688 -> 56 -> 28 -> 2; 64
+     training and 16 test files) trained on the card and on the CPU, 200
+     epochs at lr 0.017 in chunks of 10, seed 0: the losses must agree at
+     tests/test_training_torch_crosscheck.py's tolerances (the first 10
+     epochs rtol 2e-4 / atol 2e-5, all rtol 5e-3 / atol 5e-4), the final
+     weights too, the test accuracies must be equal; the card's model
+     round-trips through save_wakeword / load_wakeword byte for byte and,
+     served by BatchedDetector at B=4 over correctness_stream(168, the
+     bench utterance), gives the CPU run's events (NN scores rtol 1e-4 /
+     atol 1e-3). Then the reference's 1000 epochs on the card on the host
+     clock, the MFCC extraction of the 80 WAVs, the epochs alone, and the
+     device time and launches per epoch by torch.profiler;
+  9. sharding phase (M11): a world-1 NCCL group (file:// rendezvous; one
+     process per card, so one rank here), BatchedDetector sharded over it
+     at B=8192 with the bench wakeword through the correctness pass (stream
+     0 must fire, K1 once per chunk), every event field bit-equal to the
+     unsharded detector's; gather_detections and fleet_detection_count
+     return the local values; the host clock per chunk, sharded and
+     unsharded in turns, and the gather plus count per chunk; then
+     parallel.dryrun.dryrun_multigpu over every card (one NCCL rank each).
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -1535,6 +1556,262 @@ def front_phase(dev, card, record):
     return summary
 
 
+# ------------------------------------------------------------- training
+
+TRAIN_FILES, TEST_FILES = 64, 16
+CHECK_EPOCHS = 200  # card against CPU: SGD carries the rounding forward
+TRAIN_EARLY = dict(rtol=2e-4, atol=2e-5)  # tests/test_training_torch_crosscheck.py
+TRAIN_LATE = dict(rtol=5e-3, atol=5e-4)
+PROFILED_EPOCHS = 10
+
+
+def train_phase(dev, card):
+    """NN training (see the module docstring, phase 8)."""
+    import tempfile
+
+    import torch
+
+    from rustpotter_tpu_torch import RustpotterConfig, load_wakeword, save_wakeword
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.synthetic import (
+        NN_TRAIN_SIZE,
+        bench_utterances,
+        correctness_stream,
+        training_wavs,
+    )
+    from rustpotter_tpu_torch.wakewords import trainer as tr
+    from rustpotter_tpu_torch.wakewords.files import ModelType
+    from rustpotter_tpu_torch.wakewords.nn import init_params
+
+    samples = training_wavs(NN_TRAIN_SIZE, TRAIN_FILES, seed=0)
+    tests = training_wavs(NN_TRAIN_SIZE, TEST_FILES, seed=1)
+    opts = tr.WakewordModelTrainOptions(epochs=CHECK_EPOCHS)
+    runs = {}
+    for d in (dev, "cpu"):
+        hist = {}
+        t0 = time.perf_counter()
+        model = tr.train_from_buffers(opts, samples, tests, seed=0, verbose=False,
+                                      history_out=hist, device=d)
+        runs[str(d)] = (model, hist, time.perf_counter() - t0)
+    (mg, hg, sg), (mc, hc, sc) = runs[str(dev)], runs["cpu"]
+    dims = [mg.weights[f"ln{i}.weight"].dims for i in (1, 2, 3)]
+    assert dims == [[56, 2688], [28, 56], [2, 28]], dims
+    assert mg.labels == mc.labels == ["bench", "none"] and mg.train_size == NN_TRAIN_SIZE
+    lg, lc = np.array(hg["loss"]), np.array(hc["loss"])
+    np.testing.assert_allclose(lg[:10], lc[:10], **TRAIN_EARLY, err_msg="loss, epochs 1-10")
+    np.testing.assert_allclose(lg, lc, **TRAIN_LATE, err_msg="loss")
+    worst_w = 0.0
+    for k in mc.weights:
+        a, b = mg.weights[k].to_numpy(), mc.weights[k].to_numpy()
+        np.testing.assert_allclose(a, b, **TRAIN_LATE, err_msg=k)
+        worst_w = max(worst_w, float(np.abs(a - b).max()))
+    assert hg["test_accuracy"] == hc["test_accuracy"], (hg["test_accuracy"], hc["test_accuracy"])
+    log(f"train: MEDIUM 2688 -> 56 -> 28 -> 2, {TRAIN_FILES} + {TEST_FILES} files, "
+        f"{CHECK_EPOCHS} epochs on the card ({sg:.3f} s) and the cpu ({sc:.3f} s): loss "
+        f"{lg[0]:.6f} -> {lg[-1]:.6f} (cpu {lc[-1]:.6f}), max|d loss| "
+        f"{float(np.abs(lg - lc).max()):.3e}, max|d weight| {worst_w:.3e}, test accuracy "
+        f"{hg['test_accuracy']:.4f} on both, rms_level {mg.rms_level:.6f} / {mc.rms_level:.6f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trained.rpw")
+        save_wakeword(mg, path)
+        back = load_wakeword(path)
+    assert back.labels == mg.labels and back.train_size == mg.train_size
+    for k, v in mg.weights.items():
+        assert back.weights[k].bytes == v.bytes and back.weights[k].dims == v.dims, k
+    log("train: save_wakeword / load_wakeword give the weights back byte for byte")
+
+    stream0 = correctness_stream(NN_TRAIN_SIZE, bench_utterances(100)[0])
+    noise = np.random.default_rng(0).normal(0, 0.05, (4, 480)).astype(np.float32)
+    events = {}
+    for d in (dev, "cpu"):
+        det = BatchedDetector([("t", back)], RustpotterConfig(), batch_size=4, device=d)
+        events[str(d)] = run_correctness(
+            lambda s, f: det.process_chunk(det.params, s, f), det.init_states(),
+            torch.tensor(stream0, device=d), torch.tensor(noise, device=d))
+    n_events, worst = match_events(events[str(dev)], events["cpu"], "trained model",
+                                   NN_RTOL, NN_ATOL)
+    fired0 = int(events[str(dev)][0][:, 0].sum())
+    log(f"train: the trained model served at B=4 gives the cpu run's events ({n_events} "
+        f"events, max|d score| {worst:.3e}); stream 0 fired {fired0}x, streams 1-3 "
+        f"{int(events[str(dev)][0][:, 1:].sum())}x")
+
+    # the reference's 1000 epochs, timed on the host clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr._get_mfccs_labeled(samples, [], True, 16, dev)
+    tr._get_mfccs_labeled(tests, ["bench", "none"], False, 16, dev)
+    torch.cuda.synchronize()
+    mfcc_s = time.perf_counter() - t0
+    full = tr.WakewordModelTrainOptions()
+    hist = {}
+    t0 = time.perf_counter()
+    tr.train_from_buffers(full, samples, tests, seed=0, verbose=False, history_out=hist,
+                          device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    # the epochs alone, and their device kernels by torch.profiler
+    labeled, _ = tr._get_mfccs_labeled(samples, [], True, 16, dev)
+    feats, labs = tr._stack(labeled, NN_TRAIN_SIZE * 16)
+    x, y = torch.tensor(feats, device=dev), torch.tensor(labs, device=dev)
+    params = [(torch.tensor(w, device=dev).requires_grad_(),
+               torch.tensor(b, device=dev).requires_grad_())
+              for w, b in init_params(ModelType.MEDIUM, NN_TRAIN_SIZE * 16, 16, 2, 0)]
+    lr = torch.tensor(full.learning_rate, dtype=torch.float32, device=dev)
+    tr.sgd_epochs(params, x, y, lr, PROFILED_EPOCHS)[1].tolist()
+    t0 = time.perf_counter()
+    p = params
+    for _ in range(full.epochs // full.test_epochs):
+        p, losses = tr.sgd_epochs(p, x, y, lr, full.test_epochs)
+        losses.tolist()
+    loop_s = time.perf_counter() - t0
+    rows = device_kernels(lambda: tr.sgd_epochs(params, x, y, lr, PROFILED_EPOCHS), 3)
+    dev_ms = sum(r[0] for r in rows) / PROFILED_EPOCHS
+    launches = sum(r[1] for r in rows) / PROFILED_EPOCHS
+    log(f"train: {full.epochs} epochs on the card in {train_s:.4f} s host clock "
+        f"({train_s * 1e3 / full.epochs:.4f} ms per epoch with the MFCCs; final loss "
+        f"{hist['loss'][-1]:.6f}, test accuracy {hist['test_accuracy']:.4f}); the MFCC "
+        f"extraction of the {TRAIN_FILES + TEST_FILES} WAVs {mfcc_s * 1e3:.4f} ms; the "
+        f"epochs alone {loop_s * 1e3 / full.epochs:.4f} ms per epoch (losses read per "
+        f"{full.test_epochs}); device {dev_ms:.4f} ms per epoch in {launches:.1f} launches "
+        f"({card})")
+    if not rows:
+        log("train: the profiler recorded no device time: device ms per epoch not measured")
+    for ms, count, name in rows[:PROFILE_ROWS]:
+        log(f"profile: {ms / PROFILED_EPOCHS:9.4f} ms/epoch  {count / PROFILED_EPOCHS:5.1f} "
+            f"launches/epoch  {name[:110]}")
+    return {"train_ms_per_epoch": train_s * 1e3 / full.epochs,
+            "train_loop_ms_per_epoch": loop_s * 1e3 / full.epochs,
+            "train_device_ms_per_epoch": dev_ms, "train_launches_per_epoch": launches,
+            "train_mfcc_ms": mfcc_s * 1e3, "train_stream0_fired": fired0}
+
+
+# ------------------------------------------------------------- sharding
+
+GATHER_CALLS = 200
+
+
+def bits_equal(a, b) -> bool:
+    """The same bits (a NaN equals the same NaN; the gain is NaN with the
+    gain normalizer off)."""
+    import torch
+
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def shard_phase(dev, card):
+    """Stream sharding over NCCL (see the module docstring, phase 9)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch.parallel.collectives import (
+        fleet_detection_count,
+        gather_detections,
+    )
+    from rustpotter_tpu_torch.parallel.dryrun import dryrun_multigpu
+    from rustpotter_tpu_torch.parallel.mesh import make_stream_group, multihost_initialize
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
+
+    B = BENCH_STREAMS
+    ww, utterance = build_bench_wakeword(device=dev)
+    cfg = RustpotterConfig()
+    cfg.detector.score_mode = ScoreMode.MAX
+    cfg.detector.avg_threshold = 0.2
+    noise = torch.tensor(np.random.default_rng(0).normal(0, 0.05, (B, 480)).astype(np.float32),
+                         device=dev)
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # one process drives one card: the world is 1 rank here; several
+        # cards run one process each (dryrun_multigpu below)
+        multihost_initialize(f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0, device=dev)
+        try:
+            sharding = make_stream_group()
+            dets = {
+                "sharded": BatchedDetector([("w", ww)], cfg, batch_size=B, device=dev,
+                                           sharding=sharding),
+                "unsharded": BatchedDetector([("w", ww)], cfg, batch_size=B, device=dev),
+            }
+            assert dets["sharded"].local_batch == B
+            stream0 = torch.tensor(
+                correctness_stream(dets["sharded"].static.max_mfcc_frames, utterance),
+                device=dev)
+            n_chunks = stream0.shape[0]
+            events = {}
+            for name, det in dets.items():
+                states = det.init_states()
+                evs = []
+                reset_counts()
+                for t in range(n_chunks):
+                    frames = noise.clone()
+                    frames[0] = stream0[t]
+                    states, ev = det.process_chunk(det.params, states, frames)
+                    evs.append([f.clone() for f in ev])
+                torch.cuda.synchronize()
+                k1 = read_counts()["fused_dtw_v4"]
+                assert k1 == n_chunks, (name, k1, n_chunks)
+                events[name] = evs
+            for t, (a, b) in enumerate(zip(events["sharded"], events["unsharded"])):
+                for f, g in zip(a, b):
+                    if not bits_equal(f, g):
+                        raise AssertionError(f"sharded chunk {t} differs from the unsharded one")
+            fired = torch.stack([ev[0] for ev in events["sharded"]])
+            fired0 = int(fired[:, 0].sum())
+            assert fired0 >= 1, "correctness guard: stream 0 did not fire in the sharded run"
+            t_fire = int(fired[:, 0].nonzero()[0])
+            ev = events["sharded"][t_fire]
+            g_fired, g_score = gather_detections(sharding, ev[0], ev[2])
+            count = fleet_detection_count(sharding, ev[0])
+            assert bits_equal(g_fired, ev[0]) and bits_equal(g_score, ev[2])
+            assert int(count) == int(ev[0].sum()), (int(count), int(ev[0].sum()))
+            log(f"shard: world 1 ({dist.get_backend()}), B={B}: correctness pass of "
+                f"{n_chunks} chunks bit-equal to the unsharded detector (every event field); "
+                f"stream 0 fired {fired0}x; K1 {n_chunks} launches in each run; gather and "
+                f"count at chunk {t_fire} return the local values (count {int(count)})")
+
+            # host clock per chunk, in turns: unsharded, sharded, sharded, unsharded
+            times = {"sharded": [], "unsharded": []}
+            for name in ("unsharded", "sharded", "sharded", "unsharded"):
+                det = dets[name]
+                _, windows = timed_windows(lambda s, f: det.process_chunk(det.params, s, f),
+                                           det.init_states(), noise)
+                times[name] += [w / TIMED_CHUNKS * 1e3 for w in windows]
+            _, ev = dets["sharded"].process_chunk(dets["sharded"].params,
+                                                  dets["sharded"].init_states(), noise)
+            secs = []
+            for _ in range(GATHER_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fleet_detection_count(sharding, ev.fired)
+                gather_detections(sharding, ev.fired, ev.score)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            gather_us = float(np.median(secs)) * 1e6
+            for name in ("unsharded", "sharded"):
+                t = times[name]
+                log(f"shard: {name} {float(np.median(t)):.4f} ms per chunk host clock, median "
+                    f"of {len(t)} windows of {TIMED_CHUNKS} chunks (range {min(t):.4f}-"
+                    f"{max(t):.4f}; {card})")
+                summary[f"{name}_chunk_ms"] = float(np.median(t))
+            log(f"shard: gather_detections + fleet_detection_count {gather_us:.2f} us per "
+                f"chunk (median of {GATHER_CALLS}, range {min(secs) * 1e6:.2f}-"
+                f"{max(secs) * 1e6:.2f})")
+            summary["gather_count_us"] = gather_us
+        finally:
+            dist.destroy_process_group()
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dry = dryrun_multigpu(n, "cuda", timeout_s=300)
+    log(f"shard: dryrun_multigpu({n}, 'cuda') in {time.perf_counter() - t0:.3f} s: "
+        + json.dumps(dry))
+    return summary
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1575,6 +1852,8 @@ def main() -> int:
     summary.update(tools_phase(dev, record))
     summary.update(nn_phase(dev, card))
     summary.update(front_phase(dev, card, record))
+    summary.update(train_phase(dev, card))
+    summary.update(shard_phase(dev, card))
     log(json.dumps({"card": card, **summary}))
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ per-shift stream step (`runtime.stream_step.make_step`) with K2 and K4
 (`ops.fused_dtw`) and K3 (`ops.banded_dtw`); the single-stream `Rustpotter`
 API on it; NN wakewords; the audio front-end of both steps (the gain
 normalizer, the band-pass biquad of `ops.biquad`, input at any rate resampled
-on the host or in the graph); and the wakeword builder from WAV files.
+on the host or in the graph); the wakeword builder from WAV files; NN
+training (`wakewords.trainer`); and stream sharding over
+`torch.distributed` (`parallel`: one process per card, the streams split
+over the ranks, detections merged by collectives).
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """
@@ -54,6 +57,11 @@ from .wakewords.files import (  # noqa: E402
     load_wakeword,
     save_wakeword,
 )
+from .wakewords.trainer import (  # noqa: E402
+    WakewordModelTrainOptions,
+    train_from_buffers,
+    train_from_dirs,
+)
 
 __version__ = "0.1.0"
 
@@ -75,10 +83,13 @@ __all__ = [
     "VADMode",
     "WakewordModel",
     "WakewordRef",
+    "WakewordModelTrainOptions",
     "WakewordV2",
     "build_wakeword_ref_from_buffers",
     "build_wakeword_ref_from_files",
     "load_wakeword",
     "save_wakeword",
+    "train_from_buffers",
+    "train_from_dirs",
     "__version__",
 ]

@@ -20,6 +20,18 @@ A rebuild that raises leaves the detector as it was. The resampler's
 overlap (`in_graph_resample`) survives every migration, as the reference's
 encoder is not part of its reset.
 
+Sharding (`sharding=`, a `parallel.mesh.StreamSharding`; the counterpart
+of the JAX runtime's `shard_map` path): one process per card, `batch_size`
+the global B, and each rank holds its contiguous block of B / world streams
+(`local_batch`; ValueError when B does not divide). The parameters are built
+on every rank (replicated; the bundle build is deterministic). Every call
+that takes or gives states, frames, events or a reset mask takes or gives
+the rank's block: slice a global tensor with `StreamSharding.local`. Each
+rank keeps its own cursor; the cursors advance in step, since every rank
+runs every chunk. The chunk itself needs no collective; detections merge
+through `parallel.collectives`. The management calls run on each rank on
+its own block.
+
 Differences from the JAX runtime: `process_chunk` updates the states in place
 (the counterpart of donating them) and still returns them; `process_sequence`
 is a loop of `process_chunk`. Migration is a host-side step outside the
@@ -35,6 +47,7 @@ import torch
 
 from ..config import DetectorConfig, FiltersConfig, RustpotterConfig
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import StreamSharding
 from ..wakewords.files import load_wakeword
 from .bundle import StepParams, StepStatic, Wakeword, build_bundle
 from .state import Event, StreamState, init_state
@@ -120,7 +133,8 @@ def migrate_states(
 
 class BatchedDetector:
     """Fixed-capacity batch of independent detector streams on `device`
-    (default: the CUDA card; RuntimeError without one)."""
+    (default: the CUDA card; RuntimeError without one); with `sharding`,
+    this rank's block of them (see the module docstring)."""
 
     def __init__(
         self,
@@ -129,10 +143,14 @@ class BatchedDetector:
         batch_size: int = 1024,
         device: DeviceLike = None,
         in_graph_resample: bool = False,
+        sharding: Optional[StreamSharding] = None,
     ):
         self.device = resolve_device(device)
         self.config = config if config is not None else RustpotterConfig()
         self.batch_size = batch_size
+        self.sharding = sharding
+        # the streams this process holds: all B, or this rank's block
+        self.local_batch = sharding.local_size(batch_size) if sharding else batch_size
         self._in_graph_resample = in_graph_resample
         self._install(list(wakewords), self.config)
 
@@ -154,7 +172,7 @@ class BatchedDetector:
         self._install(wakewords, config)
         if states is None:
             return None
-        return migrate_states(old_static, self.static, states, self.batch_size,
+        return migrate_states(old_static, self.static, states, self.local_batch,
                               reset_stream=reset_stream, reset_filters=reset_filters)
 
     # --------------------------------------------------- wakeword management
@@ -216,23 +234,24 @@ class BatchedDetector:
     # ------------------------------------------------------------ lifecycle
 
     def init_states(self) -> StreamState:
-        return init_state(self.static, self.batch_size, self.device)
+        return init_state(self.static, self.local_batch, self.device)
 
     def _frames(self, frames) -> torch.Tensor:
         x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         n = self.static.input_samples
-        if x.shape[-2:] != (self.batch_size, n):
+        if x.shape[-2:] != (self.local_batch, n):
             raise ValueError(
-                f"frames must end in ({self.batch_size}, {n}), got {tuple(x.shape)}"
+                f"frames must end in ({self.local_batch}, {n}), got {tuple(x.shape)}"
             )
         return x
 
     def process_chunk(self, params: StepParams, states: StreamState,
                       frames) -> Tuple[StreamState, Event]:
-        """Advance every stream by one 30 ms chunk, frames (B, input_samples):
-        480 samples at 16 kHz, or `static.input_samples` raw samples at the
-        input rate with `in_graph_resample` (1440 at 48 kHz). `states` is
-        updated in place and returned with the Event (B,)."""
+        """Advance every stream by one 30 ms chunk, frames (B, input_samples)
+        with B the local batch: 480 samples at 16 kHz, or
+        `static.input_samples` raw samples at the input rate with
+        `in_graph_resample` (1440 at 48 kHz). `states` is updated in place
+        and returned with the Event (B,)."""
         return self._chunk(params, states, self._frames(frames))
 
     def process_sequence(self, params: StepParams, states: StreamState,
@@ -247,9 +266,10 @@ class BatchedDetector:
         return states, Event(*[torch.stack(f) for f in zip(*events)])
 
     def reset_streams(self, states: StreamState, mask) -> StreamState:
-        """Clear streams where mask (B,) is True, in place."""
+        """Clear streams where mask (B,) is True, in place. Sharded, the
+        mask is this rank's block (`StreamSharding.local` of a global mask)."""
         m = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        fresh = init_state(self.static, self.batch_size, self.device)
+        fresh = init_state(self.static, self.local_batch, self.device)
         for f in StreamState._fields:
             if f in _RESET_SKIP_FIELDS:
                 continue

@@ -9,6 +9,10 @@ testable. `correctness_stream` is the stream-0 audio of `bench.correctness_pass`
 (a MEDIUM classifier with seeded random weights: it never fires), and
 `build_firing_nn_wakeword` a MEDIUM classifier of the same shapes that
 fires on the bench utterance and stays silent on noise and silence.
+
+`training_wavs` is a labelled training set for `wakewords.trainer`: WAV
+bytes named "[bench]…" (the bench chirp in noise) and "none…" (noise,
+silence, a falling chirp), at any length and file count from one seed.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from .device import DeviceLike, resolve_device
 from .mfcc.averager import average_templates
 from .mfcc.offline import mfcc_pipeline
 from .ops import frontend
+from .utils.wav import wav_bytes
 from .wakewords.files import ModelType, WakewordModel, WakewordRef
 from .wakewords.nn import init_params, params_to_tensor_data
 
@@ -116,3 +121,45 @@ def build_firing_nn_wakeword(utterance: np.ndarray, mfcc_size: int = 16,
     return WakewordModel(labels=list(NN_LABELS), train_size=F, mfcc_size=C,
                          m_type=ModelType.MEDIUM, weights=params_to_tensor_data(params),
                          rms_level=0.05)
+
+
+def training_wavs(frames: int, n_files: int, seed: int = 0) -> dict:
+    """{file name: 16 kHz float32 WAV bytes} of `n_files` recordings of
+    `frames` MFCC frames each (frames % 3 == 0, so the file is whole 30 ms
+    chunks), the first one "[bench]", then alternating "none".
+
+    "[bench]_{i}.wav": one of the 5 bench utterances of
+    `bench_utterances(frames * 100 // 168)` (so 100 frames in a 168-frame
+    file, the `nn_medium` window), at a gain in [0.6, 1.4] and a seeded
+    offset, in noise of std 0.02. "none_{kind}_{i}.wav", by turns: noise of
+    std 0.01-0.08, digital silence, or a falling 1500 → 400 Hz chirp of the
+    utterance's length at a gain in [0.3, 1.0] in noise."""
+    if frames % 3 or frames < 12:
+        raise ValueError(f"frames must be a multiple of 3 and at least 12, got {frames}")
+    n = (frames + 3) * SAMPLES_PER_SHIFT
+    rate = float(DETECTOR_INTERNAL_SAMPLE_RATE)
+    words = bench_utterances(frames * 100 // 168)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n_files):
+        sig = np.zeros(n, np.float64)
+        if i % 2 == 0:
+            word = words[rng.integers(len(words))] * rng.uniform(0.6, 1.4)
+            at = rng.integers(0, n - len(word) + 1)
+            sig += 0.02 * rng.normal(size=n)
+            sig[at:at + len(word)] += word
+            name = f"[bench]_{i:03d}.wav"
+        else:
+            kind = ("noise", "silence", "chirp")[(i // 2) % 3]
+            if kind == "noise":
+                sig += rng.uniform(0.01, 0.08) * rng.normal(size=n)
+            elif kind == "chirp":
+                m = len(words[0])
+                t = np.arange(m) / rate
+                chirp = np.sin(2 * np.pi * np.cumsum(1500 - 1100 * t / t[-1]) / rate)
+                at = rng.integers(0, n - m + 1)
+                sig += 0.02 * rng.normal(size=n)
+                sig[at:at + m] += 0.35 * rng.uniform(0.3, 1.0) * chirp
+            name = f"none_{kind}_{i:03d}.wav"
+        out[name] = wav_bytes(sig.astype(np.float32), DETECTOR_INTERNAL_SAMPLE_RATE)
+    return out

@@ -3,8 +3,8 @@
 Parity: the reference uses the `hound` crate for WAV IO
 (src/mfcc/wav_file_extractor.rs:23-24). This module provides the same
 capability surface: PCM int 8/16/32 and IEEE float32, mono/multi-channel,
-plain and WAVE_FORMAT_EXTENSIBLE headers. A copy of `rustpotter_tpu.utils.wav`;
-host-side only.
+plain and WAVE_FORMAT_EXTENSIBLE headers. A copy of `rustpotter_tpu.utils.wav`,
+with the writer's bytes also given in memory (`wav_bytes`); host-side only.
 """
 from __future__ import annotations
 
@@ -76,8 +76,8 @@ def read_wav(data_or_path: Union[bytes, str]) -> tuple[np.ndarray, WavSpec]:
     return samples, WavSpec(sample_rate, channels, bits, is_float)
 
 
-def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
-    """Write mono float32 or int16 samples as a minimal WAV file."""
+def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
+    """Mono float32 or int16 samples as the bytes of a minimal WAV file."""
     samples = np.asarray(samples)
     if samples.dtype == np.float32:
         tag, bits = WAVE_FORMAT_IEEE_FLOAT, 32
@@ -86,12 +86,18 @@ def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
         tag, bits = WAVE_FORMAT_PCM, 16
         raw = samples.astype("<i2").tobytes()
     else:
-        raise ValueError("write_wav supports float32 or int16")
+        raise ValueError("a WAV holds float32 or int16 samples")
     hdr = b"RIFF" + struct.pack("<I", 36 + len(raw)) + b"WAVE"
     fmt = struct.pack(
         "<HHIIHH", tag, 1, sample_rate, sample_rate * bits // 8, bits // 8, bits
     )
     hdr += b"fmt " + struct.pack("<I", len(fmt)) + fmt
     hdr += b"data" + struct.pack("<I", len(raw))
+    return hdr + raw
+
+
+def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
+    """Write mono float32 or int16 samples as a minimal WAV file."""
+    data = wav_bytes(samples, sample_rate)
     with open(path, "wb") as f:
-        f.write(hdr + raw)
+        f.write(data)

@@ -43,7 +43,8 @@ def test_import_leaves_jax_and_the_jax_package_unloaded():
         "import rustpotter_tpu_torch.tools.kernel_probe, rustpotter_tpu_torch.tools.kernel_parity\n"
         "import rustpotter_tpu_torch.tools.fma_probe, rustpotter_tpu_torch.ops.biquad\n"
         "import rustpotter_tpu_torch.audio.filters, rustpotter_tpu_torch.audio.resampler\n"
-        "import rustpotter_tpu_torch.audio.rustfft_f32\n"
+        "import rustpotter_tpu_torch.audio.rustfft_f32, rustpotter_tpu_torch.wakewords.trainer\n"
+        "import rustpotter_tpu_torch.parallel.dryrun\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
