@@ -28,10 +28,14 @@ Phases, each of which raises (non-zero exit) when it fails:
      at w = 21, with the form and the ptxas report of each build;
      then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
-     with the plain versions' time there; then the band-pass biquad
-     (csrc/biquad.cu) bit for bit against its plain version over 3 chunks
-     with the taps carried, at B = 8192 x 480 samples and B = 1000 x 477,
-     with its time, the plain version's and its bound;
+     with the plain versions' time there; then the front-end kernel
+     (csrc/biquad.cu: the gain normalizer, then the band-pass biquad) bit
+     for bit against its plain version on a CPU copy in each of its forms
+     (gain and band-pass, band-pass only, gain only) over 3 chunks with the
+     state carried in place, at B = 8192 x 480 samples (the bulk form) and B
+     = 1000 x 477 (the simple form), gains over every step 0.1-1.0, with its
+     time in each form, the plain version's, the bounds, and the times of
+     its build variants (BQ_TILE x BQ_SEGS);
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
      wakeword runs the bench correctness pass (stream 0 must fire, every
      chunk must launch K1), streams 0-3 must give the events of a
@@ -73,11 +77,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      3 launches per chunk or frame and no other kernel; the cpu run's
      events); and the NN wakeword added to a live B=8192 DTW fleet after 10
      chunks (the chunks after it give the cpu run's events at B=4);
-  7. audio front-end phase (K1, K2, the biquad): `dtw_filters`, the bench
-     wakeword at B=8192 with the gain normalizer and the 80-400 Hz band-pass
-     on (__graft_entry__.entry()'s filters), through BatchedDetector (K1 and
-     one biquad launch per chunk), make_step (3 K2 launches and one biquad
-     per chunk) and Rustpotter (likewise per frame); and `dtw_48k`
+  7. audio front-end phase (K1, K2, the front-end kernel): `dtw_filters`,
+     the bench wakeword at B=8192 with the gain normalizer and the 80-400 Hz
+     band-pass on (__graft_entry__.entry()'s filters; stream 1 at noise
+     0.062, gain 0.9), through BatchedDetector (K1 and one front-end launch
+     per chunk, the profile's launches per chunk at most the unfiltered
+     chunk's plus one), make_step (3 K2 launches and one front-end launch per
+     chunk, likewise) and Rustpotter (likewise per frame); and `dtw_48k`
      (tools/bench_suite.py's scenario: 48 kHz F32, in_graph_resample, the
      utterance synthesized at 48 kHz) through BatchedDetector (K1, no
      biquad), with Rustpotter at 48 kHz int16 through the host encoder.
@@ -145,6 +151,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     sass_listing,
     shift_bytes,
     time_cuda,
+    time_cuda_graph,
 )
 
 # kernels vs their plain versions: the JAX kernel tests' own tolerances (K3,
@@ -887,7 +894,7 @@ def slice_phase(dev, record):
             f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
     for ms, count, name in rows[:PROFILE_ROWS]:
         log(f"profile: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {name[:110]}")
-    return {**t, "k1_chunk_ms": k1_ms}
+    return {**t, "k1_chunk_ms": k1_ms, "launches_per_chunk": sum(r[1] for r in rows)}
 
 
 def chunk_timing(det, noise):
@@ -1037,7 +1044,8 @@ def per_shift_phase(dev, record):
         log(f"profile step: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
     summary.update({"step_streams_rt": streams_rt, "step_streams_rt_min": rt_range[0],
                     "step_streams_rt_max": rt_range[1], "step_chunk_ms": chunk_ms,
-                    "step_kernel_ms": kernel_ms, "step_k2_ms": k2_ms})
+                    "step_kernel_ms": kernel_ms, "step_k2_ms": k2_ms,
+                    "step_launches_per_chunk": sum(r[1] for r in rows)})
 
     # (d) the K3 mode (band costs + K3) likewise: K3's device time per chunk
     # beside the rest, and the host clock, which the enqueue bounds
@@ -1277,52 +1285,156 @@ def nn_phase(dev, card):
 
 # ------------------------------------------------------- audio front-end
 
-BIQUAD_REPLACES = ("rustpotter_tpu/runtime/stream_step.py:503 (the band-pass lax.scan of "
-                   "prepare_chunk, not a Pallas kernel)")
+BIQUAD_REPLACES = ("rustpotter_tpu/runtime/stream_step.py:470-506 (prepare_chunk's gain "
+                   "normalizer and band-pass lax.scan, not Pallas kernels)")
+# the front-end kernel's build variants, timed beside the committed design
+BQ_VARIANTS = tuple((("BQ_TILE", t), ("BQ_SEGS", g)) for t in (16, 32) for g in (2, 3, 4, 6))
+BQ_W = 33  # the gain window of the bench wakeword (100 frames // 3)
+GAIN_09 = np.float32(9) * np.float32(0.1)  # the steps' gain at k = 9, 0x3F666667
+
+
+def front_inputs(rng, B, n, W, chunk):
+    """One chunk of the front-end kernel's inputs (numpy), as
+    tests/test_torch_front_cuda.py makes them: per stream a level L
+    log-uniform in [0.04, 8] gives window entries and an rms within x0.5-1.5
+    of it (ref 0.25: gains over every step 0.1 .. 1.0), counts 0 .. W,
+    every 16th stream exact silence, N(0, 0.3) samples with an impulse of
+    3.0, and stream 3 a NaN sample (and rms) in chunk 1."""
+    level = np.exp(rng.uniform(np.log(0.04), np.log(8.0), B))
+    rms = (level * rng.uniform(0.5, 1.5, B)).astype(np.float32)
+    win = (level[:, None] * rng.uniform(0.5, 1.5, (B, W))).astype(np.float32)
+    count = rng.integers(0, W + 1, B).astype(np.int32)
+    x = rng.normal(0, 0.3, (B, n)).astype(np.float32)
+    x[np.arange(B), rng.integers(0, n, B)] = 3.0
+    silent = np.arange(B) % 16 == 5
+    rms[silent], x[silent] = 0.0, 0.0
+    if chunk == 1:
+        x[3, 10] = rms[3] = np.nan
+    return rms, win, count, x
+
+
+def bits_or_nan_equal(got, want) -> bool:
+    """Equal bits where `want` is a number, NaN where it is NaN."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want) if want.is_floating_point() else torch.zeros_like(want, dtype=bool)
+    if not torch.equal(torch.isnan(got) if got.is_floating_point() else nan, nan):
+        return False
+    if not want.is_floating_point():
+        return torch.equal(got, want)
+    return torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
 
 
 def biquad_phase(dev, record):
-    """The biquad kernel against its plain version on the card, bit for bit
-    over 3 chunks with the taps carried: at the bench shape (B = 8192, 480
-    samples, float4 loads) and at B = 1000, 477 samples (scalar loads); then
-    its time at the bench shape beside the plain version's and its bound."""
+    """The front-end kernel (csrc/biquad.cu: the gain normalizer, then the
+    band-pass) against its plain version run on a CPU copy of the inputs,
+    bit for bit, in each form (gain and band-pass, band-pass only, gain
+    only) over 3 chunks with the window, count and taps carried in place as
+    the stream steps carry them (the ref NaN in chunk 2): at the bench shape
+    (B = 8192, 480 samples, the bulk form) and at B = 1000, 477 samples (the
+    simple form). Then its time at the bench shape in each form beside the
+    plain version's and the bounds, and the build variants' times."""
     import torch
 
     from rustpotter_tpu_torch.audio.filters import band_pass_coefficients
     from rustpotter_tpu_torch.ops import biquad
 
     coeffs = band_pass_coefficients(16000.0, 80.0, 400.0)
+    forms = {"both": (True, True), "band_pass": (False, True), "gain": (True, False)}
     rng = np.random.default_rng(12)
-    worst = 0.0
+    worst, steps = 0.0, set()
     for B, n in ((BENCH_STREAMS, 480), (1000, 477)):
-        s_k = s_p = torch.zeros(B, 4, device=dev)
-        for c in range(3):
-            x = torch.tensor(rng.normal(0, 0.3, (B, n)).astype(np.float32), device=dev)
-            s_k, y_k = biquad.biquad(coeffs, s_k, x)
-            s_p, y_p = biquad.biquad_plain(coeffs, s_p, x)
-            torch.cuda.synchronize()
-            worst = max(worst, float((y_k - y_p).abs().max()), float((s_k - s_p).abs().max()))
-            if not (torch.equal(y_k, y_p) and torch.equal(s_k, s_p)):
-                raise AssertionError(f"biquad B={B} n={n} chunk {c}: the kernel differs from "
-                                     f"its plain version (max |d| {worst:.3e})")
-    log(f"biquad: bit-equal to its plain version at B={BENCH_STREAMS} x 480 and B=1000 x 477, "
-        f"3 chunks with the taps carried")
-    B = BENCH_STREAMS
-    x = torch.tensor(rng.normal(0, 0.3, (B, 480)).astype(np.float32), device=dev)
-    s = torch.zeros(B, 4, device=dev)
-    ms = time_cuda(lambda: biquad.biquad(coeffs, s, x))
-    plain_ms = time_cuda(lambda: biquad.biquad_plain(coeffs, s, x), samples=3, per=1, warmup=1)
-    # 5 products and 4 sums per sample; each sample read once and written
-    # once, the taps read and written once
-    record["biquad"] = kernel_row("biquad", "biquad.cu", BIQUAD_REPLACES, worst, ms, plain_ms,
-                                  9 * B * 480, 4 * (2 * B * 480 + 2 * B * 4))
+        for form, (gain_on, bp_on) in forms.items():
+            _, win, count, _ = front_inputs(rng, B, n, BQ_W, 0)
+            card = [torch.tensor(win, device=dev), torch.tensor(count, device=dev),
+                    torch.zeros(B, device=dev), torch.zeros(B, 4, device=dev)]
+            cpu = [t.cpu().clone() for t in card]
+            for c in range(3):
+                rms, _, _, x = front_inputs(rng, B, n, BQ_W, c)
+                ref = np.float32(np.nan if c == 2 else 0.25)
+                outs = []
+                for d, (w, k, g, taps) in ((dev, card), ("cpu", cpu)):
+                    gain = (biquad.GainIn(torch.tensor(rms, device=d), torch.tensor(ref, device=d),
+                                          0.1, 1.0, w, k) if gain_on else None)
+                    into = biquad.Front(None, w, k, g, taps) if d == dev else None
+                    outs.append(biquad.front(torch.tensor(x, device=d), gain,
+                                             coeffs if bp_on else None, taps if bp_on else None,
+                                             into=into))
+                torch.cuda.synchronize()
+                f_k, f_p = outs
+                for name in ("out", "win", "count", "gain", "taps"):
+                    k_t, p_t = getattr(f_k, name), getattr(f_p, name)
+                    if p_t is None:
+                        continue
+                    if not bits_or_nan_equal(k_t, p_t):
+                        raise AssertionError(f"biquad {form} B={B} n={n} chunk {c}: {name} "
+                                             f"differs from the plain version")
+                    if p_t.is_floating_point():
+                        fin = torch.isfinite(p_t)
+                        worst = max(worst, float((k_t.cpu()[fin] - p_t[fin]).abs().max()))
+                if gain_on:
+                    cpu[:3] = [f_p.win, f_p.count, f_p.gain]
+                    steps.update(f_p.gain.numpy().tolist())
+                if bp_on:
+                    cpu[3] = f_p.taps
+    want = {float(np.float32(k) * np.float32(biquad.GAIN_STEP)) for k in range(1, 11)}
+    assert want <= steps and float(GAIN_09) in steps, sorted(want - steps)
+    log(f"biquad: the kernel is bit-equal to its plain version on a cpu copy in its 3 forms at "
+        f"B={BENCH_STREAMS} x 480 (bulk form) and B=1000 x 477 (simple form), 3 chunks with "
+        f"the state carried in place, W={BQ_W}; gains over every step 0.1-1.0, NaN, silence")
+
+    B, n, W = BENCH_STREAMS, 480, BQ_W
+    rms, win, count, x = (torch.tensor(a, device=dev) for a in front_inputs(rng, B, n, W, 0))
+    ref = torch.tensor(np.float32(0.25), device=dev)
+    st = [win, count, torch.zeros(B, device=dev), torch.zeros(B, 4, device=dev)]
+    into = biquad.Front(None, *st)
+    gain = biquad.GainIn(rms, ref, 0.1, 1.0, win, count)
+
+    def run(form, defines=()):
+        g, bp = forms[form]
+        return lambda: biquad.front(x, gain if g else None, coeffs if bp else None,
+                                    st[3] if bp else None, into=into, defines=defines)
+
+    # the kernel's device time: launches back to back in a CUDA graph (the
+    # wrapper's Python enqueue, ~0.03 ms a call, is longer than the kernel);
+    # CUDA events around the wrapper's calls beside it, as the parent timed it
+    ms = {form: time_cuda_graph(run(form)) for form in forms}
+    events_ms = {form: time_cuda(run(form)) for form in forms}
+    plain_ms = time_cuda(lambda: biquad.front_plain(x, gain, coeffs, st[3]), samples=3, per=1,
+                         warmup=1)
+    # bytes: the samples read and written, the window read and written, the
+    # taps read and written, rms, count in and out, gain out; operations: per
+    # sample the gain's product, 5 products and 4 sums; per stream the
+    # window's W - 1 sums, the mean, root, quotient and rounding (~W + 5)
+    work = {"both": (10 * B * n + (W + 5) * B, 4 * (2 * B * n + 2 * B * W + 2 * B * 4 + 4 * B)),
+            "band_pass": (9 * B * n, 4 * (2 * B * n + 2 * B * 4)),
+            "gain": (B * n + (W + 5) * B, 4 * (2 * B * n + 2 * B * W + 4 * B))}
+    for form in forms:
+        b_ms, b_by = bound(*work[form])
+        log(f"biquad {form} at {B} x {n}: {ms[form]:.4f} ms on the device (CUDA graph), "
+            f"{events_ms[form]:.4f} ms a wrapper call (CUDA events); bound {b_ms:.4f} ms by "
+            f"{b_by} ({100 * b_ms / ms[form]:.1f} % of it)")
+    for v in BQ_VARIANTS:
+        v_ms = {form: time_cuda_graph(run(form, v)) for form in ("both", "band_pass")}
+        log(f"biquad variant {dict(v)}: gain and band-pass {v_ms['both']:.4f} ms, band-pass "
+            f"only {v_ms['band_pass']:.4f} ms (CUDA graph)")
+    record["biquad"] = kernel_row("biquad", "biquad.cu", BIQUAD_REPLACES, worst, ms["both"],
+                                  plain_ms, *work["both"])
+    return {**{f"biquad_{form}_ms": v for form, v in ms.items()},
+            **{f"biquad_{form}_events_ms": v for form, v in events_ms.items()}}
+
+
+def is_front_kernel(name: str) -> bool:
+    """A profile row of csrc/biquad.cu's kernel (either form)."""
+    return "front_bulk<" in name or "front_simple<" in name
 
 
 def _front_split(rows, front_rows, resample_rows, t):
     """The device kernel time per chunk split into the MFCC front-end, the
     resample GEMM, the biquad, K1 and the rest, from torch.profiler rows of
     the chunk, of its front-end alone and of the resampler alone."""
-    biquad_ms = sum(r[0] for r in rows if "biquad" in r[2])
+    biquad_ms = sum(r[0] for r in rows if is_front_kernel(r[2]))
     k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
     resample_ms = sum(r[0] for r in resample_rows)
     front_ms = sum(r[0] for r in front_rows)
@@ -1372,12 +1484,26 @@ def _resample_rows(name, card, det, noise):
     return rows, {"resample_event_ms": ms, "resample_bound_ms": bound_ms}
 
 
-def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resample=False):
+def match_gains(gpu_states, cpu_states, name, gain_on):
+    """Raises unless the gains of streams 0-3 after a pass equal the CPU
+    run's bit for bit, and (with the gain normalizer on) stream 1, at noise
+    0.062, holds the steps' 0.9 (0x3F666667)."""
+    g, c = gpu_states.gain[:4].cpu().numpy(), cpu_states.gain[:4].numpy()
+    assert (g.view(np.uint32) == c.view(np.uint32)).all(), (name, g, c)
+    if gain_on:
+        assert g[1].view(np.uint32) == GAIN_09.view(np.uint32) == 0x3F666667, (name, g)
+    return [float(v) for v in g]
+
+
+def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resample=False,
+                  max_launches=None):
     """One front-end cell through BatchedDetector at B=8192 (K1): the
-    correctness pass (stream 0 must fire, K1 once per chunk, the biquad once
-    per chunk with the band-pass on and never without, no other kernel),
-    streams 0-3 against a device="cpu" run at B=4, then the host clock and
-    the device split. Returns the summary and the biquad's launches."""
+    correctness pass (stream 0 must fire, K1 once per chunk, the front-end
+    kernel once per chunk with a filter on and never without, no other
+    kernel), streams 0-3 against a device="cpu" run at B=4 (events, and the
+    gains after the pass bit for bit), then the host clock and the device
+    split, whose launches per chunk must not pass `max_launches`. Returns
+    the summary and the front-end kernel's launches."""
     import torch
 
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
@@ -1387,9 +1513,10 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
     det = BatchedDetector([("w", ww)], cfg, batch_size=B, device=dev,
                           in_graph_resample=in_graph_resample)
     n = stream0_np.shape[0]
-    bp = n if det.static.bp_enabled else 0
+    fronts = n if det.static.bp_enabled or det.static.gain_enabled else 0
+    states = det.init_states()
     reset_counts()
-    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), det.init_states(),
+    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), states,
                           torch.tensor(stream0_np, device=dev), noise)
     torch.cuda.synchronize()
     launches = read_counts()
@@ -1397,17 +1524,18 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
     log(f"{name} BatchedDetector: correctness pass {n} chunks of {det.static.input_samples} "
         f"samples at B={B}, stream 0 fired {fired0}x, launches {launches}")
     assert fired0 >= 1, f"correctness guard: {name} did not fire on stream 0"
-    assert launches["fused_dtw_v4"] == n and launches["biquad"] == bp, (name, launches)
-    assert sum(launches.values()) == n + bp, f"{name}: other kernels launched"
+    assert launches["fused_dtw_v4"] == n and launches["biquad"] == fronts, (name, launches)
+    assert sum(launches.values()) == n + fronts, f"{name}: other kernels launched"
     cpu_det = BatchedDetector([("w", ww)], cfg, batch_size=4, device="cpu",
                               in_graph_resample=in_graph_resample)
+    cpu_states = cpu_det.init_states()
     cpu = run_correctness(lambda s, f: cpu_det.process_chunk(cpu_det.params, s, f),
-                          cpu_det.init_states(), torch.tensor(stream0_np),
-                          torch.tensor(noise_np[:4]))
+                          cpu_states, torch.tensor(stream0_np), torch.tensor(noise_np[:4]))
     n_events, worst = match_events(gpu, cpu, f"{name} BatchedDetector")
     np.testing.assert_array_equal(gpu[5], cpu[5], err_msg=f"{name}: event gain, card vs cpu")
+    gains = match_gains(states, cpu_states, f"{name} BatchedDetector", det.static.gain_enabled)
     log(f"{name} BatchedDetector: streams 0-3 match the cpu run at B=4 ({n_events} events, "
-        f"max|d score| {worst:.3e}, gains equal)")
+        f"max|d score| {worst:.3e}, event gains equal, gains after the pass {gains} bit-equal)")
     t, rows, front_rows = chunk_timing(det, noise)
     resample_rows, resample_t = _resample_rows(name, card, det, noise)
     split = {**_front_split(rows, front_rows, resample_rows, t), **resample_t}
@@ -1415,13 +1543,16 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
         "front-end": split["front_ms"], "resample GEMM": split["resample_ms"],
         "biquad": split["biquad_ms"], "K1": split["k1_ms"], "rest": split["rest_ms"]}, rows)
     split["launches_per_chunk"] = sum(r[1] for r in rows)
+    if rows and max_launches is not None:
+        assert split["launches_per_chunk"] <= max_launches, (name, split["launches_per_chunk"])
     return {f"{name}_{k}": v for k, v in {**t, **split}.items()}, launches["biquad"]
 
 
-def front_step(dev, card, name, ww, cfg, stream0_np, noise_np):
+def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, max_launches=None):
     """The same cell through make_step at B=8192 in its default mode (K2):
-    3 K2 launches and one biquad launch per chunk, streams 0-3 against a
-    device="cpu" run, the host clock and the device split."""
+    3 K2 launches and one front-end launch per chunk, streams 0-3 against a
+    device="cpu" run (events, and the gains after the pass bit for bit),
+    the host clock and the device split (at most `max_launches` per chunk)."""
     import torch
 
     from rustpotter_tpu_torch.runtime.bundle import build_bundle
@@ -1434,8 +1565,9 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np):
     _, params_cpu = build_bundle([("w", ww)], cfg, "cpu")
     step = make_step(static)
     n = stream0_np.shape[0]
+    states = init_state(static, B, dev)
     reset_counts()
-    gpu = run_correctness(lambda s, f: step(params, s, f), init_state(static, B, dev),
+    gpu = run_correctness(lambda s, f: step(params, s, f), states,
                           torch.tensor(stream0_np, device=dev), noise)
     torch.cuda.synchronize()
     launches = read_counts()
@@ -1443,13 +1575,15 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np):
     assert launches["fused_dtw_v3"] == 3 * n and launches["biquad"] == n, (name, launches)
     assert sum(launches.values()) == 4 * n, f"{name} make_step: other kernels launched"
     cpu_step = make_step(static)
-    cpu = run_correctness(lambda s, f: cpu_step(params_cpu, s, f), init_state(static, 4, "cpu"),
+    cpu_states = init_state(static, 4, "cpu")
+    cpu = run_correctness(lambda s, f: cpu_step(params_cpu, s, f), cpu_states,
                           torch.tensor(stream0_np), torch.tensor(noise_np[:4]))
     n_events, worst = match_events(gpu, cpu, f"{name} make_step")
     np.testing.assert_array_equal(gpu[5], cpu[5], err_msg=f"{name} make_step: event gain")
+    gains = match_gains(states, cpu_states, f"{name} make_step", static.gain_enabled)
     log(f"{name} make_step: {n} chunks, K2 launches {launches['fused_dtw_v3']}, biquad "
         f"{launches['biquad']}; streams 0-3 match the cpu run at B=4 ({n_events} events, "
-        f"max|d score| {worst:.3e})")
+        f"max|d score| {worst:.3e}, gains after the pass {gains} bit-equal)")
     states, windows = timed_windows(lambda s, f: step(params, s, f), init_state(static, B, dev),
                                     noise)
     audio_s = B * TIMED_CHUNKS * 0.03
@@ -1459,11 +1593,13 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np):
     rows = device_kernels(lambda: step(params, states, noise), PROFILED_CHUNKS)
     t["kernel_ms"] = sum(r[0] for r in rows)
     gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower())
-    biquad_ms = sum(r[0] for r in rows if "biquad" in r[2])
+    biquad_ms = sum(r[0] for r in rows if is_front_kernel(r[2]))
     k2_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
     _log_cell(f"{name} make_step", card, t, {
         "GEMMs": gemm_ms, "biquad": biquad_ms, "K2": k2_ms,
         "rest": t["kernel_ms"] - gemm_ms - biquad_ms - k2_ms}, rows)
+    if rows and max_launches is not None:
+        assert sum(r[1] for r in rows) <= max_launches, (name, sum(r[1] for r in rows))
     return {f"{name}_step_{k}": v for k, v in {
         **t, "gemm_ms": gemm_ms, "biquad_ms": biquad_ms, "k2_ms": k2_ms,
         "launches_per_chunk": sum(r[1] for r in rows)}.items()}
@@ -1507,12 +1643,15 @@ def front_rustpotter(dev, card, name, ww, cfg, frames_np, bp):
     return {f"{name}_rp_ms": rp_ms, f"{name}_rp_encoder_ms": enc_ms}
 
 
-def front_phase(dev, card, record):
+def front_phase(dev, card, record, unfiltered):
     """The audio front-end cells (see the module docstring, phase 7):
-    `dtw_filters` (gain normalizer and band-pass on, 16 kHz) through
-    BatchedDetector, make_step and Rustpotter, and `dtw_48k` (48 kHz F32,
-    in-graph resampling) through BatchedDetector, with Rustpotter at 48 kHz
-    int16 through the host encoder."""
+    `dtw_filters` (gain normalizer and band-pass on, 16 kHz; stream 1 at
+    noise 0.062, gain 0.9) through BatchedDetector, make_step and
+    Rustpotter, and `dtw_48k` (48 kHz F32, in-graph resampling) through
+    BatchedDetector, with Rustpotter at 48 kHz int16 through the host
+    encoder. The filtered cells' launches per chunk may pass the unfiltered
+    ones' (`unfiltered`: the slice phases' profiles) by the one front-end launch
+    alone: no torch kernel of the filters is left."""
     import copy
 
     from rustpotter_tpu_torch import AudioFmt, RustpotterConfig, SampleFormat, ScoreMode
@@ -1536,10 +1675,13 @@ def front_phase(dev, card, record):
     cfg.filters.gain_normalizer.enabled = cfg.filters.band_pass.enabled = True
     stream0 = correctness_stream(F, utterance)
     noise = rng.normal(0, 0.05, (B, 480)).astype(np.float32)
-    cell, bq = front_batched(dev, card, "dtw_filters", ww, cfg, stream0, noise)
+    noise[1] *= np.float32(0.062 / 0.05)  # gain 0.9: the steps' 0x3F666667
+    cell, bq = front_batched(dev, card, "dtw_filters", ww, cfg, stream0, noise,
+                             max_launches=unfiltered["launches_per_chunk"] + 1)
     record["biquad"]["launches"] = bq
     summary.update(cell)
-    summary.update(front_step(dev, card, "dtw_filters", ww, cfg, stream0, noise))
+    summary.update(front_step(dev, card, "dtw_filters", ww, cfg, stream0, noise,
+                              max_launches=unfiltered["step_launches_per_chunk"] + 1))
     summary.update(front_rustpotter(dev, card, "dtw_filters", ww, cfg, stream0, 1))
 
     # dtw_48k: tools/bench_suite.py's scenario, the utterance synthesized at 48 kHz
@@ -1830,6 +1972,7 @@ def main() -> int:
     builds += [(src, {"RP_C": 16, "RP_W": w}) for src, w in WIDE]
     builds += [("banded_dtw.cu", {"RP_W": w}) for w in K3_BANDS]
     builds += [("fma_probe.cu", {}), ("biquad.cu", {}), ("ingest.cpp", {})]
+    builds += [("biquad.cu", dict(v)) for v in BQ_VARIANTS]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _build.build(*b), builds))
     log(f"build: {len(builds)} libraries (kernel variants and the host ingest library) in "
@@ -1846,12 +1989,13 @@ def main() -> int:
     k4_phase(dev, record)
     k5_phase(dev, record)
     probe_phase(dev, record)
-    biquad_phase(dev, record)
+    bq = biquad_phase(dev, record)
     summary = slice_phase(dev, record)
+    summary.update(bq)
     summary.update(per_shift_phase(dev, record))
     summary.update(tools_phase(dev, record))
     summary.update(nn_phase(dev, card))
-    summary.update(front_phase(dev, card, record))
+    summary.update(front_phase(dev, card, record, summary))
     summary.update(train_phase(dev, card))
     summary.update(shard_phase(dev, card))
     log(json.dumps({"card": card, **summary}))

@@ -11,7 +11,7 @@ Ported so far (ROADMAP.md), for DTW wakewords: the batched serving chunk
 per-shift stream step (`runtime.stream_step.make_step`) with K2 and K4
 (`ops.fused_dtw`) and K3 (`ops.banded_dtw`); the single-stream `Rustpotter`
 API on it; NN wakewords; the audio front-end of both steps (the gain
-normalizer, the band-pass biquad of `ops.biquad`, input at any rate resampled
+normalizer and the band-pass biquad, one kernel of `ops.biquad`, input at any rate resampled
 on the host or in the graph); the wakeword builder from WAV files; NN
 training (`wakewords.trainer`); and stream sharding over
 `torch.distributed` (`parallel`: one process per card, the streams split

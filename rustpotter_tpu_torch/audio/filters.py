@@ -6,11 +6,15 @@ src/audio/gain_normalizer_filter.rs (rolling-RMS gain with 0.1-step rounding
 and ±1 clamping — :14-38). The counterpart of `rustpotter_tpu.audio.filters`:
   - host classes (numpy f32, sequential), copies of the JAX package's: the
     oracles of the stream steps' filters;
-  - `band_pass_step`, the biquad over a batch of streams, which the stream
-    steps run (`runtime.stream_step.prepare_chunk`): on a CUDA tensor the
-    hand-written kernel of `ops.biquad`, on a CPU tensor its plain version.
+  - `band_pass_step`, the biquad over a batch of streams: on a CUDA tensor
+    the hand-written kernel of `ops.biquad` (its band-pass-only form), on a
+    CPU tensor its plain version. The stream steps run the gain normalizer
+    and the band-pass together, `ops.biquad.front`.
 The gain rounding is half-away-from-zero (floor(x·10+0.5), matching Rust
-f32::round for positive gains) in both.
+f32::round for positive gains) in both. The host class divides the rounded
+value by 10, as the reference and the JAX package's host class do; the
+stream steps multiply it by fl32(0.1) (`ops.biquad.GAIN_STEP`), as the JAX
+package's compiled step does: the two differ at 0.9 (0.9 against 0.90000004).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 // Dynamic shared memory past the 48 KB a block gets by default, on Hopper
 // (sm_90a). Included by the kernels whose shared memory grows with the band
 // (K1 fused_dtw_v4.cu, K2 fused_dtw_v3.cu, K3 banded_dtw.cu, K4 fused_dtw_v2.cu,
-// K5 fused_dtw_v1.cu).
+// K5 fused_dtw_v1.cu) and by the front-end kernel (biquad.cu), whose grows
+// with the chunk's samples.
 #pragma once
 #include <cuda_runtime.h>
 

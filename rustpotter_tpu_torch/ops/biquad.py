@@ -1,39 +1,94 @@
-"""The band-pass biquad over a batch of streams: one kernel launch per chunk.
+"""The audio front-end's filters over a batch of streams: the gain normalizer,
+then the band-pass biquad, in one kernel launch per chunk.
 
-`biquad` is the function of the JAX package's band-pass scan
-(`rustpotter_tpu/runtime/stream_step.py` `prepare_chunk`, and
-`rustpotter_tpu/audio/filters.py` `band_pass_step`): an order-2 IIR in
-direct form I over each stream's samples, taps [x1, x2, y1, y2] carried from
-chunk to chunk. It is a `lax.scan` there, not a Pallas kernel; in PyTorch
-the scan would be ~10 elementwise launches per sample (~4,800 per chunk), so
-on a CUDA tensor `biquad` launches the hand-written kernel of csrc/biquad.cu
-(one thread per stream, built at first use) or raises; on a CPU tensor it
-runs the plain version, `biquad_plain`, a loop over the samples.
+`front` is the function of the JAX package's `prepare_chunk` between the rms
+and the pre-emphasis (`rustpotter_tpu/runtime/stream_step.py`): the gain
+normalizer (a rolling window of the chunk rms values, its mean over the
+entries in use, the gain rounded to a 0.1 step and clamped, the samples
+scaled and clipped to [-1, 1]) and the band-pass (an order-2 IIR in direct
+form I, taps [x1, x2, y1, y2] carried from chunk to chunk; a `lax.scan`
+there, `audio/filters.py` `band_pass_step`). Neither is a Pallas kernel. In
+PyTorch they are ~60 small launches (the gain) and a loop of ~10 elementwise
+launches per sample (~4,800 per chunk: the biquad), so on a CUDA tensor
+`front` launches the hand-written kernel of csrc/biquad.cu once, in one of
+three forms (gain and band-pass, gain only, band-pass only), built at first
+use, or raises; on a CPU tensor it runs the plain version, `front_plain`.
+`biquad` is the band-pass-only form.
 
-Both evaluate y = a0·x + a1·x1 + a2·x2 − b1·y1 − b2·y2 left to right with
-every product and sum rounded to fp32 (the kernel through __fmul_rn,
-__fadd_rn and __fsub_rn, which the compiler never contracts into an FMA), so
-the kernel equals the plain version bit for bit, and the plain version
-equals the host oracle `audio.filters.BandPassFilter`.
+The two agree bit for bit:
+- the window is summed in index order, oldest first, zeros included, as the
+  reference's queue and the host oracle sum it (a fixed order of fp32 adds:
+  a reduction would differ by a last bit, and `floor(x·10 + 0.5)` turns that
+  into a 0.1 step);
+- the gain is floor(ref / sqrt(mean) · 10 + 0.5) · GAIN_STEP, each step
+  rounded to fp32;
+- the biquad evaluates y = a0·x + a1·x1 + a2·x2 − b1·y1 − b2·y2 left to right
+  with every product and sum rounded to fp32 (the kernel through __fmul_rn,
+  __fadd_rn and __fsub_rn, which the compiler never contracts into an FMA),
+  so the plain version also equals the host oracle `audio.filters.BandPassFilter`.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import _build
 
 SOURCE = "biquad.cu"
 
+# The gain's step. The JAX package writes floor(g·10 + 0.5) / 10.0, and XLA
+# compiles the division by a constant into a product with fl32(0.1), which
+# rounds differently from a division for 399 of k = 0..2000 (k = 9 first:
+# 0.90000004, not 0.9). The port multiplies by that fp32 value on every
+# device: a Python float holding it exactly, so torch's CPU and CUDA
+# products and the kernel's __fmul_rn give the same bits. The host classes
+# (`audio.filters.GainNormalizerFilter`, as JAX's) divide.
+GAIN_STEP = float(np.float32(1) / np.float32(10))
+
 # Launch count of the kernel wrapper: one per launch, nowhere else
 # (chip_smoke.py resets and reads it).
 LAUNCHES = {"biquad": 0}
 
 
+class GainIn(NamedTuple):
+    """The gain normalizer's inputs for one chunk of B streams."""
+
+    rms: torch.Tensor  # (B,) f32 the chunk's rms level
+    ref_sqrt: torch.Tensor  # () f32 sqrt of the wakeword's rms level; NaN if none
+    lo: float  # gain_min
+    hi: float  # gain_max
+    win: torch.Tensor  # (B, W) f32 rolling rms window, newest last
+    count: torch.Tensor  # (B,) i32 entries of the window in use
+
+
+class Front(NamedTuple):
+    """What `front` writes; None for the parts of a filter that is off."""
+
+    out: torch.Tensor  # (B, n) the filtered samples
+    win: Optional[torch.Tensor]  # (B, W) the window after this chunk
+    count: Optional[torch.Tensor]  # (B,) i32
+    gain: Optional[torch.Tensor]  # (B,) the chunk's gain
+    taps: Optional[torch.Tensor]  # (B, 4) [x1, x2, y1, y2] after this chunk
+
+
+def window_mean(gwin: torch.Tensor, gcount: torch.Tensor) -> torch.Tensor:
+    """Mean of the last `gcount` (B,) entries of each row of the (B, W) shift
+    register, the newest last, summed in index order, oldest first."""
+    W = gwin.shape[1]
+    keep = torch.arange(W, device=gwin.device)[None, :] >= W - gcount[:, None]
+    masked = torch.where(keep, gwin, 0.0)
+    total = masked[:, 0]
+    for i in range(1, W):
+        total = total + masked[:, i]
+    return total / gcount.to(torch.float32)
+
+
 def biquad_plain(coeffs, state: torch.Tensor, signal: torch.Tensor):
-    """The plain version: state (B, 4), signal (B, n) → (state', out (B, n))."""
+    """The plain biquad: state (B, 4), signal (B, n) → (state', out (B, n))."""
     a0, a1, a2, b1, b2 = (float(c) for c in coeffs)
     x1, x2, y1, y2 = state.unbind(-1)
     out = []
@@ -44,42 +99,144 @@ def biquad_plain(coeffs, state: torch.Tensor, signal: torch.Tensor):
     return torch.stack([x1, x2, y1, y2], dim=-1), torch.stack(out, dim=-1)
 
 
+def front_plain(samples: torch.Tensor, gain: Optional[GainIn] = None, coeffs=None,
+                taps: Optional[torch.Tensor] = None) -> Front:
+    """The plain version of `front` (without `into`): the JAX package's torch
+    composition, new tensors."""
+    win = count = g = None
+    if gain is not None:
+        W = gain.win.shape[1]
+        apply = ~torch.isnan(gain.ref_sqrt) & (gain.rms != 0.0)
+        gwin = torch.cat([gain.win[:, 1:], gain.rms[:, None]], dim=1)
+        gcount = torch.clamp(gain.count + 1, max=W)
+        mean = window_mean(gwin, gcount)
+        # Rust f32::round is half-away-from-zero; the gain is positive
+        g = torch.clamp(
+            torch.floor(gain.ref_sqrt / torch.sqrt(mean) * 10.0 + 0.5) * GAIN_STEP,
+            gain.lo, gain.hi,
+        )
+        g = torch.where(apply, g, 1.0)
+        win = torch.where(apply[:, None], gwin, gain.win)
+        count = torch.where(apply, gcount, gain.count).to(torch.int32)
+        samples = torch.where((g != 1.0)[:, None],
+                              torch.clamp(samples * g[:, None], -1.0, 1.0), samples)
+    if coeffs is not None:
+        taps, samples = biquad_plain(coeffs, taps, samples)
+    return Front(samples, win, count, g, taps)
+
+
 @lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE, {})
-    fn = lib.rp_biquad
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    lib = _build.load(SOURCE, dict(defines))
+    fn = lib.rp_front
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
     fn.restype = ctypes.c_int
     return lib
 
 
-def biquad(coeffs, state: torch.Tensor, signal: torch.Tensor):
-    """coeffs (a0, a1, a2, b1, b2) exact fp32 values, state (B, 4) taps,
-    signal (B, n) → (state' (B, 4), filtered (B, n)), both new tensors."""
-    if signal.dim() != 2:
-        raise ValueError(f"signal must be (B, n), got {tuple(signal.shape)}")
-    B = signal.shape[0]
-    if tuple(state.shape) != (B, 4):
-        raise ValueError(f"state must be ({B}, 4), got {tuple(state.shape)}")
-    if len(coeffs) != 5:
-        raise ValueError(f"coeffs must be (a0, a1, a2, b1, b2), got {len(coeffs)} values")
-    if signal.device.type == "cpu":
-        return biquad_plain(coeffs, state, signal)
-    if signal.device.type != "cuda":
-        raise ValueError(f"biquad: unsupported device {signal.device}")
-    dev = signal.device
-    for name, t in (("signal", signal), ("state", state)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-    out = torch.empty_like(signal)
-    state_out = torch.empty_like(state)
+def _check(samples: torch.Tensor, gain: Optional[GainIn], coeffs, taps,
+           into: Optional[Front]) -> None:
+    if samples.dim() != 2:
+        raise ValueError(f"signal must be (B, n), got {tuple(samples.shape)}")
+    B = samples.shape[0]
+    if coeffs is not None:
+        if len(coeffs) != 5:
+            raise ValueError(f"coeffs must be (a0, a1, a2, b1, b2), got {len(coeffs)} values")
+        if taps is None or tuple(taps.shape) != (B, 4):
+            raise ValueError(f"state must be ({B}, 4), got "
+                             f"{None if taps is None else tuple(taps.shape)}")
+    if gain is not None:
+        W = gain.win.shape[-1]
+        for name, t, shape in (("rms", gain.rms, (B,)), ("ref_sqrt", gain.ref_sqrt, ()),
+                               ("win", gain.win, (B, W)), ("count", gain.count, (B,))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"gain {name} must be {shape}, got {tuple(t.shape)}")
+        if W < 1:
+            raise ValueError("the gain window must hold at least one entry")
+    if into is not None:
+        if into.out is not None:
+            raise ValueError("front writes its samples into a new tensor")
+        on = gain is not None
+        likes = {"win": gain.win if on else None, "count": gain.count if on else None,
+                 "gain": gain.rms if on else None,
+                 "taps": taps if coeffs is not None else None}
+        for name, like in likes.items():
+            t = getattr(into, name)
+            if t is not None and like is not None and (
+                    t.shape != like.shape or t.dtype != like.dtype
+                    or t.device != like.device or not t.is_contiguous()):
+                raise ValueError(f"into.{name} must be a contiguous tensor like the input's")
+
+
+def front(samples: torch.Tensor, gain: Optional[GainIn] = None, coeffs=None,
+          taps: Optional[torch.Tensor] = None, *, into: Optional[Front] = None,
+          defines: tuple = ()) -> Front:
+    """The gain normalizer (`gain`, None for off), then the band-pass biquad
+    (`coeffs` (a0, a1, a2, b1, b2) exact fp32 values and `taps` (B, 4), None
+    for off) over samples (B, n). The filtered samples are a new tensor; the
+    window, count, gain and taps are written into the tensors of `into` that
+    are given (they may be the inputs themselves: the stream steps update
+    their state where it lies), else into new ones; those of a filter that
+    is off are left alone. With both filters off,
+    nothing runs and `out` is `samples`. `defines`: ((name, value), ...)
+    compile-time constants of the kernel's build (BQ_TILE, BQ_SEGS; the
+    default is the committed design)."""
+    _check(samples, gain, coeffs, taps, into)
+    if gain is None and coeffs is None:
+        return Front(samples, None, None, None, None)
+    if samples.device.type == "cpu":
+        f = front_plain(samples, gain, coeffs, taps)
+        if into is None:
+            return f
+        return Front(f.out, *(n if d is None or n is None else d.copy_(n)
+                              for d, n in zip(into[1:], f[1:])))
+    if samples.device.type != "cuda":
+        raise ValueError(f"biquad: unsupported device {samples.device}")
+    dev = samples.device
+    named = [("signal", samples, torch.float32)]
+    if coeffs is not None:
+        named.append(("state", taps, torch.float32))
+    if gain is not None:
+        named += [("rms", gain.rms, torch.float32), ("ref_sqrt", gain.ref_sqrt, torch.float32),
+                  ("win", gain.win, torch.float32), ("count", gain.count, torch.int32)]
+    for name, t, dtype in named:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {str(dtype)[6:]} tensor on {dev}")
+    B, n = samples.shape
+    into = into or Front(None, None, None, None, None)
+    new = lambda t, like: torch.empty_like(like) if t is None else t
+    out = torch.empty_like(samples)
+    taps_out = new(into.taps, taps) if coeffs is not None else None
+    if gain is not None:
+        win_out, count_out = new(into.win, gain.win), new(into.count, gain.count)
+        gain_out = new(into.gain, gain.rms)
+        g_ptrs = (gain.rms.data_ptr(), gain.ref_sqrt.data_ptr(), gain.win.data_ptr(),
+                  gain.count.data_ptr(), win_out.data_ptr(), count_out.data_ptr(),
+                  gain_out.data_ptr())
+        g_args = (float(gain.lo), float(gain.hi), gain.win.shape[1])
+    else:
+        win_out = count_out = gain_out = None
+        g_ptrs, g_args = (None,) * 7, (0.0, 0.0, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().rp_biquad(
-        state.data_ptr(), signal.data_ptr(), state_out.data_ptr(), out.data_ptr(),
-        *(float(c) for c in coeffs), stream, B, signal.shape[1],
+    err = _library(tuple(defines)).rp_front(
+        int(gain is not None), int(coeffs is not None), *g_ptrs, *g_args,
+        taps.data_ptr() if coeffs is not None else None,
+        taps_out.data_ptr() if coeffs is not None else None,
+        *(float(c) for c in (coeffs if coeffs is not None else (0.0,) * 5)),
+        samples.data_ptr(), out.data_ptr(), stream, B, n,
     )
     if err != 0:
         raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
     LAUNCHES["biquad"] += 1
-    return state_out, out
+    return Front(out, win_out, count_out, gain_out, taps_out)
+
+
+def biquad(coeffs, state: torch.Tensor, signal: torch.Tensor):
+    """The band-pass alone: coeffs (a0, a1, a2, b1, b2) exact fp32 values,
+    state (B, 4) taps, signal (B, n) → (state' (B, 4), filtered (B, n)),
+    both new tensors."""
+    r = front(signal, None, coeffs, state)
+    return r.taps, r.out

@@ -40,9 +40,10 @@ first, then the NN ones (`_combine_batched`).
 Both steps start with `prepare_chunk`, the audio front-end of the JAX
 package's: the in-graph resampler (one fp32 GEMM, `audio.resampler`) where
 the bundle takes chunks at another rate, the rms level, the gain normalizer
-(a rolling-rms window per stream, summed in index order) and the band-pass
-biquad (`audio.filters.band_pass_step`: the hand-written kernel of
-`ops.biquad` on the card, one launch per chunk), then pre-emphasis.
+(a rolling-rms window per stream, summed in index order, the gain in steps of
+`ops.biquad.GAIN_STEP`) and the band-pass biquad, both in `ops.biquad.front`
+(on the card one launch per chunk of the hand-written kernel), then
+pre-emphasis.
 """
 from __future__ import annotations
 
@@ -50,11 +51,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..audio.filters import band_pass_step
 from ..audio.resampler import make_torch_resampler
 from ..config import ScoreMode
 from ..constants import SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT
-from ..ops import frontend
+from ..ops import biquad, frontend
 from ..ops.dtw import band_costs
 from ..ops.dtw_dispatch import get_banded_dtw
 from ..ops.fused_dtw import (
@@ -604,21 +604,6 @@ def detection_bookkeeping(static: StepStatic, params: StepParams,
     return state, event
 
 
-def _window_mean(gwin: torch.Tensor, gcount: torch.Tensor) -> torch.Tensor:
-    """Mean of the last `gcount` (B,) entries of each row of the (B, Wg) shift
-    register, the newest last. The sum runs in index order, oldest first, as
-    the reference's queue and the host oracle sum it: a fixed order of fp32
-    adds gives the same bits on every device, where a reduction would not,
-    and `floor(x·10 + 0.5)` turns a last-bit difference into a 0.1 step."""
-    Wg = gwin.shape[1]
-    keep = torch.arange(Wg, device=gwin.device)[None, :] >= Wg - gcount[:, None]
-    masked = torch.where(keep, gwin, 0.0)
-    total = masked[:, 0]
-    for i in range(1, Wg):
-        total = total + masked[:, i]
-    return total / gcount.to(torch.float32)
-
-
 def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
                   samples: torch.Tensor):
     """Per-chunk front-end (parity: the JAX package's `prepare_chunk`):
@@ -633,28 +618,23 @@ def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
         state = state._replace(rs_overlap=overlap)
     rms = frontend.rms_level(samples)
     state = state._replace(rms_level=rms)
-    if static.gain_enabled:
-        Wg = static.gain_window_size
-        apply = ~torch.isnan(params.gain_ref_sqrt) & (rms != 0.0)
-        gwin = torch.cat([state.gain_win[:, 1:], rms[:, None]], dim=1)
-        gcount = torch.clamp(state.gain_count + 1, max=Wg)
-        mean = _window_mean(gwin, gcount)
-        # Rust f32::round is half-away-from-zero; the gain is positive
-        gain = torch.clamp(
-            torch.floor(params.gain_ref_sqrt / torch.sqrt(mean) * 10.0 + 0.5) / 10.0,
-            static.gain_min, static.gain_max,
-        )
-        gain = torch.where(apply, gain, 1.0)
-        state = state._replace(
-            gain_win=torch.where(apply[:, None], gwin, state.gain_win),
-            gain_count=torch.where(apply, gcount, state.gain_count).to(torch.int32),
-            gain=gain,
-        )
-        samples = torch.where((gain != 1.0)[:, None],
-                              torch.clamp(samples * gain[:, None], -1.0, 1.0), samples)
-    if static.bp_enabled:
-        bp, samples = band_pass_step(static.bp_coeffs, state.bp, samples.contiguous())
-        state = state._replace(bp=bp)
+    if static.gain_enabled or static.bp_enabled:
+        gain = None
+        if static.gain_enabled:
+            gain = biquad.GainIn(rms, params.gain_ref_sqrt, static.gain_min, static.gain_max,
+                                 state.gain_win, state.gain_count)
+        bp = static.bp_coeffs if static.bp_enabled else None
+        # the window, count, gain and taps are written where they lie (the
+        # step commits its state into the caller's tensors anyway), so the
+        # commit copies none of them
+        f = biquad.front(samples.contiguous(), gain, bp, None if bp is None else state.bp,
+                         into=biquad.Front(None, state.gain_win, state.gain_count, state.gain,
+                                           state.bp))
+        samples = f.out
+        if gain is not None:
+            state = state._replace(gain_win=f.win, gain_count=f.count, gain=f.gain)
+        if bp is not None:
+            state = state._replace(bp=f.taps)
     shifts = frontend.pre_emphasis(samples.reshape(-1, 3, SAMPLES_PER_SHIFT))
     return state, shifts
 

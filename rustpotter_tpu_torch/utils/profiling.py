@@ -143,6 +143,32 @@ def time_cuda(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def time_cuda_graph(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> float:
+    """ms per call of fn's device work alone: `per` calls captured once in a
+    CUDA graph, the median over `samples` replays timed by CUDA events,
+    divided by `per`. Unlike `time_cuda`, the host's enqueue is not in it, so
+    a kernel shorter than its wrapper's Python is timed, not the wrapper;
+    fn must launch on the current stream and read nothing on the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    return float(np.median(times))
+
+
 def device_kernels(fn, n: int):
     """torch.profiler over `n` calls of fn: [(ms per call, launches per call,
     kernel name)] of the device kernels, longest first. Empty when the

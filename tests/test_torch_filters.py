@@ -15,7 +15,17 @@ emulation of that order), so its output differs from the oracle's by up to
 held to it at atol 1e-5. Detection decisions (fired, ww, counter) and the
 gain must be equal; scores where an event fired at rtol 2e-5 / atol 2e-5, as
 in test_torch_batched.py.
+
+The gain's step: the host classes (both packages' `GainNormalizerFilter`,
+as the reference) divide, floor(g·10 + 0.5) / 10, and give 0.9 at k = 9;
+both packages' stream steps multiply by fl32(0.1) (the JAX package's
+division by a constant compiles to that product; the port writes it,
+`ops.biquad.GAIN_STEP`) and give 0.90000004 (0x3F666667) there. The step's
+gain is held to the JAX package's bit for bit, at a stream that reaches 0.9
+(noise at 0.062 on the 30-frame bench wakeword) and over every step k.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +45,7 @@ from rustpotter_tpu.wakewords.files import WakewordRef as JaxWakewordRef
 from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
 from rustpotter_tpu_torch.audio import filters
 from rustpotter_tpu_torch.ops import biquad, frontend
+from rustpotter_tpu_torch.ops.biquad import GAIN_STEP
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
 from rustpotter_tpu_torch.runtime.bundle import build_bundle
 from rustpotter_tpu_torch.runtime.convert import states_to_numpy
@@ -55,6 +66,13 @@ CLOSE_STATE = ("partial_score", "partial_avg", "partial_scores", "rms_level", "g
 STATIC_FIELDS = ("input_samples", "input_rate", "gain_enabled", "gain_min", "gain_max",
                  "gain_window_size", "bp_enabled", "bp_coeffs")
 FILTERS = {"gain": (True, False), "band_pass": (False, True), "both": (True, True)}
+LEVEL_09 = 0.062  # stream 1's noise level that gives gain 0.9 (k = 9)
+GAIN_09 = np.float32(9) * np.float32(0.1)  # the steps' gain there, 0x3F666667
+LEAD = 12  # Rustpotter's lead of stream-1 chunks: more than the gain window (10)
+# the end-to-end cases: (filters, stream 1's noise level); the ones at 0.05
+# (gain 1) keep the filters' names as ids
+CASES = ([pytest.param(w, 0.05, id=w) for w in FILTERS]
+         + [pytest.param(w, LEVEL_09, id=f"{w}-gain0.9") for w in ("gain", "both")])
 CUTOFFS = ((80.0, 400.0), (200.0, 1300.0))
 
 
@@ -81,17 +99,18 @@ def ww_pair(longest=30):
     return ww, jww, utterance
 
 
-def level_streams(stream0: np.ndarray, seed: int, floor: float = 1e-3) -> np.ndarray:
+def level_streams(stream0: np.ndarray, seed: int, floor: float = 1e-3,
+                  level1: float = 0.05) -> np.ndarray:
     """(T, 4, n) chunks: stream 0 `stream0` (the utterance) on a noise floor
     at `floor` (a microphone's; `test_band_pass_ring_down_after_digital_silence`
-    takes exact silence), 1 noise at 0.05 (gain 1), 2 noise at 0.2 (gain
-    0.5), 3 one impulse of 3.0 per chunk on noise at 0.01 (gain 0.6, the
-    scaled impulse clipped at 1)."""
+    takes exact silence), 1 noise at `level1` (0.05: gain 1; LEVEL_09: gain
+    0.9), 2 noise at 0.2 (gain 0.5), 3 one impulse of 3.0 per chunk on noise
+    at 0.01 (gain 0.6, the scaled impulse clipped at 1)."""
     T, n = stream0.shape
     rng = np.random.default_rng(seed)
     frames = np.empty((T, 4, n), np.float32)
     frames[:, 0] = stream0 + rng.normal(0, floor, (T, n))
-    frames[:, 1] = rng.normal(0, 0.05, (T, n))
+    frames[:, 1] = rng.normal(0, level1, (T, n))
     frames[:, 2] = rng.normal(0, 0.2, (T, n))
     frames[:, 3] = rng.normal(0, 0.01, (T, n))
     frames[np.arange(T), 3, rng.integers(0, n, T)] = 3.0
@@ -102,7 +121,12 @@ def level_streams(stream0: np.ndarray, seed: int, floor: float = 1e-3) -> np.nda
 def workload():
     ww, jww, utterance = ww_pair()
     stream0 = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
-    return ww, jww, level_streams(stream0, 5)
+    return ww, jww, stream0
+
+
+def frames_at(workload, level1):
+    ww, jww, stream0 = workload
+    return ww, jww, level_streams(stream0, 5, level1=level1)
 
 
 def _numpy(nt) -> dict:
@@ -128,9 +152,10 @@ def assert_state_equal(got, want, t):
     np.testing.assert_array_equal(np.isnan(got["vad_win"]), np.isnan(want["vad_win"]))
 
 
-def compare_batched(jww, ww, frames, jcfg, cfg, in_graph_resample=False):
+def compare_batched(jww, ww, frames, jcfg, cfg, in_graph_resample=False, seen=None):
     """The JAX and the port's BatchedDetector chunk by chunk on `frames`:
-    events and states held after every chunk. Returns the port's events."""
+    events and states held after every chunk; the state's gains go into the
+    set `seen`, if given. Returns the port's events."""
     jdet = JaxBatchedDetector([("w", jww)], jcfg, batch_size=frames.shape[1],
                               in_graph_resample=in_graph_resample)
     det = BatchedDetector([("w", ww)], cfg, batch_size=frames.shape[1], device="cpu",
@@ -145,14 +170,16 @@ def compare_batched(jww, ww, frames, jcfg, cfg, in_graph_resample=False):
         got = events_to_numpy(ev)._asdict()
         assert_event_equal(got, _numpy(jev), t)
         assert_state_equal(states_to_numpy(st), _numpy(jst), t)
+        if seen is not None:
+            seen.update(st.gain.numpy().tolist())
         evs.append(got)
     return {f: np.stack([e[f] for e in evs]) for f in evs[0]}
 
 
-def compare_step(jww, ww, frames, jcfg, cfg, in_graph_resample=False):
+def compare_step(jww, ww, frames, jcfg, cfg, in_graph_resample=False, seen=None):
     """The vmapped JAX per-shift step and the port's make_step, unfused (the
-    front-end does not depend on the DTW kernel), chunk by chunk. Returns
-    stream 0's fires."""
+    front-end does not depend on the DTW kernel), chunk by chunk; the state's
+    gains go into the set `seen`, if given. Returns stream 0's fires."""
     jstatic, jparams = jax_build_bundle([("w", jww)], jcfg, dtw_fused=False,
                                         in_graph_resample=in_graph_resample)
     jparams = jax.tree_util.tree_map(jnp.asarray, jparams)
@@ -175,15 +202,17 @@ def compare_step(jww, ww, frames, jcfg, cfg, in_graph_resample=False):
         want = _numpy(jst)
         want["win"] = np.transpose(want["win"], (1, 2, 0))
         assert_state_equal(states_to_numpy(st), want, t)
+        if seen is not None:
+            seen.update(st.gain.numpy().tolist())
         fired += int(got["fired"][0])
     return fired
 
 
-def compare_rustpotter(jww, ww, frames, jcfg, cfg):
+def compare_rustpotter(jww, ww, frames, jcfg, cfg, seen=None):
     """The JAX and the port's Rustpotter frame by frame through
     process_samples: detections (frame, name, counter, gain) equal, scores
-    close, and the gain and rms getters after every frame. Returns the
-    detection frames."""
+    close, and the gain and rms getters after every frame (the gains into
+    the set `seen`, if given). Returns the detection frames."""
     jrp, rp = JaxRustpotter(jcfg), Rustpotter(cfg, device="cpu")
     jrp.add_wakeword_ref("w", jww)
     rp.add_wakeword_ref("w", ww)
@@ -193,6 +222,8 @@ def compare_rustpotter(jww, ww, frames, jcfg, cfg):
         g, w = rp.process_samples(frame), jrp.process_samples(frame)
         assert (g is None) == (w is None), i
         assert rp.get_gain() == jrp.get_gain(), i
+        if seen is not None:
+            seen.add(rp.get_gain())
         assert rp.get_rms_level() == pytest.approx(jrp.get_rms_level(), rel=2e-5, abs=1e-7), i
         if w is not None:
             assert (g.name, g.counter, g.gain, list(g.scores)) == (
@@ -275,16 +306,25 @@ def test_gain_normalizer_host_class_equals_jax(fixed, window):
         np.testing.assert_array_equal(out, jout)
 
 
+def step_gain(host_gain) -> np.float32:
+    """The stream steps' gain where the host class gives `host_gain` = k/10
+    (fl32(k · fl32(0.1)); see the module docstring), clamped as it is."""
+    k = np.float32(np.round(np.float32(host_gain) * np.float32(10)))
+    return np.float32(k * np.float32(0.1)) if host_gain != 1.0 else np.float32(1.0)
+
+
 def test_prepare_chunk_filters_equal_the_host_oracles():
     """The gain normalizer and band-pass of prepare_chunk, over 12 chunks of
-    streams at four levels, against one GainNormalizerFilter (fed the chunk's
-    rms) and one BandPassFilter per stream: gains, taps and the
-    pre-emphasized shifts bit for bit."""
+    streams at four levels (gains 0.9, 1, 0.5 and 0.6), against one
+    GainNormalizerFilter (fed the chunk's rms) and one BandPassFilter per
+    stream: gains, taps and the pre-emphasized shifts bit for bit, with the
+    steps' gain where the host class divides (0.9 at k = 9) and the
+    samples scaled by it."""
     _, cfg = configs("both")
     ww, _, _ = ww_pair()
     static, params = build_bundle([("w", ww)], cfg, "cpu")
     frames = level_streams(np.zeros((12, 480), np.float32), 3)
-    frames[:, 0] = np.random.default_rng(4).normal(0, 0.3, (12, 480))
+    frames[:, 0] = np.random.default_rng(4).normal(0, LEVEL_09, (12, 480))
     st = init_state(static, 4, "cpu")
     gains = [filters.GainNormalizerFilter(static.gain_min, static.gain_max) for _ in range(4)]
     bps = [filters.BandPassFilter(16000, 80.0, 400.0) for _ in range(4)]
@@ -296,15 +336,60 @@ def test_prepare_chunk_filters_equal_the_host_oracles():
         rms = st.rms_level.numpy()
         want = []
         for b in range(4):
-            sig, gain = gains[b].filter(frames[t, b], rms[b])
+            _, host = gains[b].filter(frames[t, b], rms[b])
+            gain = step_gain(host)
             assert st.gain[b].item() == gain, (t, b)
             seen.add(gain)
+            sig = frames[t, b] if gain == 1.0 else np.clip(frames[t, b] * gain, -1.0, 1.0)
             want.append(bps[b].filter(sig))
         pre = frontend.pre_emphasis(torch.tensor(np.stack(want)).reshape(4, 3, 160))
         torch.testing.assert_close(shifts, pre, rtol=0, atol=0)
         taps = np.array([[f.x1, f.x2, f.y1, f.y2] for f in bps], np.float32)
         np.testing.assert_array_equal(st.bp.numpy(), taps)
-    assert set(np.float32([1.0, 0.5, 0.6])) <= seen  # the levels give distinct gains
+    assert {GAIN_09, *np.float32([1.0, 0.5, 0.6])} <= seen  # the levels' distinct gains
+    assert GAIN_09.view(np.uint32) == 0x3F666667 and np.float32(0.9) not in seen
+
+
+@pytest.mark.parametrize("max_gain", [1.0, 1.3])
+def test_gain_steps_round_as_the_jax_step(max_gain):
+    """Every step k = 1 .. 10 (.. 13 at max_gain 1.3) through both packages'
+    prepare_chunk and through the host classes. A chunk of constant 0.25 has
+    rms 0.25 exactly, so a fresh window's mean is 0.25, and ref = k/20 gives
+    ref / sqrt(mean) within an ulp of k/10: floor(·10 + 0.5) = k. Both steps
+    give clip(fl32(k · fl32(0.1)), min_gain, max_gain) bit for bit; the host
+    classes give k/10, which differs at k = 9 (and at 13 before the clamp)."""
+    from rustpotter_tpu.runtime.stream_step import prepare_chunk as jax_prepare_chunk
+
+    jcfg, cfg = configs("gain")
+    for c in (jcfg, cfg):
+        c.filters.gain_normalizer.max_gain = max_gain
+    ww, jww, _ = ww_pair()
+    jstatic, jparams = jax_build_bundle([("w", jww)], jcfg)
+    static, params = build_bundle([("w", ww)], cfg, "cpu")
+    jprep = jax.jit(lambda p, s, x: jax_prepare_chunk(jstatic, p, s, x))
+    x = np.full(480, 0.25, np.float32)
+    lo, hi = np.float32(static.gain_min), np.float32(static.gain_max)
+    ks = np.arange(1, int(round(max_gain * 10)) + 1)
+    refs = (ks / 20).astype(np.float32)
+    mine, theirs, host = [], [], []
+    for ref in refs:
+        jst, _ = jprep(dataclasses.replace(jparams, gain_ref_sqrt=jnp.float32(ref)),
+                       jax_init_state(jstatic), jnp.asarray(x))
+        st, _ = prepare_chunk(static, dataclasses.replace(params, gain_ref_sqrt=torch.tensor(ref)),
+                              init_state(static, 1, "cpu"), torch.tensor(x[None]))
+        theirs.append(np.float32(jst.gain))
+        mine.append(st.gain.numpy()[0])
+        oracle = filters.GainNormalizerFilter(static.gain_min, static.gain_max)
+        oracle.set_rms_level_ref(float(ref) ** 2, static.gain_window_size)
+        oracle.rms_level_sqrt = ref  # the step's ref exactly
+        host.append(oracle.filter(x, np.float32(0.25))[1])
+    mine, theirs, host = (np.array(v, np.float32) for v in (mine, theirs, host))
+    want = np.clip(ks.astype(np.float32) * np.float32(GAIN_STEP), lo, hi).astype(np.float32)
+    np.testing.assert_array_equal(theirs.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(mine.view(np.uint32), want.view(np.uint32))
+    divided = np.clip(ks.astype(np.float32) / np.float32(10), lo, hi).astype(np.float32)
+    np.testing.assert_array_equal(host, divided)
+    assert list(ks[host != want]) == [9]  # 13's product rounds up past max_gain 1.3
 
 
 def test_biquad_wrapper_checks_shapes_and_devices():
@@ -317,27 +402,87 @@ def test_biquad_wrapper_checks_shapes_and_devices():
         biquad.biquad(coeffs, torch.zeros(2, 4, device="meta"), torch.zeros(2, 480, device="meta"))
 
 
+def test_front_writes_its_state_into_the_given_tensors():
+    """`front(..., into=)` writes the window, count, gain and taps into the
+    tensors given (the stream steps pass their state's own), with the values
+    of the plain version; the tensors of a filter that is off stay as they
+    were; the samples always come out in a new tensor."""
+    rng = np.random.default_rng(6)
+    coeffs = filters.band_pass_coefficients(16000.0, 80.0, 400.0)
+    x = torch.tensor(rng.normal(0, 0.3, (5, 480)).astype(np.float32))
+    win = torch.tensor(rng.uniform(0.01, 0.1, (5, 7)).astype(np.float32))
+    count = torch.tensor([0, 3, 7, 7, 1], dtype=torch.int32)
+    taps = torch.tensor(rng.normal(0, 0.1, (5, 4)).astype(np.float32))
+    gain = biquad.GainIn(frontend.rms_level(x), torch.tensor(np.float32(0.2)), 0.1, 1.0, win, count)
+    want = biquad.front_plain(x, gain, coeffs, taps)
+    for form in FILTERS:
+        g_on, bp_on = FILTERS[form]
+        st = [win.clone(), count.clone(), torch.zeros(5), taps.clone()]
+        got = biquad.front(x, gain._replace(win=st[0], count=st[1]) if g_on else None,
+                           coeffs if bp_on else None, st[3] if bp_on else None,
+                           into=biquad.Front(None, *st))
+        if g_on:
+            assert got.win is st[0] and got.count is st[1] and got.gain is st[2]
+            for name in ("win", "count", "gain"):
+                torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=0)
+        else:
+            assert got.win is got.count is got.gain is None
+            assert torch.equal(st[0], win) and torch.equal(st[1], count) and not st[2].any()
+        if bp_on:
+            assert got.taps is st[3]
+        else:
+            assert got.taps is None and torch.equal(st[3], taps)
+        assert got.out is not x
+        if form == "both":
+            torch.testing.assert_close(got.out, want.out, rtol=0, atol=0)
+            torch.testing.assert_close(got.taps, want.taps, rtol=0, atol=0)
+    assert biquad.front(x).out is x  # both filters off: nothing runs
+    with pytest.raises(ValueError, match="new tensor"):
+        biquad.front(x, gain, into=biquad.Front(x, None, None, None, None))
+    with pytest.raises(ValueError, match="into.win"):
+        biquad.front(x, gain, into=biquad.Front(None, torch.zeros(5, 6), None, None, None))
+    with pytest.raises(ValueError, match="gain count"):
+        biquad.front(x, gain._replace(count=count[:4]))
+
+
 # ------------------------------------------------------------ end to end
 
-@pytest.mark.parametrize("what", list(FILTERS))
-def test_batched_detector_with_filters_matches_jax(workload, what):
-    ww, jww, frames = workload
-    ev = compare_batched(jww, ww, frames, *configs(what))
+def assert_seen_gain_09(seen, what, level1):
+    """With the gain on and stream 1 at LEVEL_09, the steps' 0.9 was reached."""
+    assert (GAIN_09 in seen) == (FILTERS[what][0] and level1 == LEVEL_09), sorted(seen)
+
+
+@pytest.mark.parametrize("what, level1", CASES)
+def test_batched_detector_with_filters_matches_jax(workload, what, level1):
+    ww, jww, frames = frames_at(workload, level1)
+    seen = set()
+    ev = compare_batched(jww, ww, frames, *configs(what), seen=seen)
     assert ev["fired"][:, 0].sum() == 1
     # the gain normalizer scaled the utterance down, and only where it is on
     assert (ev["gain"][ev["fired"]] < 1.0).all() == FILTERS[what][0]
+    assert_seen_gain_09(seen, what, level1)
 
 
-@pytest.mark.parametrize("what", list(FILTERS))
-def test_make_step_with_filters_matches_jax(workload, what):
-    ww, jww, frames = workload
-    assert compare_step(jww, ww, frames, *configs(what)) == 1
+@pytest.mark.parametrize("what, level1", CASES)
+def test_make_step_with_filters_matches_jax(workload, what, level1):
+    ww, jww, frames = frames_at(workload, level1)
+    seen = set()
+    assert compare_step(jww, ww, frames, *configs(what), seen=seen) == 1
+    assert_seen_gain_09(seen, what, level1)
 
 
-@pytest.mark.parametrize("what", list(FILTERS))
-def test_rustpotter_with_filters_matches_jax(workload, what):
-    ww, jww, frames = workload
-    assert len(compare_rustpotter(jww, ww, frames[:, 0], *configs(what))) == 1
+@pytest.mark.parametrize("what, level1", CASES)
+def test_rustpotter_with_filters_matches_jax(workload, what, level1):
+    """The single stream is the utterance; at LEVEL_09 it follows LEAD
+    chunks of stream 1 (gain 0.9), which leave the gain window before the
+    utterance."""
+    ww, jww, frames = frames_at(workload, level1)
+    single = frames[:, 0]
+    if level1 == LEVEL_09:
+        single = np.concatenate([frames[:LEAD, 1], single])
+    seen = set()
+    assert len(compare_rustpotter(jww, ww, single, *configs(what), seen=seen)) == 1
+    assert_seen_gain_09(seen, what, level1)
 
 
 def test_band_pass_ring_down_after_digital_silence(workload):
@@ -351,9 +496,7 @@ def test_band_pass_ring_down_after_digital_silence(workload):
     EV_TOL), every state as in the other tests, and every window row
     outside WIN_TOL was written in the chunk where stream 0's filtered audio
     first reaches the subnormal range, or the next."""
-    ww, jww, _ = workload
-    _, _, utterance = ww_pair()
-    stream0 = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
+    ww, jww, stream0 = workload
     frames = level_streams(stream0, 5, floor=0.0)
     jcfg, cfg = configs("band_pass")
     jdet = JaxBatchedDetector([("w", jww)], jcfg, batch_size=B)
