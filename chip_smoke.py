@@ -34,8 +34,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      (gain and band-pass, band-pass only, gain only) over 3 chunks with the
      state carried in place, at B = 8192 x 480 samples (the bulk form) and B
      = 1000 x 477 (the simple form), gains over every step 0.1-1.0, with its
-     time in each form, the plain version's, the bounds, and the times of
-     its build variants (BQ_TILE x BQ_SEGS);
+     time in each form (device time from a CUDA graph, a wrapper call by
+     CUDA events, and a wrapper call's host time), the plain version's and
+     the bounds;
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
      wakeword runs the bench correctness pass (stream 0 must fire, every
      chunk must launch K1), streams 0-3 must give the events of a
@@ -81,8 +82,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      the bench wakeword at B=8192 with the gain normalizer and the 80-400 Hz
      band-pass on (__graft_entry__.entry()'s filters; stream 1 at noise
      0.062, gain 0.9), through BatchedDetector (K1 and one front-end launch
-     per chunk, the profile's launches per chunk at most the unfiltered
-     chunk's plus one), make_step (3 K2 launches and one front-end launch per
+     per chunk, the profile's launches per chunk at most those of the same
+     detector with the filters off plus one, each the median of 5 profiles
+     taken in turns), make_step (3 K2 launches and one front-end launch per
      chunk, likewise) and Rustpotter (likewise per frame); and `dtw_48k`
      (tools/bench_suite.py's scenario: 48 kHz F32, in_graph_resample, the
      utterance synthesized at 48 kHz) through BatchedDetector (K1, no
@@ -136,6 +138,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     device_kernels,
     dp_work,
     immediate_ops,
+    host_ms_per_call,
     innermost_loop,
     k1_bytes,
     k3_work,
@@ -1287,8 +1290,6 @@ def nn_phase(dev, card):
 
 BIQUAD_REPLACES = ("rustpotter_tpu/runtime/stream_step.py:470-506 (prepare_chunk's gain "
                    "normalizer and band-pass lax.scan, not Pallas kernels)")
-# the front-end kernel's build variants, timed beside the committed design
-BQ_VARIANTS = tuple((("BQ_TILE", t), ("BQ_SEGS", g)) for t in (16, 32) for g in (2, 3, 4, 6))
 BQ_W = 33  # the gain window of the bench wakeword (100 frames // 3)
 GAIN_09 = np.float32(9) * np.float32(0.1)  # the steps' gain at k = 9, 0x3F666667
 
@@ -1334,7 +1335,7 @@ def biquad_phase(dev, record):
     the stream steps carry them (the ref NaN in chunk 2): at the bench shape
     (B = 8192, 480 samples, the bulk form) and at B = 1000, 477 samples (the
     simple form). Then its time at the bench shape in each form beside the
-    plain version's and the bounds, and the build variants' times."""
+    plain version's and the bounds."""
     import torch
 
     from rustpotter_tpu_torch.audio.filters import band_pass_coefficients
@@ -1357,10 +1358,11 @@ def biquad_phase(dev, record):
                 for d, (w, k, g, taps) in ((dev, card), ("cpu", cpu)):
                     gain = (biquad.GainIn(torch.tensor(rms, device=d), torch.tensor(ref, device=d),
                                           0.1, 1.0, w, k) if gain_on else None)
-                    into = biquad.Front(None, w, k, g, taps) if d == dev else None
+                    into = (dict(win_out=w, count_out=k, gain_out=g, taps_out=taps)
+                            if d == dev else {})
                     outs.append(biquad.front(torch.tensor(x, device=d), gain,
                                              coeffs if bp_on else None, taps if bp_on else None,
-                                             into=into))
+                                             **into))
                 torch.cuda.synchronize()
                 f_k, f_p = outs
                 for name in ("out", "win", "count", "gain", "taps"):
@@ -1388,19 +1390,21 @@ def biquad_phase(dev, record):
     rms, win, count, x = (torch.tensor(a, device=dev) for a in front_inputs(rng, B, n, W, 0))
     ref = torch.tensor(np.float32(0.25), device=dev)
     st = [win, count, torch.zeros(B, device=dev), torch.zeros(B, 4, device=dev)]
-    into = biquad.Front(None, *st)
+    into = dict(zip(("win_out", "count_out", "gain_out", "taps_out"), st))
     gain = biquad.GainIn(rms, ref, 0.1, 1.0, win, count)
 
-    def run(form, defines=()):
+    def run(form):
         g, bp = forms[form]
         return lambda: biquad.front(x, gain if g else None, coeffs if bp else None,
-                                    st[3] if bp else None, into=into, defines=defines)
+                                    st[3] if bp else None, **into)
 
-    # the kernel's device time: launches back to back in a CUDA graph (the
-    # wrapper's Python enqueue, ~0.03 ms a call, is longer than the kernel);
-    # CUDA events around the wrapper's calls beside it, as the parent timed it
+    # the kernel's device time: launches back to back replayed from a CUDA
+    # graph, since the wrapper's Python is longer than the kernel; CUDA
+    # events around wrapper calls beside it (the band-pass kernel's first
+    # design was timed that way), and the host time of a wrapper call
     ms = {form: time_cuda_graph(run(form)) for form in forms}
     events_ms = {form: time_cuda(run(form)) for form in forms}
+    host_us = {form: 1e3 * host_ms_per_call(run(form)) for form in forms}
     plain_ms = time_cuda(lambda: biquad.front_plain(x, gain, coeffs, st[3]), samples=3, per=1,
                          warmup=1)
     # bytes: the samples read and written, the window read and written, the
@@ -1413,16 +1417,14 @@ def biquad_phase(dev, record):
     for form in forms:
         b_ms, b_by = bound(*work[form])
         log(f"biquad {form} at {B} x {n}: {ms[form]:.4f} ms on the device (CUDA graph), "
-            f"{events_ms[form]:.4f} ms a wrapper call (CUDA events); bound {b_ms:.4f} ms by "
-            f"{b_by} ({100 * b_ms / ms[form]:.1f} % of it)")
-    for v in BQ_VARIANTS:
-        v_ms = {form: time_cuda_graph(run(form, v)) for form in ("both", "band_pass")}
-        log(f"biquad variant {dict(v)}: gain and band-pass {v_ms['both']:.4f} ms, band-pass "
-            f"only {v_ms['band_pass']:.4f} ms (CUDA graph)")
+            f"{events_ms[form]:.4f} ms a wrapper call (CUDA events), {host_us[form]:.2f} us "
+            f"of host time a wrapper call; bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * b_ms / ms[form]:.1f} % of it)")
     record["biquad"] = kernel_row("biquad", "biquad.cu", BIQUAD_REPLACES, worst, ms["both"],
                                   plain_ms, *work["both"])
     return {**{f"biquad_{form}_ms": v for form, v in ms.items()},
-            **{f"biquad_{form}_events_ms": v for form, v in events_ms.items()}}
+            **{f"biquad_{form}_events_ms": v for form, v in events_ms.items()},
+            **{f"biquad_{form}_host_us": v for form, v in host_us.items()}}
 
 
 def is_front_kernel(name: str) -> bool:
@@ -1495,14 +1497,37 @@ def match_gains(gpu_states, cpu_states, name, gain_on):
     return [float(v) for v in g]
 
 
+def filtered_launches(name, fn, ref_fn, readings=5):
+    """Raises unless the launches per chunk of fn (a chunk with the filters
+    on) pass those of ref_fn (the same path with the filters off) by the one
+    front-end launch at most: no torch kernel of the filters is left. Each
+    side is the median of `readings` torch.profiler readings taken in turns:
+    a profile may drop records, or take in some that the one before it left
+    (readings of 458.6 for 469 launches and of 437.0 for 434 were seen on an
+    H100). Returns both."""
+    def launches(f):  # launches in PROFILED_CHUNKS chunks, an integer
+        return round(PROFILED_CHUNKS * sum(r[1] for r in device_kernels(f, PROFILED_CHUNKS)))
+
+    got, ref = [], []
+    for _ in range(readings):
+        got.append(launches(fn))
+        ref.append(launches(ref_fn))
+    got, ref = int(np.median(got)), int(np.median(ref))
+    log(f"{name}: {got / PROFILED_CHUNKS:.1f} launches per chunk, {ref / PROFILED_CHUNKS:.1f} "
+        f"with the filters off (the median of {readings} profiles each)")
+    assert got <= ref + PROFILED_CHUNKS, (name, got, ref)
+    return got / PROFILED_CHUNKS, ref / PROFILED_CHUNKS
+
+
 def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resample=False,
-                  max_launches=None):
+                  ref_cfg=None):
     """One front-end cell through BatchedDetector at B=8192 (K1): the
     correctness pass (stream 0 must fire, K1 once per chunk, the front-end
     kernel once per chunk with a filter on and never without, no other
     kernel), streams 0-3 against a device="cpu" run at B=4 (events, and the
     gains after the pass bit for bit), then the host clock and the device
-    split, whose launches per chunk must not pass `max_launches`. Returns
+    split; with `ref_cfg` (the same configuration, filters off) the launches
+    per chunk are held to that detector's (`filtered_launches`). Returns
     the summary and the front-end kernel's launches."""
     import torch
 
@@ -1543,16 +1568,22 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
         "front-end": split["front_ms"], "resample GEMM": split["resample_ms"],
         "biquad": split["biquad_ms"], "K1": split["k1_ms"], "rest": split["rest_ms"]}, rows)
     split["launches_per_chunk"] = sum(r[1] for r in rows)
-    if rows and max_launches is not None:
-        assert split["launches_per_chunk"] <= max_launches, (name, split["launches_per_chunk"])
+    if rows and ref_cfg is not None:
+        ref = BatchedDetector([("w", ww)], ref_cfg, batch_size=B, device=dev,
+                              in_graph_resample=in_graph_resample)
+        ref_states = ref.init_states()
+        filtered_launches(f"{name} BatchedDetector",
+                          lambda: det.process_chunk(det.params, states, noise),
+                          lambda: ref.process_chunk(ref.params, ref_states, noise))
     return {f"{name}_{k}": v for k, v in {**t, **split}.items()}, launches["biquad"]
 
 
-def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, max_launches=None):
+def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, ref_cfg=None):
     """The same cell through make_step at B=8192 in its default mode (K2):
     3 K2 launches and one front-end launch per chunk, streams 0-3 against a
     device="cpu" run (events, and the gains after the pass bit for bit),
-    the host clock and the device split (at most `max_launches` per chunk)."""
+    the host clock and the device split; with `ref_cfg` the launches per
+    chunk held to those of make_step built from it (`filtered_launches`)."""
     import torch
 
     from rustpotter_tpu_torch.runtime.bundle import build_bundle
@@ -1598,8 +1629,11 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, max_launches=None
     _log_cell(f"{name} make_step", card, t, {
         "GEMMs": gemm_ms, "biquad": biquad_ms, "K2": k2_ms,
         "rest": t["kernel_ms"] - gemm_ms - biquad_ms - k2_ms}, rows)
-    if rows and max_launches is not None:
-        assert sum(r[1] for r in rows) <= max_launches, (name, sum(r[1] for r in rows))
+    if rows and ref_cfg is not None:
+        ref_static, ref_params = build_bundle([("w", ww)], ref_cfg, dev)
+        ref_step, ref_states = make_step(ref_static), init_state(ref_static, B, dev)
+        filtered_launches(f"{name} make_step", lambda: step(params, states, noise),
+                          lambda: ref_step(ref_params, ref_states, noise))
     return {f"{name}_step_{k}": v for k, v in {
         **t, "gemm_ms": gemm_ms, "biquad_ms": biquad_ms, "k2_ms": k2_ms,
         "launches_per_chunk": sum(r[1] for r in rows)}.items()}
@@ -1643,15 +1677,15 @@ def front_rustpotter(dev, card, name, ww, cfg, frames_np, bp):
     return {f"{name}_rp_ms": rp_ms, f"{name}_rp_encoder_ms": enc_ms}
 
 
-def front_phase(dev, card, record, unfiltered):
+def front_phase(dev, card, record):
     """The audio front-end cells (see the module docstring, phase 7):
     `dtw_filters` (gain normalizer and band-pass on, 16 kHz; stream 1 at
     noise 0.062, gain 0.9) through BatchedDetector, make_step and
     Rustpotter, and `dtw_48k` (48 kHz F32, in-graph resampling) through
     BatchedDetector, with Rustpotter at 48 kHz int16 through the host
-    encoder. The filtered cells' launches per chunk may pass the unfiltered
-    ones' (`unfiltered`: the slice phases' profiles) by the one front-end launch
-    alone: no torch kernel of the filters is left."""
+    encoder. The filtered cells' launches per chunk may pass those of the
+    same paths with the filters off by the one front-end launch alone: no
+    torch kernel of the filters is left."""
     import copy
 
     from rustpotter_tpu_torch import AudioFmt, RustpotterConfig, SampleFormat, ScoreMode
@@ -1676,12 +1710,10 @@ def front_phase(dev, card, record, unfiltered):
     stream0 = correctness_stream(F, utterance)
     noise = rng.normal(0, 0.05, (B, 480)).astype(np.float32)
     noise[1] *= np.float32(0.062 / 0.05)  # gain 0.9: the steps' 0x3F666667
-    cell, bq = front_batched(dev, card, "dtw_filters", ww, cfg, stream0, noise,
-                             max_launches=unfiltered["launches_per_chunk"] + 1)
+    cell, bq = front_batched(dev, card, "dtw_filters", ww, cfg, stream0, noise, ref_cfg=base)
     record["biquad"]["launches"] = bq
     summary.update(cell)
-    summary.update(front_step(dev, card, "dtw_filters", ww, cfg, stream0, noise,
-                              max_launches=unfiltered["step_launches_per_chunk"] + 1))
+    summary.update(front_step(dev, card, "dtw_filters", ww, cfg, stream0, noise, ref_cfg=base))
     summary.update(front_rustpotter(dev, card, "dtw_filters", ww, cfg, stream0, 1))
 
     # dtw_48k: tools/bench_suite.py's scenario, the utterance synthesized at 48 kHz
@@ -1972,7 +2004,6 @@ def main() -> int:
     builds += [(src, {"RP_C": 16, "RP_W": w}) for src, w in WIDE]
     builds += [("banded_dtw.cu", {"RP_W": w}) for w in K3_BANDS]
     builds += [("fma_probe.cu", {}), ("biquad.cu", {}), ("ingest.cpp", {})]
-    builds += [("biquad.cu", dict(v)) for v in BQ_VARIANTS]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _build.build(*b), builds))
     log(f"build: {len(builds)} libraries (kernel variants and the host ingest library) in "
@@ -1995,7 +2026,7 @@ def main() -> int:
     summary.update(per_shift_phase(dev, record))
     summary.update(tools_phase(dev, record))
     summary.update(nn_phase(dev, card))
-    summary.update(front_phase(dev, card, record, summary))
+    summary.update(front_phase(dev, card, record))
     summary.update(train_phase(dev, card))
     summary.update(shard_phase(dev, card))
     log(json.dumps({"card": card, **summary}))

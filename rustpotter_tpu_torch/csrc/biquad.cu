@@ -52,7 +52,8 @@
 //     (TILE x W floats, contiguous) by coalesced 4-byte cp.async copies into
 //     shared rows of odd stride W | 1;
 //   - then each thread copies its own row in with 1-D TMA (cp.async.bulk,
-//     global to shared), cut into SEGS time segments, each completing on an
+//     global to shared), cut into a few time segments (segments(GAIN):
+//     3 with the gain on, 4 for the band-pass alone), each completing on an
 //     mbarrier of its own, into rows padded to a stride of n + 4 floats (1936
 //     B at n = 480, 16 B past a multiple of 128), so that a warp's float4
 //     reads of its rows at one offset hit distinct 16-byte bank groups in
@@ -67,19 +68,22 @@
 //     recurrence while later segments' loads are still in flight;
 //   - last, the tile's shifted window goes back by coalesced stores.
 // A thread waits only on its own row's barriers and copies out only what it
-// wrote, so no block barrier sits inside the recurrence. TILE and SEGS are
-// compile-time (-DBQ_TILE, -DBQ_SEGS), so that variants build from this
-// source with the library's flags; chip_smoke.py times them beside the
-// default. Measured there on an H100 (NVIDIA H100 80GB HBM3, 700 W; device
-// time of launches back to back in a CUDA graph; PERF.md): TILE 16, SEGS 4,
-// the default, 0.0168 ms with both filters (60 % of the bound) and 0.0136 ms
-// band-pass only, where the parent's kernel (one thread per stream, float4
-// loads straight from global) took ~0.03. A warp of 16 streams leaves each
-// SM four warps on the recurrence, a block of 32 two (TILE 32: 0.0184-0.0276
-// ms with both); segments of 80 samples cost more in copies than they
-// overlap (SEGS 6: 0.0192). The gain's window sum sits between the first
-// segment's arrival and its recurrence, so its entries are loaded ahead of
-// the sums (a loop that loads one entry per add waits out each load).
+// wrote, so no block barrier sits inside the recurrence. TILE and the
+// segment counts were chosen from copies of this source built with the
+// library's flags and timed in turns by tools/front_probe.py on an H100
+// (NVIDIA H100 80GB HBM3, 700 W; device time of launches back to back in a
+// CUDA graph; PERF.md's kernel table). With both filters, 16 streams a
+// block: 3 segments 0.0158-0.0162 ms, 4 0.0168-0.0169, 2 0.0191-0.0202, 5
+// 0.0178-0.0180 (8 streams a block, 3 and 4 segments: 0.0175-0.0185);
+// band-pass only, 4 segments 0.0136-0.0137, 3 0.0138-0.0155. The kernel's
+// first design (one thread per stream, float4 loads straight from global)
+// took 0.0287-0.0295 ms band-pass only, timed the same way. With the gain on,
+// the window's sum runs before the first segment's recurrence, so by then
+// more of the row has landed and a fourth segment adds barrier waits and
+// copies more than it overlaps; without it the recurrence starts on the
+// first segment's arrival, which smaller segments bring sooner. The gain's
+// window entries are loaded ahead of the sums (a loop that loads one entry
+// per add waits out each load).
 //
 // Where the bulk copies cannot take the rows (n % 4 != 0, a sample pointer
 // not 16-byte aligned, or a tile past the shared-memory opt-in) the simple
@@ -91,22 +95,16 @@
 
 #include "smem.cuh"
 
-#ifndef BQ_TILE
-#define BQ_TILE 16
-#endif
-#ifndef BQ_SEGS
-#define BQ_SEGS 4
-#endif
-
 namespace {
 
-constexpr int TILE = BQ_TILE;  // streams (threads) per block of the bulk form
-constexpr int SEGS = BQ_SEGS;  // time segments per row of the bulk form
+constexpr int TILE = 16;  // streams (threads) per block of the bulk form
+// time segments per row of the bulk form, by form (measured: see above)
+__host__ __device__ constexpr int segments(bool gain) { return gain ? 3 : 4; }
 constexpr int PAD = 4;         // floats of padding per staged row
 constexpr int SIMPLE_THREADS = 64;
-static_assert(TILE >= 2 && TILE <= 1024 && SEGS >= 1, "tile and segments");
+static_assert(TILE >= 2 && TILE <= 1024, "streams per block");
 // the staged rows follow the barriers at a 16-byte boundary
-static_assert(TILE * SEGS % 2 == 0, "an even count of 8-byte barriers");
+static_assert(TILE % 2 == 0, "an even count of 8-byte barriers");
 
 // fl32(0.1): the gain's step, as ops/biquad.py GAIN_STEP.
 constexpr float GAIN_STEP = 0x1.99999ap-4f;
@@ -287,12 +285,12 @@ __device__ __forceinline__ void bulk_store_drain() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Shared memory of a bulk block: SEGS barriers per stream, the staged rows,
-// then the gain window's rows (odd stride).
+// Shared memory of a bulk block: segments(gain) barriers per stream, the
+// staged rows, then the gain window's rows (odd stride).
 __host__ __device__ constexpr int window_stride(int W) { return W | 1; }
 
 __host__ __device__ inline size_t bulk_smem_bytes(int n, int W, bool gain) {
-  return sizeof(uint64_t) * TILE * SEGS + sizeof(float) * TILE * (n + PAD) +
+  return sizeof(uint64_t) * TILE * segments(gain) + sizeof(float) * TILE * (n + PAD) +
          (gain ? sizeof(float) * TILE * window_stride(W) : 0);
 }
 
@@ -330,6 +328,7 @@ __global__ void __launch_bounds__(TILE)
   const bool live = b < B;
   const int seg = n / segs;
   const int stride = n + PAD;
+  constexpr int SEGS = segments(GAIN);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem) + tid * SEGS;
   float* rows = reinterpret_cast<float*>(smem + sizeof(uint64_t) * TILE * SEGS);
   float* row = rows + tid * stride;
@@ -418,14 +417,15 @@ __global__ void __launch_bounds__(TILE)
   if (live) bulk_store_drain();
 }
 
-// The time segments for n samples: SEGS where they cut n into multiples of
-// 4 samples, else one segment; 0 where the bulk form cannot take the rows.
+// The time segments for n samples: segments(gain) where they cut n into
+// multiples of 4 samples, else one segment; 0 where the bulk form cannot take
+// the rows.
 int bulk_segments(int n, int W, bool gain, const void* x, const void* out) {
   if (n <= 0 || n % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       bulk_smem_bytes(n, W, gain) > static_cast<size_t>(SMEM_OPTIN))
     return 0;
-  return n % (4 * SEGS) == 0 ? SEGS : 1;
+  return n % (4 * segments(gain)) == 0 ? segments(gain) : 1;
 }
 
 template <bool GAIN, bool BP>

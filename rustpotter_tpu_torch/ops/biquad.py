@@ -101,8 +101,8 @@ def biquad_plain(coeffs, state: torch.Tensor, signal: torch.Tensor):
 
 def front_plain(samples: torch.Tensor, gain: Optional[GainIn] = None, coeffs=None,
                 taps: Optional[torch.Tensor] = None) -> Front:
-    """The plain version of `front` (without `into`): the JAX package's torch
-    composition, new tensors."""
+    """The plain version of `front`: the JAX package's torch composition,
+    into new tensors."""
     win = count = g = None
     if gain is not None:
         W = gain.win.shape[1]
@@ -126,8 +126,8 @@ def front_plain(samples: torch.Tensor, gain: Optional[GainIn] = None, coeffs=Non
 
 
 @lru_cache(maxsize=None)
-def _library(defines: tuple = ()) -> ctypes.CDLL:
-    lib = _build.load(SOURCE, dict(defines))
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE, {})
     fn = lib.rp_front
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 2
                    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5
@@ -136,102 +136,92 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     return lib
 
 
-def _check(samples: torch.Tensor, gain: Optional[GainIn], coeffs, taps,
-           into: Optional[Front]) -> None:
+def _check(samples: torch.Tensor, gain: Optional[GainIn], coeffs, taps) -> None:
     if samples.dim() != 2:
         raise ValueError(f"signal must be (B, n), got {tuple(samples.shape)}")
     B = samples.shape[0]
     if coeffs is not None:
-        if len(coeffs) != 5:
-            raise ValueError(f"coeffs must be (a0, a1, a2, b1, b2), got {len(coeffs)} values")
-        if taps is None or tuple(taps.shape) != (B, 4):
+        if taps is None or taps.shape != (B, 4):
             raise ValueError(f"state must be ({B}, 4), got "
                              f"{None if taps is None else tuple(taps.shape)}")
+        if len(coeffs) != 5:
+            raise ValueError(f"coeffs must be (a0, a1, a2, b1, b2), got {len(coeffs)} values")
     if gain is not None:
         W = gain.win.shape[-1]
-        for name, t, shape in (("rms", gain.rms, (B,)), ("ref_sqrt", gain.ref_sqrt, ()),
-                               ("win", gain.win, (B, W)), ("count", gain.count, (B,))):
-            if tuple(t.shape) != shape:
-                raise ValueError(f"gain {name} must be {shape}, got {tuple(t.shape)}")
-        if W < 1:
-            raise ValueError("the gain window must hold at least one entry")
-    if into is not None:
-        if into.out is not None:
-            raise ValueError("front writes its samples into a new tensor")
-        on = gain is not None
-        likes = {"win": gain.win if on else None, "count": gain.count if on else None,
-                 "gain": gain.rms if on else None,
-                 "taps": taps if coeffs is not None else None}
-        for name, like in likes.items():
-            t = getattr(into, name)
-            if t is not None and like is not None and (
-                    t.shape != like.shape or t.dtype != like.dtype
-                    or t.device != like.device or not t.is_contiguous()):
-                raise ValueError(f"into.{name} must be a contiguous tensor like the input's")
+        if (gain.rms.shape != (B,) or gain.ref_sqrt.dim() != 0 or gain.win.shape != (B, W)
+                or gain.count.shape != (B,) or W < 1):
+            raise ValueError(
+                f"gain: rms ({B},), ref_sqrt (), win ({B}, W >= 1) and count ({B},) expected, "
+                f"got {tuple(gain.rms.shape)}, {tuple(gain.ref_sqrt.shape)}, "
+                f"{tuple(gain.win.shape)} and {tuple(gain.count.shape)}")
+
+
+def _dest(t: Optional[torch.Tensor], like: Optional[torch.Tensor], name: str):
+    """`t`, the tensor an output goes to, checked against the input it
+    replaces; None where it is not given or its filter is off."""
+    if like is None or t is None or t is like:
+        return None if like is None else t
+    if (t.shape != like.shape or t.dtype != like.dtype or t.device != like.device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous tensor like the input it replaces")
+    return t
 
 
 def front(samples: torch.Tensor, gain: Optional[GainIn] = None, coeffs=None,
-          taps: Optional[torch.Tensor] = None, *, into: Optional[Front] = None,
-          defines: tuple = ()) -> Front:
+          taps: Optional[torch.Tensor] = None, *, win_out: Optional[torch.Tensor] = None,
+          count_out: Optional[torch.Tensor] = None, gain_out: Optional[torch.Tensor] = None,
+          taps_out: Optional[torch.Tensor] = None) -> Front:
     """The gain normalizer (`gain`, None for off), then the band-pass biquad
     (`coeffs` (a0, a1, a2, b1, b2) exact fp32 values and `taps` (B, 4), None
-    for off) over samples (B, n). The filtered samples are a new tensor; the
-    window, count, gain and taps are written into the tensors of `into` that
-    are given (they may be the inputs themselves: the stream steps update
-    their state where it lies), else into new ones; those of a filter that
-    is off are left alone. With both filters off,
-    nothing runs and `out` is `samples`. `defines`: ((name, value), ...)
-    compile-time constants of the kernel's build (BQ_TILE, BQ_SEGS; the
-    default is the committed design)."""
-    _check(samples, gain, coeffs, taps, into)
+    for off) over samples (B, n). The filtered samples are a new tensor. The
+    window, count, gain and taps are written into `win_out`, `count_out`,
+    `gain_out` and `taps_out` where they are given (they may be the inputs
+    themselves: the stream steps update their state where it lies), else
+    into new tensors; those of a filter that is off are left alone. With
+    both filters off, nothing runs and `out` is `samples`."""
+    _check(samples, gain, coeffs, taps)
     if gain is None and coeffs is None:
         return Front(samples, None, None, None, None)
+    on, bp = gain is not None, coeffs is not None
+    likes = ((gain.win, gain.count, gain.rms) if on else (None,) * 3) + (taps if bp else None,)
+    dests = [_dest(t, like, name) for t, like, name in
+             zip((win_out, count_out, gain_out, taps_out), likes,
+                 ("win_out", "count_out", "gain_out", "taps_out"))]
     if samples.device.type == "cpu":
         f = front_plain(samples, gain, coeffs, taps)
-        if into is None:
-            return f
-        return Front(f.out, *(n if d is None or n is None else d.copy_(n)
-                              for d, n in zip(into[1:], f[1:])))
+        return Front(f.out, *(n if d is None else d.copy_(n) for d, n in zip(dests, f[1:])))
     if samples.device.type != "cuda":
         raise ValueError(f"biquad: unsupported device {samples.device}")
-    dev = samples.device
-    named = [("signal", samples, torch.float32)]
-    if coeffs is not None:
-        named.append(("state", taps, torch.float32))
-    if gain is not None:
-        named += [("rms", gain.rms, torch.float32), ("ref_sqrt", gain.ref_sqrt, torch.float32),
-                  ("win", gain.win, torch.float32), ("count", gain.count, torch.int32)]
+    dev, f32 = samples.device, torch.float32
+    named = [("signal", samples, f32)]
+    if bp:
+        named.append(("state", taps, f32))
+    if on:
+        named += [("rms", gain.rms, f32), ("ref_sqrt", gain.ref_sqrt, f32),
+                  ("win", gain.win, f32), ("count", gain.count, torch.int32)]
     for name, t, dtype in named:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {str(dtype)[6:]} tensor on {dev}")
     B, n = samples.shape
-    into = into or Front(None, None, None, None, None)
-    new = lambda t, like: torch.empty_like(like) if t is None else t
     out = torch.empty_like(samples)
-    taps_out = new(into.taps, taps) if coeffs is not None else None
-    if gain is not None:
-        win_out, count_out = new(into.win, gain.win), new(into.count, gain.count)
-        gain_out = new(into.gain, gain.rms)
+    win_o, count_o, gain_o, taps_o = (torch.empty_like(like) if d is None and like is not None
+                                      else d for d, like in zip(dests, likes))
+    if on:
         g_ptrs = (gain.rms.data_ptr(), gain.ref_sqrt.data_ptr(), gain.win.data_ptr(),
-                  gain.count.data_ptr(), win_out.data_ptr(), count_out.data_ptr(),
-                  gain_out.data_ptr())
+                  gain.count.data_ptr(), win_o.data_ptr(), count_o.data_ptr(), gain_o.data_ptr())
         g_args = (float(gain.lo), float(gain.hi), gain.win.shape[1])
     else:
-        win_out = count_out = gain_out = None
         g_ptrs, g_args = (None,) * 7, (0.0, 0.0, 1)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library(tuple(defines)).rp_front(
-        int(gain is not None), int(coeffs is not None), *g_ptrs, *g_args,
-        taps.data_ptr() if coeffs is not None else None,
-        taps_out.data_ptr() if coeffs is not None else None,
-        *(float(c) for c in (coeffs if coeffs is not None else (0.0,) * 5)),
-        samples.data_ptr(), out.data_ptr(), stream, B, n,
+    err = _library().rp_front(
+        int(on), int(bp), *g_ptrs, *g_args,
+        taps.data_ptr() if bp else None, taps_o.data_ptr() if bp else None,
+        *(float(c) for c in (coeffs if bp else (0.0,) * 5)),
+        samples.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, n,
     )
     if err != 0:
         raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
     LAUNCHES["biquad"] += 1
-    return Front(out, win_out, count_out, gain_out, taps_out)
+    return Front(out, win_o, count_o, gain_o, taps_o)
 
 
 def biquad(coeffs, state: torch.Tensor, signal: torch.Tensor):

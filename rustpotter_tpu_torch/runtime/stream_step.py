@@ -610,7 +610,13 @@ def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
     resample, rms, gain normalizer (detector.rs:358-365), band-pass
     (:366-371), then the 3 shifts with per-shift pre-emphasis reset
     (extractor.rs:87-97). samples (B, input_samples) → (state, shifts
-    (B, 3, 160)). Nothing here reads a tensor on the host."""
+    (B, 3, 160)). Nothing here reads a tensor on the host.
+
+    With a filter on, the filter's state (`gain_win`, `gain_count`, `gain`,
+    `bp`) is written over the tensors of `state` in place, here and not in
+    the step's commit: a step that raises after this call leaves them one
+    chunk ahead of the rest of the state, so such a chunk must not be
+    retried on those tensors."""
     if static.input_samples != SAMPLES_PER_FRAME:
         resample = make_torch_resampler(static.input_samples, SAMPLES_PER_FRAME,
                                         samples.device)
@@ -628,8 +634,8 @@ def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
         # step commits its state into the caller's tensors anyway), so the
         # commit copies none of them
         f = biquad.front(samples.contiguous(), gain, bp, None if bp is None else state.bp,
-                         into=biquad.Front(None, state.gain_win, state.gain_count, state.gain,
-                                           state.bp))
+                         win_out=state.gain_win, count_out=state.gain_count,
+                         gain_out=state.gain, taps_out=state.bp)
         samples = f.out
         if gain is not None:
             state = state._replace(gain_win=f.win, gain_count=f.count, gain=f.gain)

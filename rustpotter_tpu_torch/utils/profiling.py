@@ -22,6 +22,7 @@ import contextlib
 import os
 import re
 import subprocess
+import time
 from collections import Counter
 from dataclasses import dataclass
 from typing import Optional
@@ -166,6 +167,24 @@ def time_cuda_graph(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> fl
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / per)
+    return float(np.median(times))
+
+
+def host_ms_per_call(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> float:
+    """ms of the host's clock per call of fn: `per` calls back to back with
+    no synchronization between them, the median over `samples`. Where fn's
+    device work is shorter than its host work (a wrapper's Python and its
+    launch), this is what a call costs the host's enqueue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        for _ in range(per):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / per)
+        torch.cuda.synchronize()
     return float(np.median(times))
 
 

@@ -313,18 +313,19 @@ def step_gain(host_gain) -> np.float32:
     return np.float32(k * np.float32(0.1)) if host_gain != 1.0 else np.float32(1.0)
 
 
-def test_prepare_chunk_filters_equal_the_host_oracles():
+@pytest.mark.parametrize("level0", [0.3, LEVEL_09], ids=["noise0.3", "gain0.9"])
+def test_prepare_chunk_filters_equal_the_host_oracles(level0):
     """The gain normalizer and band-pass of prepare_chunk, over 12 chunks of
-    streams at four levels (gains 0.9, 1, 0.5 and 0.6), against one
-    GainNormalizerFilter (fed the chunk's rms) and one BandPassFilter per
-    stream: gains, taps and the pre-emphasized shifts bit for bit, with the
-    steps' gain where the host class divides (0.9 at k = 9) and the
-    samples scaled by it."""
+    streams at four levels (stream 0 at noise `level0`: LEVEL_09 gives gain
+    0.9; the others gains 1, 0.5 and 0.6), against one GainNormalizerFilter
+    (fed the chunk's rms) and one BandPassFilter per stream: gains, taps and
+    the pre-emphasized shifts bit for bit, with the steps' gain where the
+    host class divides (0.9 at k = 9) and the samples scaled by it."""
     _, cfg = configs("both")
     ww, _, _ = ww_pair()
     static, params = build_bundle([("w", ww)], cfg, "cpu")
     frames = level_streams(np.zeros((12, 480), np.float32), 3)
-    frames[:, 0] = np.random.default_rng(4).normal(0, LEVEL_09, (12, 480))
+    frames[:, 0] = np.random.default_rng(4).normal(0, level0, (12, 480))
     st = init_state(static, 4, "cpu")
     gains = [filters.GainNormalizerFilter(static.gain_min, static.gain_max) for _ in range(4)]
     bps = [filters.BandPassFilter(16000, 80.0, 400.0) for _ in range(4)]
@@ -346,7 +347,8 @@ def test_prepare_chunk_filters_equal_the_host_oracles():
         torch.testing.assert_close(shifts, pre, rtol=0, atol=0)
         taps = np.array([[f.x1, f.x2, f.y1, f.y2] for f in bps], np.float32)
         np.testing.assert_array_equal(st.bp.numpy(), taps)
-    assert {GAIN_09, *np.float32([1.0, 0.5, 0.6])} <= seen  # the levels' distinct gains
+    assert set(np.float32([1.0, 0.5, 0.6])) <= seen  # the levels give distinct gains
+    assert (GAIN_09 in seen) == (level0 == LEVEL_09), sorted(seen)
     assert GAIN_09.view(np.uint32) == 0x3F666667 and np.float32(0.9) not in seen
 
 
@@ -403,8 +405,9 @@ def test_biquad_wrapper_checks_shapes_and_devices():
 
 
 def test_front_writes_its_state_into_the_given_tensors():
-    """`front(..., into=)` writes the window, count, gain and taps into the
-    tensors given (the stream steps pass their state's own), with the values
+    """`front(..., win_out=, count_out=, gain_out=, taps_out=)` writes the
+    window, count, gain and taps into the tensors given (the stream steps
+    pass their state's own), with the values
     of the plain version; the tensors of a filter that is off stay as they
     were; the samples always come out in a new tensor."""
     rng = np.random.default_rng(6)
@@ -420,7 +423,7 @@ def test_front_writes_its_state_into_the_given_tensors():
         st = [win.clone(), count.clone(), torch.zeros(5), taps.clone()]
         got = biquad.front(x, gain._replace(win=st[0], count=st[1]) if g_on else None,
                            coeffs if bp_on else None, st[3] if bp_on else None,
-                           into=biquad.Front(None, *st))
+                           win_out=st[0], count_out=st[1], gain_out=st[2], taps_out=st[3])
         if g_on:
             assert got.win is st[0] and got.count is st[1] and got.gain is st[2]
             for name in ("win", "count", "gain"):
@@ -437,11 +440,11 @@ def test_front_writes_its_state_into_the_given_tensors():
             torch.testing.assert_close(got.out, want.out, rtol=0, atol=0)
             torch.testing.assert_close(got.taps, want.taps, rtol=0, atol=0)
     assert biquad.front(x).out is x  # both filters off: nothing runs
-    with pytest.raises(ValueError, match="new tensor"):
-        biquad.front(x, gain, into=biquad.Front(x, None, None, None, None))
-    with pytest.raises(ValueError, match="into.win"):
-        biquad.front(x, gain, into=biquad.Front(None, torch.zeros(5, 6), None, None, None))
-    with pytest.raises(ValueError, match="gain count"):
+    with pytest.raises(ValueError, match="win_out must be"):
+        biquad.front(x, gain, win_out=torch.zeros(5, 6))
+    with pytest.raises(ValueError, match="taps_out must be"):
+        biquad.front(x, None, coeffs, taps, taps_out=torch.zeros(5, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"gain: rms \(5,\)"):
         biquad.front(x, gain._replace(count=count[:4]))
 
 

@@ -166,7 +166,7 @@ def test_front_kernel_replays_in_a_cuda_graph(cuda_device):
 
     def run(st):
         return biquad.front(xs, biquad.GainIn(r, ref, 0.1, 1.0, st[0], st[1]), coeffs, st[3],
-                            into=biquad.Front(None, *st))
+                            win_out=st[0], count_out=st[1], gain_out=st[2], taps_out=st[3])
 
     run(state())  # the build and the shared-memory attribute, outside the capture
     torch.cuda.synchronize()
