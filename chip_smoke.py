@@ -40,13 +40,15 @@ Phases, each of which raises (non-zero exit) when it fails:
   3. batched slice phase (K1): BatchedDetector at B=8192 with the bench
      wakeword runs the bench correctness pass (stream 0 must fire, every
      chunk must launch K1), streams 0-3 must give the events of a
-     device="cpu" run at B=4 on the same audio, then 5 windows of 34 chunks
-     of noise are timed on the host clock (streams_rt of the median window,
-     and the range), and torch.profiler splits the device kernel time of 5
-     more chunks into front-end, K1 and the rest, listing the kernels;
+     device="cpu" run at B=4 on the same audio, process_sequence must give
+     the pass's events bit for bit, then 5 windows of 34 chunks of noise are
+     timed on the host clock per turn (streams_rt of the median window, and
+     the range), and torch.profiler splits the device kernel time of 5 more
+     eager chunks into front-end, K1 and the rest, listing the kernels;
   4. per-shift slice phase (K2, K3, K4): the single-stream Rustpotter on the
      card plays the correctness stream (it must fire, launch K2 3 times per
-     frame and give the detections of a device="cpu" run), then make_step
+     frame and give the detections of a device="cpu" run;
+     process_audio_sequence the same detections), then make_step
      at B=8192 runs the correctness pass in each kernel mode (K2 by default,
      K4 with dtw_fused_variant=2, K3 with dtw_fused=False: stream 0 must
      fire, every shift must launch the mode's kernel, streams 0-3 must give
@@ -115,6 +117,19 @@ Phases, each of which raises (non-zero exit) when it fails:
      return the local values; the host clock per chunk, sharded and
      unsharded in turns, and the gather plus count per chunk; then
      parallel.dryrun.dryrun_multigpu over every card (one NCCL rank each).
+Every serving path of phases 3, 4, 6, 7 and 9 goes through the graphed entry
+points (runtime/graph.py: BatchedDetector.process_chunk and process_sequence,
+Rustpotter.process_samples and process_audio_sequence, make_step wrapped in
+GraphedStep), each held to the eager function (make_batched_chunk, make_step,
+or a Rustpotter running its eager step) on the same audio: the launches
+counted per replay equal the eager run's, the events of every stream are
+equal (scores, gains and final states within the tolerances above), and
+whether every bit is equal is printed. The host clock of graph and eager is
+taken in turns (eager, graph, graph, eager) for the batched chunk, the K2
+step, `nn_medium`, `mixed`, `dtw_filters` (batched and make_step),
+`dtw_48k` and the single-stream Rustpotter, with the graph's device time by
+CUDA events around replays; torch.profiler splits the eager function, where
+its launch counts are the chunk's.
 The line before the last is the kernels JSON; the last line is the result
 JSON. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -776,27 +791,34 @@ def read_counts() -> dict:
     return {k: v for counts in _counts() for k, v in counts.items()}
 
 
-def timed_windows(process, states, noise):
+def timed_windows(process, states, noise, device_out=None):
     """Host-clock seconds of TIMED_WINDOWS windows of TIMED_CHUNKS chunks of
-    noise through process(states, frames), after one warm-up chunk."""
+    noise through process(states, frames), after one warm-up chunk. With a
+    list `device_out`, the device's seconds of each window (CUDA events
+    recorded at its start and end) are appended to it."""
     import torch
 
     states, _ = process(states, noise)
     windows = []
     for _ in range(TIMED_WINDOWS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        a.record()
         for _ in range(TIMED_CHUNKS):
             states, _ = process(states, noise)
+        b.record()
         torch.cuda.synchronize()
         windows.append(time.perf_counter() - t0)
+        if device_out is not None:
+            device_out.append(a.elapsed_time(b) / 1e3)
     return states, windows
 
 
-def run_correctness(process, states, stream0, noise):
+def run_pass(process, states, stream0, noise):
     """Bench correctness pass through process(states, frames) -> (states,
-    Event): stream 0 plays `stream0`, the rest noise. Returns events of
-    streams 0-3 per chunk (numpy, (T, 4, ...))."""
+    Event): stream 0 plays `stream0`, the rest noise. Returns the events of
+    every stream, stacked (T, B, ...) where they were computed."""
     import torch
 
     evs = []
@@ -804,8 +826,104 @@ def run_correctness(process, states, stream0, noise):
         frames = noise.clone()
         frames[0] = stream0[t]
         states, ev = process(states, frames)
-        evs.append([f[:4].clone() for f in ev])
-    return [torch.stack(f).cpu().numpy() for f in zip(*evs)]
+        evs.append(ev)
+    return [torch.stack(f) for f in zip(*evs)]
+
+
+def run_correctness(process, states, stream0, noise):
+    """`run_pass`, the events of streams 0-3 per chunk (numpy, (T, 4, ...))."""
+    return [f[:, :4].cpu().numpy() for f in run_pass(process, states, stream0, noise)]
+
+
+def bits_equal(a, b) -> bool:
+    """The same bits (a NaN equals the same NaN; the gain is NaN with the
+    gain normalizer off)."""
+    import torch
+
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def match_graph(got, want, got_states, want_states, what, rtol, atol) -> bool:
+    """Raises unless a graphed run's events of every stream equal the eager
+    run's (fired, ww, counter exactly; scores, avg scores, gains where an
+    event fired within (rtol, atol)) and, unless they are None, its final
+    states the eager run's (integers exactly, floats within (rtol, atol),
+    the window's MFCC rows within the CPU tests' rtol 1e-5 / atol 1e-4).
+    Returns whether every bit is equal, NaNs included."""
+    import torch
+
+    from rustpotter_tpu_torch.runtime.state import StreamState
+
+    for j, name in ((0, "fired"), (1, "ww"), (4, "counter")):
+        assert torch.equal(got[j], want[j]), f"{what}: event {name}, graph vs eager"
+    fired = want[0]
+    same = True
+    for j, name in ((2, "score"), (3, "avg_score"), (5, "gain"), (6, "scores")):
+        torch.testing.assert_close(got[j][fired], want[j][fired], rtol=rtol, atol=atol,
+                                   equal_nan=True, msg=f"{what}: event {name}, graph vs eager")
+        same &= bits_equal(got[j], want[j])
+    for name, a, b in zip(StreamState._fields, got_states or (), want_states or ()):
+        if a.dtype.is_floating_point:
+            tol = (1e-5, 1e-4) if name == "win" else (rtol, atol)
+            torch.testing.assert_close(a, b, rtol=tol[0], atol=tol[1], equal_nan=True,
+                                       msg=f"{what}: state {name}, graph vs eager")
+        else:
+            assert torch.equal(a, b), f"{what}: state {name}, graph vs eager"
+        same &= bits_equal(a, b)
+    return same
+
+
+def graph_pass(what, graphed, eager, states_g, states_e, stream0, noise, rtol=EV_RTOL,
+               atol=EV_ATOL):
+    """The correctness pass through a graphed entry point and through the
+    eager function, each on its own states: the launches counted per replay
+    must equal the eager run's, and `match_graph` must hold. Returns the
+    graphed run's events of streams 0-3 (numpy, as run_correctness), its
+    launches, and whether graph and eager agree bit for bit."""
+    import torch
+
+    reset_counts()
+    got = run_pass(graphed, states_g, stream0, noise)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    reset_counts()
+    want = run_pass(eager, states_e, stream0, noise)
+    torch.cuda.synchronize()
+    eager_launches = read_counts()
+    assert launches == eager_launches, (what, launches, eager_launches)
+    same = match_graph(got, want, states_g, states_e, what, rtol, atol)
+    log(f"{what}: graphed events equal the eager function's on all {got[0].shape[1]} streams "
+        f"({int(want[0].sum())} events; scores and states within rtol {rtol} / atol {atol}); "
+        f"bit-equal {same}; launches per replay as eager: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return [f[:, :4].cpu().numpy() for f in got], launches, same
+
+
+def eager_graph_turns(what, card, eager, graphed, make_states, noise):
+    """Host ms per chunk of `eager` and of `graphed` (process(states, frames)),
+    in turns eager, graph, graph, eager, each the median of TIMED_WINDOWS
+    windows of TIMED_CHUNKS chunks from fresh states (its first chunk
+    captures the graph); and the graph's device ms per chunk, the median of
+    its windows' CUDA-event spans (the replays with their input and output
+    copies)."""
+    ms = {"eager": [], "graph": []}
+    windows = {"eager": [], "graph": []}
+    device = []
+    for which in ("eager", "graph", "graph", "eager"):
+        _, w = timed_windows(eager if which == "eager" else graphed, make_states(), noise,
+                             device if which == "graph" else None)
+        ms[which].append(float(np.median(w)) / TIMED_CHUNKS * 1e3)
+        windows[which] += w
+    device_ms = float(np.median(device)) / TIMED_CHUNKS * 1e3
+    rt = lambda m: noise.shape[0] * 0.03 / (m / 1e3)
+    log(f"{what} [{card}]: host ms per chunk in turns eager {ms['eager'][0]:.4f} / graph "
+        f"{ms['graph'][0]:.4f} / graph {ms['graph'][1]:.4f} / eager {ms['eager'][1]:.4f} "
+        f"(streams_rt {rt(ms['eager'][0]):.1f} / {rt(ms['graph'][0]):.1f} / "
+        f"{rt(ms['graph'][1]):.1f} / {rt(ms['eager'][1]):.1f}); the graph's device time "
+        f"{device_ms:.4f} ms per chunk (CUDA events around the graph's windows of replays)")
+    return ms, windows, device_ms
 
 
 def match_events(gpu, cpu, what, rtol=EV_RTOL, atol=EV_ATOL):
@@ -844,6 +962,7 @@ def slice_phase(dev, record):
 
     from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk
     from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
 
     B, T = BENCH_STREAMS, TIMED_CHUNKS
@@ -859,20 +978,31 @@ def slice_phase(dev, record):
     stream0 = torch.tensor(stream0_np, device=dev)
     n_chunks = stream0_np.shape[0]
 
-    states = det.init_states()
-    reset_counts()
-    t0 = time.perf_counter()
-    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), states,
-                          stream0, noise)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    eager = make_batched_chunk(det.static)
+    gpu, launches, same = graph_pass(
+        "slice", lambda s, f: det.process_chunk(det.params, s, f),
+        lambda s, f: eager(det.params, s, f), det.init_states(), det.init_states(), stream0,
+        noise)
     fired0 = int(gpu[0][:, 0].sum())
-    log(f"slice: correctness pass {n_chunks} chunks at B={B} in {wall:.3f} s, "
-        f"stream 0 fired {fired0}x, K1 launches {launches['fused_dtw_v4']}")
+    log(f"slice: correctness pass {n_chunks} chunks at B={B} through the graphed "
+        f"process_chunk, stream 0 fired {fired0}x, K1 launches {launches['fused_dtw_v4']}")
     assert fired0 >= 1, "correctness guard: the bench wakeword did not fire on stream 0"
     assert launches["fused_dtw_v4"] == n_chunks, (launches, n_chunks)
     record["fused_dtw_v4"]["launches"] = launches["fused_dtw_v4"]
+
+    # process_sequence: the pass in one call, T replays; the same bits
+    frames = noise.expand(n_chunks, B, 480).clone()
+    frames[:, 0] = stream0
+    reset_counts()
+    _, seq = det.process_sequence(det.params, det.init_states(), frames)
+    torch.cuda.synchronize()
+    k1_seq = read_counts()["fused_dtw_v4"]
+    del frames
+    for got, want in zip(seq, gpu):
+        assert bits_equal(got[:, :4].cpu(), torch.from_numpy(want)), "process_sequence"
+    assert k1_seq == n_chunks, (k1_seq, n_chunks)
+    log(f"slice: process_sequence of the {n_chunks} chunks gives the graphed process_chunk's "
+        f"events of streams 0-3 bit for bit; K1 launches {k1_seq}")
 
     cpu_det = BatchedDetector([("w", ww)], cfg, batch_size=4, device="cpu")
     cpu = run_correctness(lambda s, f: cpu_det.process_chunk(cpu_det.params, s, f),
@@ -882,50 +1012,65 @@ def slice_phase(dev, record):
     log(f"slice: streams 0-3 match the cpu run at B=4 ({n_events} events, "
         f"max|d score| {worst:.3e})")
 
-    t, rows, _ = chunk_timing(det, noise)
+    t, rows, _ = chunk_timing(det, noise, "slice", card_line())
     k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
-    log(f"slice: {t['streams_rt']:.1f} realtime streams, median of {TIMED_WINDOWS} windows "
-        f"(range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; B={B}, {T} chunks per "
-        f"window, {t['chunk_ms']:.4f} ms/chunk host clock)")
+    log(f"slice: {t['streams_rt']:.1f} realtime streams graphed, median of "
+        f"{2 * TIMED_WINDOWS} windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; "
+        f"B={B}, {T} chunks per window, {t['chunk_ms']:.4f} ms/chunk host clock); eager "
+        f"{t['eager_streams_rt']:.1f} ({t['eager_chunk_ms']:.4f} ms/chunk)")
     if not rows:
         log("slice: the profiler recorded no device time: the breakdown is not measured")
     else:
-        log(f"slice: device kernels per chunk {t['kernel_ms']:.4f} ms in "
+        log(f"slice: device kernels per eager chunk {t['kernel_ms']:.4f} ms in "
             f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: front-end "
             f"{t['front_ms']:.4f} ms, K1 {k1_ms:.4f} ms, rest "
             f"{t['kernel_ms'] - t['front_ms'] - k1_ms:.4f} ms; device idle "
-            f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
+            f"{100 * (1 - t['kernel_ms'] / t['eager_chunk_ms']):.1f} % of the eager host clock, "
+            f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the graph's")
     for ms, count, name in rows[:PROFILE_ROWS]:
         log(f"profile: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {name[:110]}")
-    return {**t, "k1_chunk_ms": k1_ms, "launches_per_chunk": sum(r[1] for r in rows)}
+    return {**t, "k1_chunk_ms": k1_ms, "launches_per_chunk": sum(r[1] for r in rows),
+            "slice_graph_bit_equal": same}
 
 
-def chunk_timing(det, noise):
-    """det.process_chunk on `noise` (B, input_samples) on the card: the host clock of
-    TIMED_WINDOWS windows of TIMED_CHUNKS chunks (the median window is kept:
-    the host clock spreads between windows) and torch.profiler's (CUPTI)
-    device kernel rows of the chunk and of its front-end alone. Returns
-    (streams_rt and its range, host and device ms per chunk; rows; front rows)."""
+def chunk_timing(det, noise, what, card):
+    """det's chunk on `noise` (B, input_samples) on the card: the host clock
+    of the graphed process_chunk against the eager chunk
+    (make_batched_chunk) in turns (`eager_graph_turns`: streams_rt of the
+    graph's median window over both graph turns, and its range; the median
+    window is kept, since the host clock spreads between windows), the
+    graph's device ms by CUDA events, and torch.profiler's (CUPTI) device
+    kernel rows of the eager chunk and of its front-end alone, where the
+    profile's launch counts are the chunk's. Returns (the summary; rows;
+    front rows)."""
     import torch
 
     from rustpotter_tpu_torch.ops import frontend
-    from rustpotter_tpu_torch.runtime.stream_step import prepare_chunk
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk, prepare_chunk
 
     B, T, C = noise.shape[0], TIMED_CHUNKS, det.static.mfcc_size
-    states, windows = timed_windows(lambda s, f: det.process_chunk(det.params, s, f),
-                                    det.init_states(), noise)
+    eager = make_batched_chunk(det.static)
+    ms, windows, device_ms = eager_graph_turns(
+        what, card, lambda s, f: eager(det.params, s, f),
+        lambda s, f: det.process_chunk(det.params, s, f), det.init_states, noise)
+    states = det.init_states()
 
     def front():
         st, shifts = prepare_chunk(det.static, det.params, states, noise)
         cat = torch.cat([st.ext_buf, shifts.reshape(B, 480)], dim=1)
         return frontend.mfcc_from_frames(cat.unfold(1, 480, 160)[:, :3], C + 1)
 
-    rows = device_kernels(lambda: det.process_chunk(det.params, states, noise), PROFILED_CHUNKS)
+    rows = device_kernels(lambda: eager(det.params, states, noise), PROFILED_CHUNKS)
     front_rows = device_kernels(front, PROFILED_CHUNKS)
     audio_s = B * T * 0.03
-    return ({"streams_rt": audio_s / float(np.median(windows)),
-             "streams_rt_min": audio_s / max(windows), "streams_rt_max": audio_s / min(windows),
-             "chunk_ms": float(np.median(windows)) / T * 1e3,
+    gw, ew = windows["graph"], windows["eager"]
+    return ({"streams_rt": audio_s / float(np.median(gw)),
+             "streams_rt_min": audio_s / max(gw), "streams_rt_max": audio_s / min(gw),
+             "chunk_ms": float(np.median(gw)) / T * 1e3,
+             "eager_streams_rt": audio_s / float(np.median(ew)),
+             "eager_chunk_ms": float(np.median(ew)) / T * 1e3,
+             "eager_ms_turns": ms["eager"], "graph_ms_turns": ms["graph"],
+             "graph_device_ms": device_ms,
              "kernel_ms": sum(r[0] for r in rows), "front_ms": sum(r[0] for r in front_rows)},
             rows, front_rows)
 
@@ -945,6 +1090,52 @@ def play_single_stream(rp, frames):
     return dets, secs
 
 
+def single_streams(cfg, dev, wakewords):
+    """Rustpotters over `wakewords` on the card (graphed), on the card with
+    its eager step (`make_step`, the graph's yardstick) and on the CPU."""
+    from rustpotter_tpu_torch import Rustpotter
+
+    rps = []
+    for d in (dev, dev, "cpu"):
+        rp = Rustpotter(cfg, device=d)
+        for name, ww in wakewords:
+            rp.add_wakeword(name, ww)
+        rps.append(rp)
+    rps[1]._step = rps[1]._step.fn
+    return rps
+
+
+def rustpotter_graph_vs_eager(what, rp, rp_eager, frames, rtol=EV_RTOL, atol=EV_ATOL):
+    """The graphed Rustpotter against the eager one over `frames`: the same
+    detections (`match_detections`) and launches. Returns (detections,
+    host seconds per call, launches, whether the scores are bit-equal)."""
+    reset_counts()
+    dets, secs = play_single_stream(rp, frames)
+    launches = read_counts()
+    reset_counts()
+    eager_dets, _ = play_single_stream(rp_eager, frames)
+    assert read_counts() == launches, (what, launches)
+    worst = match_detections(dets, eager_dets, f"{what} graph vs eager", rtol, atol)
+    log(f"{what}: graphed detections equal the eager step's (frames "
+        f"{[i for i, _ in dets]}, max|d score| {worst:.3e}, bit-equal {worst == 0.0})")
+    return dets, secs, launches, worst == 0.0
+
+
+def rustpotter_turns(what, card, rp, rp_eager, frames):
+    """ms per process_samples (median over `frames`) of the eager and the
+    graphed Rustpotter in turns eager, graph, graph, eager, each from a
+    reset."""
+    ms = {"eager": [], "graph": []}
+    for which in ("eager", "graph", "graph", "eager"):
+        r = rp_eager if which == "eager" else rp
+        r.reset()
+        ms[which].append(float(np.median(play_single_stream(r, frames)[1])) * 1e3)
+    log(f"{what} [{card}]: ms per process_samples in turns eager {ms['eager'][0]:.4f} / graph "
+        f"{ms['graph'][0]:.4f} / graph {ms['graph'][1]:.4f} / eager {ms['eager'][1]:.4f} "
+        f"(medians of {len(frames)} frames, host clock)")
+    return ms
+
+
 def per_shift_phase(dev, record):
     """The single-stream Rustpotter and make_step at B=8192, in each of the
     three DTW kernel modes, against device="cpu" runs."""
@@ -952,8 +1143,9 @@ def per_shift_phase(dev, record):
 
     import torch
 
-    from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
     from rustpotter_tpu_torch.runtime.bundle import build_bundle
+    from rustpotter_tpu_torch.runtime.graph import GraphedStep
     from rustpotter_tpu_torch.runtime.state import init_state
     from rustpotter_tpu_torch.runtime.stream_step import make_step
     from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
@@ -964,16 +1156,13 @@ def per_shift_phase(dev, record):
     cfg.detector.score_mode = ScoreMode.MAX
     cfg.detector.avg_threshold = 0.2
 
-    # (a) one stream through the public API, K2 (the default mode)
-    rp = Rustpotter(cfg, device=dev)
-    rp.add_wakeword_ref("w", ww)
+    # (a) one stream through the public API, K2 (the default mode): the
+    # graphed step against the eager one and the cpu run
+    rp, rp_eager, rp_cpu = single_streams(cfg, dev, [("w", ww)])
     frames_np = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
     n = len(frames_np)
-    reset_counts()
-    gpu_dets, secs = play_single_stream(rp, frames_np)
-    launches = read_counts()
-    rp_cpu = Rustpotter(cfg, device="cpu")
-    rp_cpu.add_wakeword_ref("w", ww)
+    gpu_dets, secs, launches, rp_same = rustpotter_graph_vs_eager("Rustpotter", rp, rp_eager,
+                                                                  frames_np)
     cpu_dets, _ = play_single_stream(rp_cpu, frames_np)
     log(f"per-shift: Rustpotter on the card fired at frames {[i for i, _ in gpu_dets]}, "
         f"the cpu run at {[i for i, _ in cpu_dets]}; K2 launches {launches['fused_dtw_v3']} "
@@ -985,6 +1174,16 @@ def per_shift_phase(dev, record):
     log(f"per-shift: Rustpotter detections match the cpu run (max|d score| {worst:.3e}); "
         f"{rp_ms:.4f} ms per process_audio, median of {n} (range "
         f"{min(secs) * 1e3:.4f}-{max(secs) * 1e3:.4f}) host clock")
+    # process_audio_sequence: one replay per frame, the events read once
+    rp.reset()
+    reset_counts()
+    seq = rp.process_audio_sequence(frames_np.reshape(-1))
+    assert read_counts()["fused_dtw_v3"] == 3 * n
+    match_detections(list(enumerate(seq)), list(enumerate(d for _, d in gpu_dets)),
+                     "Rustpotter process_audio_sequence")
+    log(f"per-shift: Rustpotter.process_audio_sequence gives the {len(seq)} detections of the "
+        f"frame loop")
+    rp_turns = rustpotter_turns("Rustpotter", card_line(), rp, rp_eager, frames_np)
 
     # (b) make_step at B=8192 in each mode, streams 0-3 against a cpu run
     rng = np.random.default_rng(0)
@@ -996,18 +1195,17 @@ def per_shift_phase(dev, record):
     modes = (("fused_dtw_v3", static),
              ("fused_dtw_v2", dataclasses.replace(static, dtw_fused_variant=2)),
              ("banded_dtw", dataclasses.replace(static, dtw_fused=False)))
-    summary = {"rp_ms": rp_ms, "rp_ms_min": min(secs) * 1e3, "rp_ms_max": max(secs) * 1e3}
+    summary = {"rp_ms": rp_ms, "rp_ms_min": min(secs) * 1e3, "rp_ms_max": max(secs) * 1e3,
+               "rp_eager_ms_turns": rp_turns["eager"], "rp_graph_ms_turns": rp_turns["graph"],
+               "rp_graph_bit_equal": rp_same}
     for name, st in modes:
-        step = make_step(st)
-        states = init_state(st, B, dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        gpu = run_correctness(lambda s, f: step(params, s, f), states, stream0, noise)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
+        step, eager = GraphedStep(make_step(st)), make_step(st)
+        gpu, launches, same = graph_pass(
+            f"per-shift {name}", lambda s, f: step(params, s, f),
+            lambda s, f: eager(params, s, f), init_state(st, B, dev), init_state(st, B, dev),
+            stream0, noise)
         fired0 = int(gpu[0][:, 0].sum())
-        log(f"per-shift {name}: correctness pass {n} chunks at B={B} in {wall:.3f} s, "
+        log(f"per-shift {name}: correctness pass {n} chunks at B={B} through the graphed step, "
             f"stream 0 fired {fired0}x, launches {launches}")
         assert fired0 >= 1, f"correctness guard: stream 0 did not fire in mode {name}"
         assert launches[name] == 3 * n, (name, launches, n)
@@ -1019,34 +1217,44 @@ def per_shift_phase(dev, record):
         n_events, worst = match_events(gpu, cpu, name)
         log(f"per-shift {name}: streams 0-3 match the cpu run at B=4 ({n_events} events, "
             f"max|d score| {worst:.3e})")
-        summary[f"{name}_pass_s"] = wall
+        summary[f"{name}_graph_bit_equal"] = same
 
-    # (c) the K2 mode on the host clock, and its device time by kernel
-    step = make_step(static)
-    states, windows = timed_windows(lambda s, f: step(params, s, f), init_state(static, B, dev),
-                                    noise)
-    elapsed = float(np.median(windows))
+    # (c) the K2 mode on the host clock, graphed against eager in turns, and
+    # the eager step's device time by kernel
+    step, graphed = make_step(static), GraphedStep(make_step(static))
+    turns, windows, graph_device_ms = eager_graph_turns(
+        "per-shift K2 mode", card_line(), lambda s, f: step(params, s, f),
+        lambda s, f: graphed(params, s, f), lambda: init_state(static, B, dev), noise)
+    states = init_state(static, B, dev)
+    elapsed = float(np.median(windows["graph"]))
     chunk_ms = elapsed / TIMED_CHUNKS * 1e3
     streams_rt = B * TIMED_CHUNKS * 0.03 / elapsed
-    rt_range = (B * TIMED_CHUNKS * 0.03 / max(windows), B * TIMED_CHUNKS * 0.03 / min(windows))
+    rt_range = (B * TIMED_CHUNKS * 0.03 / max(windows["graph"]),
+                B * TIMED_CHUNKS * 0.03 / min(windows["graph"]))
+    eager_ms = float(np.median(windows["eager"])) / TIMED_CHUNKS * 1e3
     rows = device_kernels(lambda: step(params, states, noise), PROFILED_CHUNKS)
     kernel_ms = sum(r[0] for r in rows)
     k2_ms = sum(r[0] for r in rows if "score_pairs_v3" in r[2])
     gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower())
-    log(f"per-shift K2 mode: {streams_rt:.1f} realtime streams, median of {TIMED_WINDOWS} "
-        f"windows (range {rt_range[0]:.1f}-{rt_range[1]:.1f}; B={B}, {TIMED_CHUNKS} chunks per "
-        f"window, {chunk_ms:.4f} ms/chunk host clock)")
+    log(f"per-shift K2 mode: {streams_rt:.1f} realtime streams graphed, median of "
+        f"{2 * TIMED_WINDOWS} windows (range {rt_range[0]:.1f}-{rt_range[1]:.1f}; B={B}, "
+        f"{TIMED_CHUNKS} chunks per window, {chunk_ms:.4f} ms/chunk host clock); eager "
+        f"{eager_ms:.4f} ms/chunk")
     if not rows:
         log("per-shift: the profiler recorded no device time: the breakdown is not measured")
     else:
-        log(f"per-shift K2 mode: device kernels per chunk {kernel_ms:.4f} ms in "
+        log(f"per-shift K2 mode: device kernels per eager chunk {kernel_ms:.4f} ms in "
             f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: K2 {k2_ms:.4f} ms, "
             f"GEMMs {gemm_ms:.4f} ms, rest {kernel_ms - k2_ms - gemm_ms:.4f} ms; device idle "
-            f"{100 * (1 - kernel_ms / chunk_ms):.1f} % of the host clock")
+            f"{100 * (1 - kernel_ms / eager_ms):.1f} % of the eager host clock, "
+            f"{100 * (1 - kernel_ms / chunk_ms):.1f} % of the graph's")
     for ms, count, kname in rows[:PROFILE_ROWS]:
         log(f"profile step: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
     summary.update({"step_streams_rt": streams_rt, "step_streams_rt_min": rt_range[0],
                     "step_streams_rt_max": rt_range[1], "step_chunk_ms": chunk_ms,
+                    "step_eager_chunk_ms": eager_ms, "step_eager_ms_turns": turns["eager"],
+                    "step_graph_ms_turns": turns["graph"],
+                    "step_graph_device_ms": graph_device_ms,
                     "step_kernel_ms": kernel_ms, "step_k2_ms": k2_ms,
                     "step_launches_per_chunk": sum(r[1] for r in rows)})
 
@@ -1100,17 +1308,18 @@ def nn_cell(dev, card, name, correct_ww, timed_ww, stream0_np, noise_np, cfg):
     import torch
 
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk
     from rustpotter_tpu_torch.utils.profiling import step_roofline
 
     B = BENCH_STREAMS
     noise = torch.tensor(noise_np, device=dev)
     det = BatchedDetector(correct_ww, cfg, batch_size=B, device=dev)
     n = stream0_np.shape[0]
-    reset_counts()
-    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), det.init_states(),
-                          torch.tensor(stream0_np, device=dev), noise)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    eager = make_batched_chunk(det.static)
+    gpu, launches, same = graph_pass(
+        name, lambda s, f: det.process_chunk(det.params, s, f),
+        lambda s, f: eager(det.params, s, f), det.init_states(), det.init_states(),
+        torch.tensor(stream0_np, device=dev), noise, NN_RTOL, NN_ATOL)
     fired0 = int(gpu[0][:, 0].sum())
     want_k1 = n if det.static.n_dtw else 0
     log(f"{name}: correctness pass {n} chunks at B={B}, stream 0 fired {fired0}x, launches "
@@ -1127,27 +1336,29 @@ def nn_cell(dev, card, name, correct_ww, timed_ww, stream0_np, noise_np, cfg):
         f"{worst:.3e})")
 
     det = BatchedDetector(timed_ww, cfg, batch_size=B, device=dev)
-    t, rows, front_rows = chunk_timing(det, noise)
+    t, rows, front_rows = chunk_timing(det, noise, name, card)
     gemm = lambda rs: sum(r[0] for r in rs if "gemm" in r[2].lower())
     nn_ms = gemm(rows) - gemm(front_rows)
     k1_ms = sum(r[0] for r in rows if "score_pairs" in r[2])
     rest_ms = t["kernel_ms"] - t["front_ms"] - nn_ms - k1_ms
     gflop = step_roofline(det.static).gemm_flops * B / 1e9
-    log(f"{name} [{card}]: {t['streams_rt']:.1f} realtime streams, median of {TIMED_WINDOWS} "
-        f"windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; B={B}, "
-        f"{TIMED_CHUNKS} chunks per window, {t['chunk_ms']:.4f} ms/chunk host clock); "
-        f"{gflop:.2f} GFLOP of products per chunk (step_roofline)")
+    log(f"{name} [{card}]: {t['streams_rt']:.1f} realtime streams graphed, median of "
+        f"{2 * TIMED_WINDOWS} windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; "
+        f"B={B}, {TIMED_CHUNKS} chunks per window, {t['chunk_ms']:.4f} ms/chunk host clock; eager "
+        f"{t['eager_chunk_ms']:.4f}); {gflop:.2f} GFLOP of products per chunk (step_roofline)")
     if not rows:
         log(f"{name}: the profiler recorded no device time: the breakdown is not measured")
     else:
-        log(f"{name} [{card}]: device kernels per chunk {t['kernel_ms']:.4f} ms in "
+        log(f"{name} [{card}]: device kernels per eager chunk {t['kernel_ms']:.4f} ms in "
             f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: front-end "
             f"{t['front_ms']:.4f} ms, NN GEMMs {nn_ms:.4f} ms, K1 {k1_ms:.4f} ms, rest "
             f"{rest_ms:.4f} ms; device idle "
-            f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
+            f"{100 * (1 - t['kernel_ms'] / t['eager_chunk_ms']):.1f} % of the eager host clock, "
+            f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the graph's")
     for ms, count, kname in rows[:PROFILE_ROWS]:
         log(f"profile {name}: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
-    return {f"{name}_{k}": v for k, v in {**t, "nn_gemm_ms": nn_ms, "k1_ms": k1_ms}.items()}
+    return {f"{name}_{k}": v for k, v in {**t, "nn_gemm_ms": nn_ms, "k1_ms": k1_ms,
+                                           "graph_bit_equal": same}.items()}
 
 
 def nn_phase(dev, card):
@@ -1158,10 +1369,11 @@ def nn_phase(dev, card):
 
     import torch
 
-    from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.graph import GraphedStep
     from rustpotter_tpu_torch.runtime.state import init_state
-    from rustpotter_tpu_torch.runtime.stream_step import make_step
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk, make_step
     from rustpotter_tpu_torch.synthetic import (
         build_bench_nn_wakeword,
         build_bench_wakeword,
@@ -1186,16 +1398,10 @@ def nn_phase(dev, card):
                            [("w", ww), ("n", medium)], stream0_np, noise_np, cfg))
 
     # (c) the single-stream Rustpotter with mixed: K2, 3 launches per frame
-    rps = []
-    for d in (dev, "cpu"):
-        rp = Rustpotter(cfg, device=d)
-        rp.add_wakeword("w", ww)
-        rp.add_wakeword("n", firing)
-        rps.append(rp)
-    reset_counts()
-    gpu_dets, secs = play_single_stream(rps[0], stream0_np)
-    launches = read_counts()
-    cpu_dets, _ = play_single_stream(rps[1], stream0_np)
+    rps = single_streams(cfg, dev, [("w", ww), ("n", firing)])
+    gpu_dets, secs, launches, _ = rustpotter_graph_vs_eager("Rustpotter mixed", rps[0], rps[1],
+                                                            stream0_np, NN_RTOL, NN_ATOL)
+    cpu_dets, _ = play_single_stream(rps[2], stream0_np)
     n = len(stream0_np)
     assert gpu_dets, "correctness guard: Rustpotter with mixed did not fire"
     assert launches["fused_dtw_v3"] == 3 * n and sum(launches.values()) == 3 * n, launches
@@ -1211,9 +1417,11 @@ def nn_phase(dev, card):
     # chunk or frame), on the short bench wakeword at a small B
     ww30, utt30 = build_bench_wakeword(device=dev, longest=30)
     small_b = 64
-    paths = {
-        "BatchedDetector": lambda det: lambda s, f: det.process_chunk(det.params, s, f),
-        "make_step": lambda det: partial(make_step(det.static), det.params),
+    paths = {  # (graphed, eager) of each path
+        "BatchedDetector": lambda det: (lambda s, f: det.process_chunk(det.params, s, f),
+                                        partial(make_batched_chunk(det.static), det.params)),
+        "make_step": lambda det: (partial(GraphedStep(make_step(det.static)), det.params),
+                                  partial(make_step(det.static), det.params)),
     }
     for band in (21, 24):
         cfg_b = copy.deepcopy(cfg)
@@ -1224,15 +1432,13 @@ def nn_phase(dev, card):
         s0 = correctness_stream(dets[dev].static.max_mfcc_frames, utt30)
         n = len(s0)
         for path, runner in paths.items():
-            runs = {}
-            for d, b in sizes:
-                reset_counts()
-                runs[d] = run_correctness(runner(dets[d]), init_state(dets[d].static, b, d),
-                                          torch.tensor(s0, device=d),
-                                          torch.tensor(noise_np[:b], device=d))
-                if d == dev:
-                    torch.cuda.synchronize()
-                    launches = read_counts()
+            graphed, eager = runner(dets[dev])
+            st = lambda d, b: init_state(dets[d].static, b, d)
+            runs = {"cpu": run_correctness(runner(dets["cpu"])[1], st("cpu", 4),
+                                           torch.tensor(s0), torch.tensor(noise_np[:4]))}
+            runs[dev], launches, _ = graph_pass(
+                f"F1 w={band} {path}", graphed, eager, st(dev, small_b), st(dev, small_b),
+                torch.tensor(s0, device=dev), torch.tensor(noise_np[:small_b], device=dev))
             n_events, worst = match_events(runs[dev], runs["cpu"], f"F1 w={band} {path}")
             assert int(runs[dev][0][:, 0].sum()) >= 1, f"F1 w={band} {path}: stream 0 silent"
             assert launches["fused_dtw_v2"] == 3 * n == sum(launches.values()), (
@@ -1241,14 +1447,10 @@ def nn_phase(dev, card):
                 f"{launches['fused_dtw_v2']}, K1 {launches['fused_dtw_v4']}, K2 "
                 f"{launches['fused_dtw_v3']}; streams 0-3 match the cpu run ({n_events} events, "
                 f"max|d score| {worst:.3e})")
-        dets_rp = {}
-        for d, _ in sizes:
-            dets_rp[d] = Rustpotter(cfg_b, device=d)
-            dets_rp[d].add_wakeword("w", ww30)
-        reset_counts()
-        gpu_dets, _ = play_single_stream(dets_rp[dev], s0)
-        launches = read_counts()
-        cpu_dets, _ = play_single_stream(dets_rp["cpu"], s0)
+        rps = single_streams(cfg_b, dev, [("w", ww30)])
+        gpu_dets, _, launches, _ = rustpotter_graph_vs_eager(f"F1 w={band} Rustpotter", rps[0],
+                                                             rps[1], s0)
+        cpu_dets, _ = play_single_stream(rps[2], s0)
         assert gpu_dets, f"F1 w={band} Rustpotter did not fire"
         worst = match_detections(gpu_dets, cpu_dets, f"F1 w={band} Rustpotter")
         assert launches["fused_dtw_v2"] == 3 * n == sum(launches.values()), launches
@@ -1259,25 +1461,41 @@ def nn_phase(dev, card):
     # the same calls on the CPU at B=4
     split = 10
     outs = {}
-    for d, b in ((dev, B), ("cpu", 4)):
+    for run_as, d, b in (("graph", dev, B), ("eager", dev, B), ("cpu", "cpu", 4)):
         det = BatchedDetector([("w", ww)], cfg, batch_size=b, device=d)
         noise = torch.tensor(noise_np[:b], device=d)
         s0 = torch.tensor(stream0_np, device=d)
-        run = lambda s, f: det.process_chunk(det.params, s, f)
+        if run_as == "eager":  # the eager chunk of each bundle, rebuilt after the add
+            chunks = {}
+            run = lambda s, f: chunks.setdefault(id(det.static), make_batched_chunk(det.static))(
+                det.params, s, f)
+        else:
+            run = lambda s, f: det.process_chunk(det.params, s, f)
         reset_counts()
         states = det.init_states()
-        before = run_correctness(run, states, s0[:split], noise)
+        before = run_pass(run, states, s0[:split], noise)
         states = det.add_wakeword("n", firing, states)
         assert det.wakeword_names == ("w", "n") and states.win.shape[0] == firing.train_size
-        outs[d] = (before, run_correctness(run, states, s0[split:], noise))
-        if d == dev:
+        outs[run_as] = (before, run_pass(run, states, s0[split:], noise), states)
+        if run_as == "graph":
             torch.cuda.synchronize()
             launches = read_counts()
+            captures = det._chunk.captures
     assert launches["fused_dtw_v4"] == len(stream0_np), launches
-    match_events(outs[dev][0], outs["cpu"][0], "M6b before the add")
-    n_events, worst = match_events(outs[dev][1], outs["cpu"][1], "M6b after the add", NN_RTOL,
-                                   NN_ATOL)
-    fired0 = int(outs[dev][1][0][:, 0].sum())
+    assert captures == 1, captures  # the rebuilt bundle's graph, captured at its first chunk
+    (gb, ga, gs), (eb, ea, es) = outs["graph"], outs["eager"]
+    same = (match_graph(gb, eb, None, None, "M6b before the add, graph vs eager", EV_RTOL,
+                        EV_ATOL)
+            & match_graph(ga, ea, gs, es, "M6b after the add, graph vs eager", NN_RTOL,
+                          NN_ATOL))
+    log(f"M6b: the graphed chunks before and after the add give the eager chunks' events on "
+        f"all {B} streams and the same final states (bit-equal {same})")
+    host = {k: [[f[:, :4].cpu().numpy() for f in part] for part in v[:2]]
+            for k, v in outs.items()}
+    match_events(host["graph"][0], host["cpu"][0], "M6b before the add")
+    n_events, worst = match_events(host["graph"][1], host["cpu"][1], "M6b after the add",
+                                   NN_RTOL, NN_ATOL)
+    fired0 = int(host["graph"][1][0][:, 0].sum())
     assert fired0 >= 1, "M6b: stream 0 did not fire after the NN wakeword joined"
     log(f"M6b: NN wakeword added to the live B={B} DTW fleet after {split} chunks; the "
         f"{len(stream0_np) - split} chunks after it match the cpu run at B=4 ({n_events} "
@@ -1447,16 +1665,18 @@ def _front_split(rows, front_rows, resample_rows, t):
 def _log_cell(name, card, t, parts, rows):
     """The host clock line and, where the profiler saw the device, the
     split of the device time per chunk into `parts` {label: ms}."""
-    log(f"{name} [{card}]: {t['streams_rt']:.1f} realtime streams, median of {TIMED_WINDOWS} "
-        f"windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; B={BENCH_STREAMS}, "
-        f"{TIMED_CHUNKS} chunks per window, {t['chunk_ms']:.4f} ms/chunk host clock)")
+    log(f"{name} [{card}]: {t['streams_rt']:.1f} realtime streams graphed, median of "
+        f"{2 * TIMED_WINDOWS} windows (range {t['streams_rt_min']:.1f}-{t['streams_rt_max']:.1f}; "
+        f"B={BENCH_STREAMS}, {TIMED_CHUNKS} chunks per window, {t['chunk_ms']:.4f} ms/chunk host "
+        f"clock; eager {t['eager_chunk_ms']:.4f})")
     if not rows:
         log(f"{name}: the profiler recorded no device time: the breakdown is not measured")
         return
     split = ", ".join(f"{label} {ms:.4f} ms" for label, ms in parts.items())
-    log(f"{name} [{card}]: device kernels per chunk {t['kernel_ms']:.4f} ms in "
+    log(f"{name} [{card}]: device kernels per eager chunk {t['kernel_ms']:.4f} ms in "
         f"{sum(r[1] for r in rows):.1f} launches of {len(rows)} kernels: {split}; device idle "
-        f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the host clock")
+        f"{100 * (1 - t['kernel_ms'] / t['eager_chunk_ms']):.1f} % of the eager host clock, "
+        f"{100 * (1 - t['kernel_ms'] / t['chunk_ms']):.1f} % of the graph's")
     for ms, count, kname in rows[:PROFILE_ROWS]:
         log(f"profile {name}: {ms:9.4f} ms/chunk  {count:5.1f} launches/chunk  {kname[:110]}")
 
@@ -1532,6 +1752,7 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
     import torch
 
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk
 
     B = BENCH_STREAMS
     noise = torch.tensor(noise_np, device=dev)
@@ -1540,11 +1761,11 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
     n = stream0_np.shape[0]
     fronts = n if det.static.bp_enabled or det.static.gain_enabled else 0
     states = det.init_states()
-    reset_counts()
-    gpu = run_correctness(lambda s, f: det.process_chunk(det.params, s, f), states,
-                          torch.tensor(stream0_np, device=dev), noise)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    eager = make_batched_chunk(det.static)
+    gpu, launches, same = graph_pass(
+        f"{name} BatchedDetector", lambda s, f: det.process_chunk(det.params, s, f),
+        lambda s, f: eager(det.params, s, f), states, det.init_states(),
+        torch.tensor(stream0_np, device=dev), noise)
     fired0 = int(gpu[0][:, 0].sum())
     log(f"{name} BatchedDetector: correctness pass {n} chunks of {det.static.input_samples} "
         f"samples at B={B}, stream 0 fired {fired0}x, launches {launches}")
@@ -1561,7 +1782,8 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
     gains = match_gains(states, cpu_states, f"{name} BatchedDetector", det.static.gain_enabled)
     log(f"{name} BatchedDetector: streams 0-3 match the cpu run at B=4 ({n_events} events, "
         f"max|d score| {worst:.3e}, event gains equal, gains after the pass {gains} bit-equal)")
-    t, rows, front_rows = chunk_timing(det, noise)
+    t, rows, front_rows = chunk_timing(det, noise, f"{name} BatchedDetector", card)
+    t["graph_bit_equal"] = same
     resample_rows, resample_t = _resample_rows(name, card, det, noise)
     split = {**_front_split(rows, front_rows, resample_rows, t), **resample_t}
     _log_cell(f"{name} BatchedDetector", card, t, {
@@ -1571,10 +1793,10 @@ def front_batched(dev, card, name, ww, cfg, stream0_np, noise_np, in_graph_resam
     if rows and ref_cfg is not None:
         ref = BatchedDetector([("w", ww)], ref_cfg, batch_size=B, device=dev,
                               in_graph_resample=in_graph_resample)
-        ref_states = ref.init_states()
+        ref_states, ref_eager = ref.init_states(), make_batched_chunk(ref.static)
         filtered_launches(f"{name} BatchedDetector",
-                          lambda: det.process_chunk(det.params, states, noise),
-                          lambda: ref.process_chunk(ref.params, ref_states, noise))
+                          lambda: eager(det.params, states, noise),
+                          lambda: ref_eager(ref.params, ref_states, noise))
     return {f"{name}_{k}": v for k, v in {**t, **split}.items()}, launches["biquad"]
 
 
@@ -1587,6 +1809,7 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, ref_cfg=None):
     import torch
 
     from rustpotter_tpu_torch.runtime.bundle import build_bundle
+    from rustpotter_tpu_torch.runtime.graph import GraphedStep
     from rustpotter_tpu_torch.runtime.state import init_state
     from rustpotter_tpu_torch.runtime.stream_step import make_step
 
@@ -1594,14 +1817,12 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, ref_cfg=None):
     noise = torch.tensor(noise_np, device=dev)
     static, params = build_bundle([("w", ww)], cfg, dev)
     _, params_cpu = build_bundle([("w", ww)], cfg, "cpu")
-    step = make_step(static)
+    step, graphed = make_step(static), GraphedStep(make_step(static))
     n = stream0_np.shape[0]
     states = init_state(static, B, dev)
-    reset_counts()
-    gpu = run_correctness(lambda s, f: step(params, s, f), states,
-                          torch.tensor(stream0_np, device=dev), noise)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    gpu, launches, same = graph_pass(
+        f"{name} make_step", lambda s, f: graphed(params, s, f), lambda s, f: step(params, s, f),
+        states, init_state(static, B, dev), torch.tensor(stream0_np, device=dev), noise)
     assert int(gpu[0][:, 0].sum()) >= 1, f"correctness guard: {name} make_step did not fire"
     assert launches["fused_dtw_v3"] == 3 * n and launches["biquad"] == n, (name, launches)
     assert sum(launches.values()) == 4 * n, f"{name} make_step: other kernels launched"
@@ -1615,12 +1836,18 @@ def front_step(dev, card, name, ww, cfg, stream0_np, noise_np, ref_cfg=None):
     log(f"{name} make_step: {n} chunks, K2 launches {launches['fused_dtw_v3']}, biquad "
         f"{launches['biquad']}; streams 0-3 match the cpu run at B=4 ({n_events} events, "
         f"max|d score| {worst:.3e}, gains after the pass {gains} bit-equal)")
-    states, windows = timed_windows(lambda s, f: step(params, s, f), init_state(static, B, dev),
-                                    noise)
+    turns, windows, graph_device_ms = eager_graph_turns(
+        f"{name} make_step", card, lambda s, f: step(params, s, f),
+        lambda s, f: graphed(params, s, f), lambda: init_state(static, B, dev), noise)
+    states = init_state(static, B, dev)
     audio_s = B * TIMED_CHUNKS * 0.03
-    t = {"streams_rt": audio_s / float(np.median(windows)),
-         "streams_rt_min": audio_s / max(windows), "streams_rt_max": audio_s / min(windows),
-         "chunk_ms": float(np.median(windows)) / TIMED_CHUNKS * 1e3}
+    gw = windows["graph"]
+    t = {"streams_rt": audio_s / float(np.median(gw)),
+         "streams_rt_min": audio_s / max(gw), "streams_rt_max": audio_s / min(gw),
+         "chunk_ms": float(np.median(gw)) / TIMED_CHUNKS * 1e3,
+         "eager_chunk_ms": float(np.median(windows["eager"])) / TIMED_CHUNKS * 1e3,
+         "eager_ms_turns": turns["eager"], "graph_ms_turns": turns["graph"],
+         "graph_device_ms": graph_device_ms, "graph_bit_equal": same}
     rows = device_kernels(lambda: step(params, states, noise), PROFILED_CHUNKS)
     t["kernel_ms"] = sum(r[0] for r in rows)
     gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower())
@@ -1644,18 +1871,11 @@ def front_rustpotter(dev, card, name, ww, cfg, frames_np, bp):
     on the CPU: equal detections, 3 K2 launches per frame and `bp` biquad
     launches per frame; ms per process_samples (host encoder included) and
     of the host encoder alone."""
-    from rustpotter_tpu_torch import Rustpotter
-
-    rps = []
-    for d in (dev, "cpu"):
-        rp = Rustpotter(cfg, device=d)
-        rp.add_wakeword_ref("w", ww)
-        rps.append(rp)
+    rps = single_streams(cfg, dev, [("w", ww)])
     n = len(frames_np)
-    reset_counts()
-    gpu_dets, secs = play_single_stream(rps[0], frames_np)
-    launches = read_counts()
-    cpu_dets, _ = play_single_stream(rps[1], frames_np)
+    gpu_dets, secs, launches, _ = rustpotter_graph_vs_eager(f"{name} Rustpotter", rps[0], rps[1],
+                                                            frames_np)
+    cpu_dets, _ = play_single_stream(rps[2], frames_np)
     assert gpu_dets, f"correctness guard: {name} Rustpotter did not fire"
     assert launches["fused_dtw_v3"] == 3 * n and launches["biquad"] == bp * n, launches
     assert sum(launches.values()) == (3 + bp) * n, f"{name} Rustpotter: other kernels launched"
@@ -1865,16 +2085,6 @@ def train_phase(dev, card):
 GATHER_CALLS = 200
 
 
-def bits_equal(a, b) -> bool:
-    """The same bits (a NaN equals the same NaN; the gain is NaN with the
-    gain normalizer off)."""
-    import torch
-
-    if a.dtype.is_floating_point:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return torch.equal(a, b)
-
-
 def shard_phase(dev, card):
     """Stream sharding over NCCL (see the module docstring, phase 9)."""
     import tempfile
@@ -1890,6 +2100,7 @@ def shard_phase(dev, card):
     from rustpotter_tpu_torch.parallel.dryrun import dryrun_multigpu
     from rustpotter_tpu_torch.parallel.mesh import make_stream_group, multihost_initialize
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk
     from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
 
     B = BENCH_STREAMS
@@ -1934,6 +2145,14 @@ def shard_phase(dev, card):
                 for f, g in zip(a, b):
                     if not bits_equal(f, g):
                         raise AssertionError(f"sharded chunk {t} differs from the unsharded one")
+            # the sharded detector's graph against its eager chunk
+            sharded = dets["sharded"]
+            eager = make_batched_chunk(sharded.static)
+            _, _, same = graph_pass(
+                "shard sharded", lambda s, f: sharded.process_chunk(sharded.params, s, f),
+                lambda s, f: eager(sharded.params, s, f), sharded.init_states(),
+                sharded.init_states(), stream0, noise)
+            summary["sharded_graph_bit_equal"] = same
             fired = torch.stack([ev[0] for ev in events["sharded"]])
             fired0 = int(fired[:, 0].sum())
             assert fired0 >= 1, "correctness guard: stream 0 did not fire in the sharded run"

@@ -32,10 +32,22 @@ runs every chunk. The chunk itself needs no collective; detections merge
 through `parallel.collectives`. The management calls run on each rank on
 its own block.
 
+On the card the chunk runs as a CUDA graph (`runtime.graph.GraphedStep`),
+the counterpart of the JAX runtime's `jax.jit(chunk_fn, donate_argnums=(1,))`:
+`process_chunk` copies the frames into the graph's input buffer, replays it
+and clones its Event (two device copies outside the graph), and
+`process_sequence` replays it T times (one input copy and one Event copy per
+chunk, nothing read on the host), the counterpart of the jitted `lax.scan`.
+A new state set or parameter set is captured at its first chunk, which runs
+eagerly; a rebuild (`add_wakeword`, `remove_wakeword`, `update_*config`)
+drops the old graphs; `reset_streams` writes in place and keeps them. On the
+CPU the chunk runs eagerly. The eager chunk is `make_batched_chunk(static)`.
+
 Differences from the JAX runtime: `process_chunk` updates the states in place
-(the counterpart of donating them) and still returns them; `process_sequence`
-is a loop of `process_chunk`. Migration is a host-side step outside the
-chunk: it reads the shared cursor once.
+(the counterpart of donating them) and still returns them. What runs on the
+host between replays: the frames' conversion (`torch.as_tensor`), the
+capture key, and the management calls; migration is a host-side step outside
+the chunk that reads the shared cursor once.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ from ..device import DeviceLike, resolve_device
 from ..parallel.mesh import StreamSharding
 from ..wakewords.files import load_wakeword
 from .bundle import StepParams, StepStatic, Wakeword, build_bundle
+from .graph import GraphedStep
 from .state import Event, StreamState, init_state
 from .stream_step import make_batched_chunk
 
@@ -152,6 +165,7 @@ class BatchedDetector:
         # the streams this process holds: all B, or this rank's block
         self.local_batch = sharding.local_size(batch_size) if sharding else batch_size
         self._in_graph_resample = in_graph_resample
+        self._chunk: Optional[GraphedStep] = None
         self._install(list(wakewords), self.config)
 
     # ------------------------------------------------------------- build
@@ -162,7 +176,9 @@ class BatchedDetector:
         and only then adopt them: a build that raises changes nothing."""
         static, params = build_bundle(wakewords, config, self.device,
                                       self._in_graph_resample)
-        chunk = make_batched_chunk(static)
+        chunk = GraphedStep(make_batched_chunk(static))
+        if self._chunk is not None:
+            self._chunk.reset()  # the old graphs and their memory pools
         self._wakewords, self.config = wakewords, config
         self.static, self.params, self._chunk = static, params, chunk
 
@@ -258,16 +274,12 @@ class BatchedDetector:
                          frames) -> Tuple[StreamState, Event]:
         """frames (T, B, input_samples): T chunks in order. Returns the
         states and the Events stacked on a leading (T,) axis."""
-        x = self._frames(frames)
-        events = []
-        for t in range(x.shape[0]):
-            states, ev = self._chunk(params, states, x[t])
-            events.append(ev)
-        return states, Event(*[torch.stack(f) for f in zip(*events)])
+        return self._chunk.sequence(params, states, self._frames(frames))
 
     def reset_streams(self, states: StreamState, mask) -> StreamState:
-        """Clear streams where mask (B,) is True, in place. Sharded, the
-        mask is this rank's block (`StreamSharding.local` of a global mask)."""
+        """Clear streams where mask (B,) is True, in place (so the chunk's
+        graph stays valid). Sharded, the mask is this rank's block
+        (`StreamSharding.local` of a global mask)."""
         m = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
         fresh = init_state(self.static, self.local_batch, self.device)
         for f in StreamState._fields:

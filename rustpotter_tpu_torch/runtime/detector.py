@@ -10,7 +10,20 @@ and band-pass filters, at any input rate.
 The audio encoder (byte decode, downmix, resampling another rate to 16 kHz
 through the host `FftResampler`) runs on the host as the reference's; everything from the 480-sample f32 frame onward is
 `stream_step.make_step` at B = 1, with params and state on `device` (default:
-the CUDA card). `process_audio_sequence` is a loop of that step.
+the CUDA card).
+
+On the card the step runs as a CUDA graph (`runtime.graph.GraphedStep`), the
+counterpart of the JAX package's `jax.jit(step)`: `process_audio` copies the
+frame into the graph's input buffer, replays it and clones its Event. The
+frame loop stays on the host, as in JAX: the encoder, the read of `fired`
+after every frame, the decode of a detection, and with `record_path` the
+reads of the partial detection around the step. `process_audio_sequence`
+replays the graph once per frame and reads the events back once, at the
+end, as JAX's `_scan` does. `reset()` writes the fresh state into the
+state's tensors, so the graph stays valid; a wakeword or config change
+rebuilds the step and captures again at its first frame, which runs
+eagerly. On the CPU the step runs eagerly. The eager step is
+`make_step(static)`.
 """
 from __future__ import annotations
 
@@ -29,6 +42,7 @@ from ..device import DeviceLike, resolve_device
 from ..utils.wav import write_wav
 from ..wakewords.files import WakewordModel, WakewordRef, load_wakeword
 from .bundle import StepParams, StepStatic, build_bundle
+from .graph import GraphedStep
 from .state import Event, StreamState, init_state
 from .stream_step import make_step
 
@@ -106,7 +120,9 @@ class Rustpotter:
             self._static = self._params = self._step = self._state = None
             return
         self._static, self._params = build_bundle(self.wakewords, self.config, self.device)
-        self._step = make_step(self._static)
+        if self._step is not None:
+            self._step.reset()  # the old graphs and their memory pools
+        self._step = GraphedStep(make_step(self._static))
         self._state = init_state(self._static, 1, self.device)
 
     # ------------------------------------------------------------- config
@@ -127,9 +143,11 @@ class Rustpotter:
         self.reset()
 
     def reset(self) -> None:
-        """Clear stream state (detector.rs:290-302)."""
+        """Clear stream state (detector.rs:290-302), in place (so the step's
+        graph stays valid)."""
         if self._static is not None:
-            self._state = init_state(self._static, 1, self.device)
+            for t, fresh in zip(self._state, init_state(self._static, 1, self.device)):
+                t.copy_(fresh)
         self.wav_encoder.reset()
 
     # ------------------------------------------------------------ getters
@@ -212,15 +230,12 @@ class Rustpotter:
         events are read back once, at the end."""
         frames = np.asarray(samples, np.float32)
         n = len(frames) // SAMPLES_PER_FRAME
-        x = torch.as_tensor(frames[: n * SAMPLES_PER_FRAME], device=self.device)
-        x = x.reshape(n, 1, SAMPLES_PER_FRAME)
-        events = []
-        for t in range(n):
-            self._state, ev = self._step(self._params, self._state, x[t])
-            events.append(ev)
-        if not events:
+        if n == 0:
             return []
-        stacked = Event(*[torch.cat(f).cpu() for f in zip(*events)])  # (n,) per field
+        x = torch.as_tensor(frames[: n * SAMPLES_PER_FRAME], device=self.device)
+        self._state, ev = self._step.sequence(self._params, self._state,
+                                              x.reshape(n, 1, SAMPLES_PER_FRAME))
+        stacked = Event(*[f[:, 0].cpu() for f in ev])  # (n,) per field
         return [self._decode_event(stacked, int(i)) for i in torch.nonzero(stacked.fired)[:, 0]]
 
     # ------------------------------------------------------------- decode
