@@ -121,10 +121,13 @@ Every serving path of phases 3, 4, 6, 7 and 9 goes through the graphed entry
 points (runtime/graph.py: BatchedDetector.process_chunk and process_sequence,
 Rustpotter.process_samples and process_audio_sequence, make_step wrapped in
 GraphedStep), each held to the eager function (make_batched_chunk, make_step,
-or a Rustpotter running its eager step) on the same audio: the launches
-counted per replay equal the eager run's, the events of every stream are
-equal (scores, gains and final states within the tolerances above), and
-whether every bit is equal is printed. The host clock of graph and eager is
+or `EagerSingleStream`, Rustpotter's frame loop over make_step) on the same
+audio: the launches counted per replay equal the eager run's, the events of
+every stream are equal (scores, gains and final states within the tolerances
+above), whether every bit is equal is printed, and torch.profiler must see a
+replay run the port's kernels as counted (`replays_run`). M6b also times a
+bundle's first chunk (the eager chunk, then the capture) against a replay and
+reads the memory reserved over each capture. The host clock of graph and eager is
 taken in turns (eager, graph, graph, eager) for the batched chunk, the K2
 step, `nn_medium`, `mixed`, `dtw_filters` (batched and make_step),
 `dtw_48k` and the single-stream Rustpotter, with the graph's device time by
@@ -163,6 +166,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     k4_executed,
     linear_bytes,
     loop_facts,
+    profiled_launches,
     ptxas_resources,
     resident_warps,
     sass_functions,
@@ -185,6 +189,7 @@ TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
 TIMED_WINDOWS = 5
 PROFILED_CHUNKS = 5
 PROFILE_ROWS = 20
+REPLAY_PROFILES = {"paths": 0, "s": 0.0}  # replays_run's calls and host seconds
 # kernel sources built per MFCC size (C = 8 for the unit shapes, 16 for the
 # bench wakeword); banded_dtw.cu depends on the band only
 SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw_v1.cu")
@@ -879,9 +884,10 @@ def graph_pass(what, graphed, eager, states_g, states_e, stream0, noise, rtol=EV
                atol=EV_ATOL):
     """The correctness pass through a graphed entry point and through the
     eager function, each on its own states: the launches counted per replay
-    must equal the eager run's, and `match_graph` must hold. Returns the
-    graphed run's events of streams 0-3 (numpy, as run_correctness), its
-    launches, and whether graph and eager agree bit for bit."""
+    must equal the eager run's, `match_graph` must hold, and the replays
+    must run the kernels counted (`replays_run`). Returns the graphed run's
+    events of streams 0-3 (numpy, as run_correctness), its launches, and
+    whether graph and eager agree bit for bit."""
     import torch
 
     reset_counts()
@@ -898,7 +904,39 @@ def graph_pass(what, graphed, eager, states_g, states_e, stream0, noise, rtol=EV
         f"({int(want[0].sum())} events; scores and states within rtol {rtol} / atol {atol}); "
         f"bit-equal {same}; launches per replay as eager: "
         f"{ {k: v for k, v in launches.items() if v} }")
+    # the profiled calls leave the states as the pass left them: callers read them
+    saved = [[t.clone() for t in states] for states in (states_g, states_e)]
+    replays_run(what, lambda: graphed(states_g, noise), lambda: eager(states_e, noise),
+                launches, stream0.shape[0])
+    for states, copies in zip((states_g, states_e), saved):
+        for t, c in zip(states, copies):
+            t.copy_(c)
     return [f[:, :4].cpu().numpy() for f in got], launches, same
+
+
+def replays_run(what, graphed, eager, launches, n):
+    """Raises unless torch.profiler (CUPTI) sees a call of `graphed` (a
+    replay) run each of the port's kernels as often as a call of `eager`
+    does, and the kernels that the wrappers' counts (`launches` over n
+    calls, derived from the capture) name: the graph holds the kernels it
+    is counted for. K1 and K2 launch twice per wrapper call when a chunk
+    holds both ungated and gated templates. Each side is one
+    profile of PROFILED_CHUNKS calls, rounded to whole launches per call
+    (`profiled_launches`); the totals count the device kernels and copies,
+    the graphed call's copies outside the graph among them.
+    Returns the totals per replay and per eager call."""
+    t0 = time.perf_counter()
+    got, total_g = profiled_launches(graphed, PROFILED_CHUNKS, readings=1)
+    want, total_e = profiled_launches(eager, PROFILED_CHUNKS, readings=1)
+    REPLAY_PROFILES["paths"] += 1
+    REPLAY_PROFILES["s"] += time.perf_counter() - t0
+    counted = {k: v / n for k, v in launches.items() if v}
+    assert got == want and set(got) == set(counted), (what, got, want, counted)
+    assert all(got[k] >= counted[k] for k in got), (what, got, counted)
+    log(f"{what}: profiled, a replay runs {total_g:.1f} device kernels and copies, an eager "
+        f"call {total_e:.1f}; the port's kernels per call {got} in both (counted per wrapper "
+        f"call {counted})")
+    return total_g, total_e
 
 
 def eager_graph_turns(what, card, eager, graphed, make_states, noise):
@@ -1090,41 +1128,99 @@ def play_single_stream(rp, frames):
     return dets, secs
 
 
+class EagerSingleStream:
+    """The graphed Rustpotter's yardstick: Rustpotter.process_samples' frame
+    loop (the host encoder, the step at B = 1, the read of `fired`) over the
+    eager step `make_step(static)`, built from the same wakewords and
+    config. process_samples returns the frame's Event (on the host) where it
+    fired, else None."""
+
+    def __init__(self, cfg, dev, wakewords):
+        from rustpotter_tpu_torch.audio.encoder import AudioEncoder
+        from rustpotter_tpu_torch.runtime.bundle import build_bundle
+        from rustpotter_tpu_torch.runtime.stream_step import make_step
+
+        self.wakewords, self.device = dict(wakewords), dev
+        self.static, self.params = build_bundle(list(wakewords), cfg, dev)
+        self.step, self.encoder = make_step(self.static), AudioEncoder(cfg.fmt)
+        self.reset()
+
+    def reset(self):
+        from rustpotter_tpu_torch.runtime.state import init_state
+
+        self.state = init_state(self.static, 1, self.device)
+        self.encoder.reset()
+
+    def process_samples(self, samples):
+        import torch
+
+        frame = self.encoder.rencode_and_resample(np.asarray(samples))
+        x = torch.as_tensor(np.asarray(frame, np.float32), device=self.device).reshape(1, -1)
+        self.state, ev = self.step(self.params, self.state, x)
+        return type(ev)(*[f[0].cpu() for f in ev]) if bool(ev.fired[0]) else None
+
+    def detection_of(self, ev):
+        """(name, score labels) that Rustpotter decodes an Event to."""
+        from rustpotter_tpu_torch.wakewords.files import WakewordRef
+
+        st, ww = self.static, int(ev.ww)
+        if isinstance(self.wakewords[st.names[ww]], WakewordRef):
+            return self.wakewords[st.names[ww]].name, list(st.dtw_template_names[ww])
+        labels = list(st.nn_meta[ww - st.n_dtw].labels)
+        return labels[int(np.argmax(ev.scores[: len(labels)].numpy()))], labels
+
+
 def single_streams(cfg, dev, wakewords):
-    """Rustpotters over `wakewords` on the card (graphed), on the card with
-    its eager step (`make_step`, the graph's yardstick) and on the CPU."""
+    """(a Rustpotter over `wakewords` on the card (graphed), its eager
+    yardstick `EagerSingleStream` on the card, a Rustpotter on the CPU)."""
     from rustpotter_tpu_torch import Rustpotter
 
     rps = []
-    for d in (dev, dev, "cpu"):
+    for d in (dev, "cpu"):
         rp = Rustpotter(cfg, device=d)
         for name, ww in wakewords:
             rp.add_wakeword(name, ww)
         rps.append(rp)
-    rps[1]._step = rps[1]._step.fn
-    return rps
+    return rps[0], EagerSingleStream(cfg, dev, wakewords), rps[1]
 
 
-def rustpotter_graph_vs_eager(what, rp, rp_eager, frames, rtol=EV_RTOL, atol=EV_ATOL):
-    """The graphed Rustpotter against the eager one over `frames`: the same
-    detections (`match_detections`) and launches. Returns (detections,
-    host seconds per call, launches, whether the scores are bit-equal)."""
+def rustpotter_graph_vs_eager(what, rp, eager, frames, rtol=EV_RTOL, atol=EV_ATOL):
+    """The graphed Rustpotter against its eager yardstick over `frames`:
+    detections at the frames where the eager step fires, with its name,
+    counter, gain (bits) and scores; the same launches; and the kernels a
+    replay runs (`replays_run`). Returns (detections, host seconds per call,
+    launches, whether the scores are bit-equal)."""
     reset_counts()
     dets, secs = play_single_stream(rp, frames)
     launches = read_counts()
     reset_counts()
-    eager_dets, _ = play_single_stream(rp_eager, frames)
+    fired, _ = play_single_stream(eager, frames)
     assert read_counts() == launches, (what, launches)
-    worst = match_detections(dets, eager_dets, f"{what} graph vs eager", rtol, atol)
+    assert [i for i, _ in dets] == [i for i, _ in fired], (what, dets, fired)
+    worst = 0.0
+    for (_, d), (_, ev) in zip(dets, fired):
+        name, labels = eager.detection_of(ev)
+        assert (d.name, d.counter, list(d.scores)) == (name, int(ev.counter), labels), (what, d)
+        assert np.float32(d.gain).view(np.uint32) == ev.gain.numpy().view(np.uint32), (what, d)
+        got = np.array([d.score, d.avg_score, *d.scores.values()])
+        want = np.array([float(ev.score), float(ev.avg_score),
+                         *ev.scores[: len(labels)].tolist()])
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
+        worst = max(worst, float(np.abs(got - want).max()))
     log(f"{what}: graphed detections equal the eager step's (frames "
         f"{[i for i, _ in dets]}, max|d score| {worst:.3e}, bit-equal {worst == 0.0})")
+    frame = frames[len(frames) // 2]
+    replays_run(what, lambda: rp.process_samples(frame), lambda: eager.process_samples(frame),
+                launches, len(frames))
+    rp.reset()
+    eager.reset()
     return dets, secs, launches, worst == 0.0
 
 
 def rustpotter_turns(what, card, rp, rp_eager, frames):
-    """ms per process_samples (median over `frames`) of the eager and the
-    graphed Rustpotter in turns eager, graph, graph, eager, each from a
-    reset."""
+    """ms per process_samples (median over `frames`) of the eager yardstick
+    and the graphed Rustpotter in turns eager, graph, graph, eager, each
+    from a reset."""
     ms = {"eager": [], "graph": []}
     for which in ("eager", "graph", "graph", "eager"):
         r = rp_eager if which == "eager" else rp
@@ -1459,9 +1555,12 @@ def nn_phase(dev, card):
 
     # (e) M6b: the NN wakeword joins a live B=8192 DTW fleet mid-stream;
     # the same calls on the CPU at B=4
+    # The eager run goes first, so that the allocator holds the eager chunk's
+    # blocks of both bundles when the graphed run captures: the reserved
+    # memory a capture adds is then its graph's pool.
     split = 10
-    outs = {}
-    for run_as, d, b in (("graph", dev, B), ("eager", dev, B), ("cpu", "cpu", 4)):
+    outs, calls = {}, []
+    for run_as, d, b in (("eager", dev, B), ("graph", dev, B), ("cpu", "cpu", 4)):
         det = BatchedDetector([("w", ww)], cfg, batch_size=b, device=d)
         noise = torch.tensor(noise_np[:b], device=d)
         s0 = torch.tensor(stream0_np, device=d)
@@ -1469,6 +1568,14 @@ def nn_phase(dev, card):
             chunks = {}
             run = lambda s, f: chunks.setdefault(id(det.static), make_batched_chunk(det.static))(
                 det.params, s, f)
+        elif run_as == "graph":  # each call timed, with the memory reserved around it
+            def run(s, f):
+                torch.cuda.synchronize()
+                reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+                out = det.process_chunk(det.params, s, f)
+                torch.cuda.synchronize()
+                calls.append((time.perf_counter() - t0, reserved, torch.cuda.memory_reserved()))
+                return out
         else:
             run = lambda s, f: det.process_chunk(det.params, s, f)
         reset_counts()
@@ -1480,9 +1587,8 @@ def nn_phase(dev, card):
         if run_as == "graph":
             torch.cuda.synchronize()
             launches = read_counts()
-            captures = det._chunk.captures
+            graphed_det, graphed_noise = det, noise
     assert launches["fused_dtw_v4"] == len(stream0_np), launches
-    assert captures == 1, captures  # the rebuilt bundle's graph, captured at its first chunk
     (gb, ga, gs), (eb, ea, es) = outs["graph"], outs["eager"]
     same = (match_graph(gb, eb, None, None, "M6b before the add, graph vs eager", EV_RTOL,
                         EV_ATOL)
@@ -1490,6 +1596,22 @@ def nn_phase(dev, card):
                           NN_ATOL))
     log(f"M6b: the graphed chunks before and after the add give the eager chunks' events on "
         f"all {B} streams and the same final states (bit-equal {same})")
+    replays_run("M6b after the add", lambda: graphed_det.process_chunk(
+        graphed_det.params, gs, graphed_noise), partial(make_batched_chunk(graphed_det.static),
+                                                        graphed_det.params, es, graphed_noise),
+        launches, len(stream0_np))
+    # what a capture costs: the first chunk of a bundle runs eagerly, then captures
+    (first_s, first_r0, first_r1), (add_s, add_r0, add_r1) = calls[0], calls[split]
+    replay_ms = float(np.median([c[0] for i, c in enumerate(calls) if i not in (0, split)])) * 1e3
+    mib = lambda r: r / 2 ** 20
+    log(f"M6b [{card}]: host ms of a bundle's first chunk (the eager chunk, then the capture) "
+        f"{first_s * 1e3:.4f} at the start and {add_s * 1e3:.4f} after add_wakeword, against "
+        f"{replay_ms:.4f} per replayed chunk (median of {len(calls) - 2}); memory reserved "
+        f"{mib(first_r0):.1f} -> {mib(first_r1):.1f} MiB over the first capture, "
+        f"{mib(add_r0):.1f} -> {mib(add_r1):.1f} MiB over the capture after the add")
+    summary.update(m6b_first_chunk_ms=first_s * 1e3, m6b_add_first_chunk_ms=add_s * 1e3,
+                   m6b_replay_ms=replay_ms, m6b_capture_reserved_mib=mib(first_r1 - first_r0),
+                   m6b_add_capture_reserved_mib=mib(add_r1 - add_r0))
     host = {k: [[f[:, :4].cpu().numpy() for f in part] for part in v[:2]]
             for k, v in outs.items()}
     match_events(host["graph"][0], host["cpu"][0], "M6b before the add")
@@ -2207,6 +2329,14 @@ def shard_phase(dev, card):
 
 # ------------------------------------------------------------------ main
 
+def timed_phase(phase, *args):
+    """phase(*args), its host seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2233,21 +2363,19 @@ def main() -> int:
                 log(f"build {src} {d}: {line.strip()}")
 
     record = {}
-    kernel_phase(dev, record)
-    k2_phase(dev, record)
-    k3_phase(dev, record)
-    k4_phase(dev, record)
-    k5_phase(dev, record)
-    probe_phase(dev, record)
-    bq = biquad_phase(dev, record)
-    summary = slice_phase(dev, record)
+    for phase in (kernel_phase, k2_phase, k3_phase, k4_phase, k5_phase, probe_phase):
+        timed_phase(phase, dev, record)
+    bq = timed_phase(biquad_phase, dev, record)
+    summary = timed_phase(slice_phase, dev, record)
     summary.update(bq)
-    summary.update(per_shift_phase(dev, record))
-    summary.update(tools_phase(dev, record))
-    summary.update(nn_phase(dev, card))
-    summary.update(front_phase(dev, card, record))
-    summary.update(train_phase(dev, card))
-    summary.update(shard_phase(dev, card))
+    summary.update(timed_phase(per_shift_phase, dev, record))
+    summary.update(timed_phase(tools_phase, dev, record))
+    summary.update(timed_phase(nn_phase, dev, card))
+    summary.update(timed_phase(front_phase, dev, card, record))
+    summary.update(timed_phase(train_phase, dev, card))
+    summary.update(timed_phase(shard_phase, dev, card))
+    log(f"replays_run: {REPLAY_PROFILES['paths']} graphed paths profiled in "
+        f"{REPLAY_PROFILES['s']:.1f} s")
     log(json.dumps({"card": card, **summary}))
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -93,11 +93,10 @@ def banded_dtw_kernel(costs: torch.Tensor, lengths: torch.Tensor, band: int) -> 
         raise ValueError(f"lengths must be on {dev}")
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((N,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library(band).rp_banded_dtw(
-        costs.data_ptr(), lens.data_ptr(), out.data_ptr(), stream, N, L,
-    )
+    lib = _library(band)
+    with torch.cuda.device(dev):  # a library launches on the current card
+        err = lib.rp_banded_dtw(costs.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream, N, L)
     if err != 0:
         raise RuntimeError(f"banded_dtw kernel launch failed: CUDA error {err}")
     LAUNCHES["banded_dtw"] += 1

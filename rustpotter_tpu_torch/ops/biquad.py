@@ -212,12 +212,14 @@ def front(samples: torch.Tensor, gain: Optional[GainIn] = None, coeffs=None,
         g_args = (float(gain.lo), float(gain.hi), gain.win.shape[1])
     else:
         g_ptrs, g_args = (None,) * 7, (0.0, 0.0, 1)
-    err = _library().rp_front(
-        int(on), int(bp), *g_ptrs, *g_args,
-        taps.data_ptr() if bp else None, taps_o.data_ptr() if bp else None,
-        *(float(c) for c in (coeffs if bp else (0.0,) * 5)),
-        samples.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, n,
-    )
+    lib = _library()
+    with torch.cuda.device(dev):  # a library launches on the current card
+        err = lib.rp_front(
+            int(on), int(bp), *g_ptrs, *g_args,
+            taps.data_ptr() if bp else None, taps_o.data_ptr() if bp else None,
+            *(float(c) for c in (coeffs if bp else (0.0,) * 5)),
+            samples.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, n,
+        )
     if err != 0:
         raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
     LAUNCHES["biquad"] += 1

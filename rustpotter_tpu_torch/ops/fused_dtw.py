@@ -347,13 +347,12 @@ def score_chunk(
     rot = rot0.to(torch.int32)  # a no-op for the stream state's int32 cursor
     out = torch.empty((3, P, B), dtype=torch.float32, device=dev)
     lib = _library(C, tset.band)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rp_fused_dtw_v4(
-        win.data_ptr(), new.data_ptr(), means3.data_ptr(), tset.padded.data_ptr(),
-        tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot.data_ptr(),
-        out.data_ptr(), stream, B, F, Lm, D, K,
-    )
+    with torch.cuda.device(dev):  # a library launches on the current card
+        err = lib.rp_fused_dtw_v4(
+            win.data_ptr(), new.data_ptr(), means3.data_ptr(), tset.padded.data_ptr(),
+            tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, F, Lm, D, K,
+        )
     if err != 0:
         raise RuntimeError(f"fused_dtw_v4 kernel launch failed: CUDA error {err}")
     LAUNCHES["fused_dtw_v4"] += 1
@@ -406,11 +405,6 @@ def _launch_operands(dev: torch.device, **tensors) -> None:
     for name, t in tensors.items():
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-
-
-def _stream_handle(dev: torch.device) -> int:
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream(dev).cuda_stream
 
 
 # ---------------------------------------------------------------------- K2
@@ -528,11 +522,13 @@ def launch_v3(
     _check_smem("K2", k2_smem_bytes(tset.band, C), tset.band, C)
     rot32 = rot.to(torch.int32)  # a no-op for the stream state's int32 cursor
     out = torch.empty((P, B), dtype=torch.float32, device=dev)
-    err = _library_v3(C, tset.band).rp_fused_dtw_v3(
-        win_t.data_ptr(), means_t.data_ptr(), dotm.data_ptr(), tset.padded.data_ptr(),
-        tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot32.data_ptr(),
-        out.data_ptr(), _stream_handle(dev), B, F, Lm, D, K,
-    )
+    lib = _library_v3(C, tset.band)
+    with torch.cuda.device(dev):  # a library launches on the current card
+        err = lib.rp_fused_dtw_v3(
+            win_t.data_ptr(), means_t.data_ptr(), dotm.data_ptr(), tset.padded.data_ptr(),
+            tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot32.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, F, Lm, D, K,
+        )
     if err != 0:
         raise RuntimeError(f"fused_dtw_v3 kernel launch failed: CUDA error {err}")
     LAUNCHES["fused_dtw_v3"] += 1
@@ -686,10 +682,12 @@ def score_linear(win_t: torch.Tensor, means_t: torch.Tensor, tset: TemplateSet,
     P = tset.tp.shape[0]
     _, entry, key = _LINEAR[variant]
     out = torch.empty((P, B), dtype=torch.float32, device=dev)
-    err = getattr(_library_linear(variant, C, tset.band), entry)(
-        win_t.data_ptr(), means_t.data_ptr(), tset.padded.data_ptr(),
-        tset.lens_t.data_ptr(), out.data_ptr(), _stream_handle(dev), B, Lm, P,
-    )
+    launch = getattr(_library_linear(variant, C, tset.band), entry)
+    with torch.cuda.device(dev):  # a library launches on the current card
+        err = launch(
+            win_t.data_ptr(), means_t.data_ptr(), tset.padded.data_ptr(), tset.lens_t.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, Lm, P,
+        )
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
     LAUNCHES[key] += 1

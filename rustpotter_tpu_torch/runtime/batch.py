@@ -35,13 +35,14 @@ its own block.
 On the card the chunk runs as a CUDA graph (`runtime.graph.GraphedStep`),
 the counterpart of the JAX runtime's `jax.jit(chunk_fn, donate_argnums=(1,))`:
 `process_chunk` copies the frames into the graph's input buffer, replays it
-and clones its Event (two device copies outside the graph), and
-`process_sequence` replays it T times (one input copy and one Event copy per
-chunk, nothing read on the host), the counterpart of the jitted `lax.scan`.
-A new state set or parameter set is captured at its first chunk, which runs
-eagerly; a rebuild (`add_wakeword`, `remove_wakeword`, `update_*config`)
-drops the old graphs; `reset_streams` writes in place and keeps them. On the
-CPU the chunk runs eagerly. The eager chunk is `make_batched_chunk(static)`.
+and clones the Event's fields (eight device copies outside the graph), and
+`process_sequence` replays it T times (per chunk one input copy and seven
+field copies, nothing read on the host), the counterpart of the jitted
+`lax.scan`. A new state set or parameter set is captured at its first chunk,
+which runs eagerly; a rebuild (`add_wakeword`, `remove_wakeword`,
+`update_*config`) makes a new `GraphedStep`, and the old graph goes with the
+old one; `reset_streams` writes in place and keeps the graph. On the CPU the
+chunk runs eagerly. The eager chunk is `make_batched_chunk(static)`.
 
 Differences from the JAX runtime: `process_chunk` updates the states in place
 (the counterpart of donating them) and still returns them. What runs on the
@@ -165,7 +166,6 @@ class BatchedDetector:
         # the streams this process holds: all B, or this rank's block
         self.local_batch = sharding.local_size(batch_size) if sharding else batch_size
         self._in_graph_resample = in_graph_resample
-        self._chunk: Optional[GraphedStep] = None
         self._install(list(wakewords), self.config)
 
     # ------------------------------------------------------------- build
@@ -177,8 +177,6 @@ class BatchedDetector:
         static, params = build_bundle(wakewords, config, self.device,
                                       self._in_graph_resample)
         chunk = GraphedStep(make_batched_chunk(static))
-        if self._chunk is not None:
-            self._chunk.reset()  # the old graphs and their memory pools
         self._wakewords, self.config = wakewords, config
         self.static, self.params, self._chunk = static, params, chunk
 

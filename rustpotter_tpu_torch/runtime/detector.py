@@ -14,10 +14,10 @@ the CUDA card).
 
 On the card the step runs as a CUDA graph (`runtime.graph.GraphedStep`), the
 counterpart of the JAX package's `jax.jit(step)`: `process_audio` copies the
-frame into the graph's input buffer, replays it and clones its Event. The
-frame loop stays on the host, as in JAX: the encoder, the read of `fired`
-after every frame, the decode of a detection, and with `record_path` the
-reads of the partial detection around the step. `process_audio_sequence`
+frame into the graph's input buffer, replays it and clones the Event's
+fields. The frame loop stays on the host, as in JAX: the encoder, the read
+of `fired` after every frame, the decode of a detection, and with
+`record_path` the reads of the partial detection around the step. `process_audio_sequence`
 replays the graph once per frame and reads the events back once, at the
 end, as JAX's `_scan` does. `reset()` writes the fresh state into the
 state's tensors, so the graph stays valid; a wakeword or config change
@@ -120,8 +120,6 @@ class Rustpotter:
             self._static = self._params = self._step = self._state = None
             return
         self._static, self._params = build_bundle(self.wakewords, self.config, self.device)
-        if self._step is not None:
-            self._step.reset()  # the old graphs and their memory pools
         self._step = GraphedStep(make_step(self._static))
         self._state = init_state(self._static, 1, self.device)
 

@@ -7,44 +7,51 @@ T inputs (`batch.py:155-162,211`, `detector.py:105-112`).
 `GraphedStep(fn)` wraps such a step, one that updates `states` in place
 (`stream_step.make_batched_chunk`, `stream_step.make_step`):
   - on CPU tensors it calls fn: CPU runs stay eager;
-  - on the card, the first call with a new capture key runs fn eagerly and
-    returns that call's result. The eager call does the first-use work that
-    a capture must not see: it builds the parameter set's constants, loads
-    the kernels' libraries, sets their shared-memory attributes on first
+  - on the card, everything runs with x's card as the current device: the
+    kernel wrappers and ATen launch on the current stream of the card their
+    tensors lie on, so a capture on any other card's stream would record
+    nothing while the step ran for real;
+  - the first call with a new capture key runs fn eagerly and returns that
+    call's result. The eager call does the first-use work that a capture
+    must not see: it builds the parameter set's constants, loads the
+    kernels' libraries, sets their shared-memory attributes on first
     launch, and builds the resampler's matrix (a host-to-device copy). Then
-    fn is captured in a `torch.cuda.CUDAGraph`, reading an input buffer of
-    its own and writing the Event into an output buffer of its own. Every
-    later call with that key copies x into the input buffer, replays the
-    graph and returns a clone of the output buffer: one device copy outside
-    the graph besides the input's.
+    fn is captured in a `torch.cuda.CUDAGraph` on a side stream of x's
+    card, reading an input buffer of its own; the Event it returns is the
+    graph's output. Every later call with that key copies x into the input
+    buffer, replays the graph on the current stream and returns a clone of
+    each Event field: eight device copies outside the graph, the input's
+    and the seven fields'.
 
 The capture key (`capture_key`) is the identity of `params` (an immutable
-object), the address, shape, strides and dtype of every state tensor, and
-x's shape and dtype. A graph reads and writes the addresses it captured: a
-new state set (a second `init_states()`, the fresh tensors of
-`batch.migrate_states`) is captured again, an in-place reset is not. One
-parameter set at a time: a call with another `params` object drops every
-graph of the last one. Of one parameter set, the GRAPHS_KEPT most recently
-used graphs are kept, so that two state sets used in turns replay without
-capturing again.
+object, held while its graph lives), the address, shape, strides and dtype
+of every state tensor, and x's shape and dtype. A graph reads and writes the
+addresses it captured: a new state set (a second `init_states()`, the fresh
+tensors of `batch.migrate_states`) is captured again, an in-place reset is
+not. One graph is kept: a call with another key drops it and captures anew,
+so two state sets used in turns stay correct and capture at every turn.
+
+The capture calls `CUDAGraph.capture_begin` and `capture_end` itself: the
+`torch.cuda.graph` context also synchronizes the device and empties the
+allocator's caches, on a serving process that other detectors share.
 
 No fallback: a capture or a replay that fails raises. The eager call that
 precedes a capture has then advanced `states` by one input.
 
 Launch counts: the kernel wrappers count a launch in Python, which runs at
 capture and never at replay. The capture's increments are taken back, and
-added again at every replay, so a count means the launches the device ran.
+added again at every replay: a count is derived from the capture, one per
+kernel the capture's Python launched. That the graph holds those kernels
+is measured by profiling replays (`chip_smoke.py`,
+`tests/test_torch_graph_cuda.py`).
 """
 from __future__ import annotations
 
-from collections import OrderedDict
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from ..ops import banded_dtw, biquad, fused_dtw
-
-GRAPHS_KEPT = 2
 
 # the launch counts of the kernel wrappers a step reaches
 _COUNTERS = (fused_dtw.LAUNCHES, banded_dtw.LAUNCHES, biquad.LAUNCHES)
@@ -61,131 +68,84 @@ def capture_key(params, states, x: torch.Tensor) -> tuple:
     )
 
 
-class Field(NamedTuple):
-    """Where one Event field lies in a byte buffer."""
-
-    offset: int
-    nbytes: int
-    dtype: torch.dtype
-    shape: Tuple[int, ...]
-
-
-def event_layout(event) -> Tuple[List[Field], int]:
-    """The fields of `event` (a NamedTuple of tensors) packed in order into
-    one byte buffer, each at a multiple of its element size, and the
-    buffer's size, a multiple of 8 (so that rows of a (T, size) buffer keep
-    every field aligned)."""
-    fields, end = [], 0
-    for t in event:
-        size = t.element_size()
-        offset = -(-end // size) * size
-        fields.append(Field(offset, t.numel() * size, t.dtype, tuple(t.shape)))
-        end = offset + t.numel() * size
-    return fields, -(-end // 8) * 8
-
-
-def unpack(buf: torch.Tensor, layout: List[Field], kind):
-    """The Event `kind` of views into buf (..., size) uint8: each field
-    shaped (..., *its shape)."""
-    lead = tuple(buf.shape[:-1])
-    return kind(*[buf[..., f.offset:f.offset + f.nbytes].view(f.dtype).reshape(lead + f.shape)
-                  for f in layout])
-
-
-class _Capture:
-    """One captured graph: its input and output buffers and the launch
-    counts it adds per replay."""
-
-    def __init__(self, graph, x, out, layout, kind, launches):
-        self.graph, self.x, self.out = graph, x, out
-        self.layout, self.kind, self.launches = layout, kind, launches
-
-    def replay(self, x: torch.Tensor) -> None:
-        self.x.copy_(x)
-        self.graph.replay()
-        for counts, name, n in self.launches:
-            counts[name] += n
-
-
 class GraphedStep:
-    """fn(params, states, x) -> (states, Event), replayed from CUDA graphs on
+    """fn(params, states, x) -> (states, Event), replayed from a CUDA graph on
     the card and called as it is on the CPU (see the module docstring).
     `fn` is the eager step; `captures` counts the graphs captured."""
 
     def __init__(self, fn):
         self.fn = fn
         self.captures = 0
-        self._params = None
-        self._graphs: "OrderedDict[tuple, _Capture]" = OrderedDict()
-
-    def reset(self) -> None:
-        """Drop every graph and its private memory pool."""
-        self._graphs.clear()
-        self._params = None
+        self._params = self._key = self._graph = self._x = self._out = None
+        self._launches = []
 
     def __call__(self, params, states, x: torch.Tensor):
         if x.device.type != "cuda":
             return self.fn(params, states, x)
-        cap, first = self._ready(params, states, x)
-        if first is not None:
-            return first
-        cap.replay(x)
-        return states, unpack(cap.out.clone(), cap.layout, cap.kind)
+        with torch.cuda.device(x.device):
+            first = self._ready(params, states, x)
+            if first is not None:
+                return first
+            self._replay(x)
+            return states, type(self._out)(*[f.clone() for f in self._out])
 
     def sequence(self, params, states, xs: torch.Tensor):
         """xs (T, ...): T calls in order. Returns the states and the Events
         stacked on a leading (T,) axis. On the card: one replay and one copy
-        of the output per input, nothing read on the host."""
+        per Event field per input, nothing read on the host."""
         if xs.device.type != "cuda":
             events = []
             for t in range(xs.shape[0]):
                 states, ev = self.fn(params, states, xs[t])
                 events.append(ev)
             return states, type(events[0])(*[torch.stack(f) for f in zip(*events)])
-        cap, first = self._ready(params, states, xs[0])
-        out = torch.empty((xs.shape[0], cap.out.shape[0]), dtype=torch.uint8, device=xs.device)
-        t0 = 0
-        if first is not None:
-            for dst, src in zip(unpack(out[0], cap.layout, cap.kind), first[1]):
-                dst.copy_(src)
-            t0 = 1
-        for t in range(t0, xs.shape[0]):
-            cap.replay(xs[t])
-            out[t].copy_(cap.out)
-        return states, unpack(out, cap.layout, cap.kind)
+        with torch.cuda.device(xs.device):
+            first = self._ready(params, states, xs[0])
+            out = [torch.empty((xs.shape[0], *f.shape), dtype=f.dtype, device=f.device)
+                   for f in self._out]
+            if first is not None:
+                for dst, src in zip(out, first[1]):
+                    dst[0].copy_(src)
+            for t in range(0 if first is None else 1, xs.shape[0]):
+                self._replay(xs[t])
+                for dst, src in zip(out, self._out):
+                    dst[t].copy_(src)
+        return states, type(self._out)(*out)
 
-    def _ready(self, params, states, x) -> Tuple[_Capture, Optional[tuple]]:
-        """The capture for this key, and None; or, for a new key, the fresh
-        capture and the result of the eager call made before it."""
-        if params is not self._params:
-            self.reset()
-            self._params = params
+    def _ready(self, params, states, x) -> Optional[tuple]:
+        """None if the graph holds this key; else the result of an eager call,
+        after which the graph is captured for the key."""
         key = capture_key(params, states, x)
-        cap = self._graphs.get(key)
-        if cap is not None:
-            self._graphs.move_to_end(key)
-            return cap, None
+        if params is self._params and key == self._key:
+            return None
+        # drop the old graph (and its memory pool) before the new one
+        self._params = self._key = self._graph = self._x = self._out = None
         result = self.fn(params, states, x)
-        self._graphs[key] = self._capture(params, states, x, result[1])
-        while len(self._graphs) > GRAPHS_KEPT:
-            self._graphs.popitem(last=False)
-        return self._graphs[key], result
+        self._capture(params, states, x)
+        self._params, self._key = params, key
+        return result
 
-    def _capture(self, params, states, x, event) -> _Capture:
-        layout, size = event_layout(event)
+    def _capture(self, params, states, x) -> None:
         xbuf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        out = torch.empty((size,), dtype=torch.uint8, device=x.device)
-        before = [dict(c) for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
+        before = [dict(c) for c in _COUNTERS]
         try:
-            with torch.cuda.graph(graph):
-                _, ev = self.fn(params, states, xbuf)
-                for dst, src in zip(unpack(out, layout, type(event)), ev):
-                    dst.copy_(src)
+            with torch.cuda.stream(torch.cuda.Stream(x.device)):
+                graph.capture_begin()
+                try:
+                    _, out = self.fn(params, states, xbuf)
+                finally:
+                    graph.capture_end()
         finally:
-            launches = [(c, k, c[k] - b[k]) for c, b in zip(_COUNTERS, before)
-                        for k in c if c[k] != b[k]]
+            launches = [(c, k, c[k] - b.get(k, 0)) for c, b in zip(_COUNTERS, before)
+                        for k in c if c[k] != b.get(k, 0)]
             for counts, name, n in launches:
                 counts[name] -= n
         self.captures += 1
-        return _Capture(graph, xbuf, out, layout, type(event), launches)
+        self._graph, self._x, self._out, self._launches = graph, xbuf, out, launches
+
+    def _replay(self, x: torch.Tensor) -> None:
+        self._x.copy_(x)
+        self._graph.replay()
+        for counts, name, n in self._launches:
+            counts[name] += n

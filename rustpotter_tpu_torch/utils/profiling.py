@@ -7,7 +7,8 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
   - `step_roofline(static)`: the JAX package's count of one detector step's
     FLOPs and bytes per stream, and `streams_speed_of_light`;
   - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
-    `time_cuda`, `device_kernels`, the work and byte counts of the fused DTW
+    `time_cuda`, `device_kernels`, `profiled_launches` (the port's kernels
+    in a profile, by wrapper), the work and byte counts of the fused DTW
     kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `k2_executed`,
     `k4_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
   - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
@@ -206,6 +207,43 @@ def device_kernels(fn, n: int):
          if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
         reverse=True,
     )
+
+
+# the kernel wrappers' launch counts (their `LAUNCHES` keys) by the name of
+# the kernel each launches
+_WRAPPER_OF = (
+    (re.compile(r"\bscore_pairs\b"), "fused_dtw_v4"),
+    (re.compile(r"\bscore_pairs_v3\b"), "fused_dtw_v3"),
+    (re.compile(r"\bscore_pairs_v2(_rows)?\b"), "fused_dtw_v2"),
+    (re.compile(r"\bscore_pairs_v1\b"), "fused_dtw_v1"),
+    (re.compile(r"\bbanded_dp\b"), "banded_dtw"),
+    (re.compile(r"\bfront_(bulk|simple)\b"), "biquad"),
+)
+
+
+def profiled_launches(fn, n: int, readings: int = 3):
+    """torch.profiler (CUPTI) over n calls of fn, `readings` times: ({the
+    launches per call of each of the port's kernels the device ran, keyed as
+    its wrapper's LAUNCHES (K1's and K2's wrappers launch their kernel twice
+    when a chunk holds ungated and gated templates)}, the device kernels and
+    copies per call), each the median of the readings (a profile may drop
+    records, or take in some that the one before it left; 4 of 5 launches of
+    a kernel were read from a replay on an H100), the first rounded to whole
+    launches per call and without the kernels that round to none. Through a
+    CUDA graph's replays it counts the kernels the graph holds."""
+    keyed, totals = [], []
+    for _ in range(readings):
+        rows = device_kernels(fn, n)
+        counts = Counter()
+        for _, count, name in rows:
+            for pattern, key in _WRAPPER_OF:
+                if pattern.search(name):
+                    counts[key] += count
+        keyed.append(counts)
+        totals.append(sum(r[1] for r in rows))
+    keys = sorted(set().union(*keyed))
+    launches = {k: round(float(np.median([c[k] for c in keyed]))) for k in keys}
+    return {k: v for k, v in launches.items() if v}, float(np.median(totals))
 
 
 # ------------------------------------------------- work of the DTW kernels

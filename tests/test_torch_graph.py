@@ -1,8 +1,8 @@
 """The CUDA-graph wrapper of the PyTorch port (`runtime/graph.py`) and the
 graphed entry points on the CPU, where they run eagerly: the CPU path calls
-the eager step unchanged; the capture key as a pure function; the Event
-byte layout a graph writes; Events that stay as they were after the next
-chunk; resets that keep every state tensor's storage; the steps reading
+the eager step unchanged, and a sequence the calls in order in every
+kernel mode; the capture key as a pure function; Events that stay as they
+were after the next chunk; resets that keep every state tensor's storage; the steps reading
 nothing on the host in any kernel mode (a capture cannot); and the port's
 `process_sequence` and `process_audio_sequence` against the JAX package's
 jitted `lax.scan` versions (`rustpotter_tpu/runtime/batch.py:211`,
@@ -33,7 +33,7 @@ from rustpotter_tpu_torch.runtime import graph
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
 from rustpotter_tpu_torch.runtime.bundle import build_bundle
 from rustpotter_tpu_torch.runtime.convert import states_to_numpy
-from rustpotter_tpu_torch.runtime.state import Event, init_state
+from rustpotter_tpu_torch.runtime.state import init_state
 from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk, make_step
 from rustpotter_tpu_torch.synthetic import (
     bench_utterances,
@@ -128,33 +128,6 @@ def test_capture_key_changes_exactly_with_params_state_storage_and_shape(workloa
     assert graph.capture_key(det.params, states, x[:3]) != key
     assert graph.capture_key(det.params, states, torch.zeros(B, 1440)) != key
     assert graph.capture_key(det.params, states, x.double()) != key
-
-
-@pytest.mark.parametrize("b", [1, 3, 4])
-def test_event_layout_round_trips_bit_for_bit(workload, b):
-    """An Event packed as a graph writes it, and T of them as a sequence
-    stacks them: every field aligned, every bit back."""
-    ww, _, frames = workload
-    static, params = build_bundle([("w", ww)], configs()[1], "cpu")
-    step, states = make_step(static), init_state(static, b, "cpu")
-    events = []
-    for t in range(3):
-        states, ev = step(params, states, torch.tensor(frames[t, :b]))
-        events.append(ev._replace(score=ev.score + t))
-    layout, size = graph.event_layout(events[0])
-    assert size % 8 == 0
-    assert all(f.offset % torch.empty((), dtype=f.dtype).element_size() == 0 for f in layout)
-    seq = torch.zeros((3, size), dtype=torch.uint8)
-    for t, ev in enumerate(events):
-        one = torch.zeros(size, dtype=torch.uint8)
-        for dst, src in zip(graph.unpack(one, layout, Event), ev):
-            dst.copy_(src)
-        assert all(same(a, e) for a, e in zip(graph.unpack(one, layout, Event), ev))
-        seq[t].copy_(one)
-    stacked = graph.unpack(seq, layout, Event)
-    for f, got in zip(Event._fields, stacked):
-        want = torch.stack([getattr(e, f) for e in events])
-        assert got.shape == want.shape and same(got, want), f
 
 
 def test_an_event_is_unchanged_by_the_next_chunk(workload):
@@ -302,3 +275,18 @@ def test_steps_read_nothing_on_the_host(workload, kind, monkeypatch):
         fn(params, states, torch.tensor(frames[t]))
     with pytest.raises(AssertionError, match="host read"):
         bool(states.rot == 0)
+
+
+@pytest.mark.parametrize("kind", ["chunk-K1", "chunk-K3", "chunk-filtered", "step-K2",
+                                  "step-K4", "step-nn"])
+def test_a_sequence_on_the_cpu_is_the_calls_in_order(workload, kind):
+    """`GraphedStep.sequence` on CPU tensors: the eager step over the inputs
+    in order, its Events stacked bit for bit, nothing captured."""
+    fn, static, params, frames = _mode(kind, workload[0])
+    wrapped = graph.GraphedStep(fn)
+    s1, s2 = init_state(static, B, "cpu"), init_state(static, B, "cpu")
+    s1, seq = wrapped.sequence(params, s1, torch.tensor(frames))
+    for t in range(frames.shape[0]):
+        s2, ev = fn(params, s2, torch.tensor(frames[t]))
+        assert all(same(a[t], b) for a, b in zip(seq, ev)), (kind, t)
+    assert all(same(a, b) for a, b in zip(s1, s2)) and wrapped.captures == 0

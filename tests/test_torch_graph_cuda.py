@@ -5,10 +5,12 @@ the rest seeded noise): `BatchedDetector` (the DTW chunk, `nn_medium`,
 `mixed`, the filters, 48 kHz in-graph resampling; `process_sequence`; a live
 `add_wakeword`, `reset_streams`, `update_filters_config`; two state sets in
 turns), `make_step` in its K2, K4 and K3 modes, and `Rustpotter`
-(`process_audio`, `process_audio_sequence`); each kernel's launch count per
-replay; a capture that reads the host raises. Every test needs a card (and
-nvcc, which builds the kernels at first use); without one they skip. The
-file imports no JAX:
+(`process_audio`, `process_audio_sequence`, held to `make_step`'s events);
+each kernel's launch count per replay, and the kernels a replay runs as
+torch.profiler sees them; a detector on a card other than the current one
+(two cards); a capture that reads the host raises. Every test needs a card
+(and nvcc, which builds the kernels at first use); without one they skip.
+The file imports no JAX:
 
     python -m pytest tests/test_torch_graph_cuda.py -m cuda --noconftest -q -s
 
@@ -40,6 +42,7 @@ from rustpotter_tpu_torch.synthetic import (
     build_firing_nn_wakeword,
     correctness_stream,
 )
+from rustpotter_tpu_torch.utils.profiling import profiled_launches
 
 B = 64
 EV_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -95,7 +98,7 @@ def run(process, states, frames):
     for t in range(frames.shape[0]):
         states, ev = process(states, frames[t])
         evs.append(ev)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(frames.device)
     launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
     return states, Event(*[torch.stack(f) for f in zip(*evs)]), launched
 
@@ -127,6 +130,19 @@ def held(got, want, what, tol=EV_TOL, got_states=None, want_states=None) -> bool
         same &= bits(a, b)
     print(f"{what}: graphed equals eager; bit-equal {same}")
     return same
+
+
+def replays_run(graphed, eager, launches, n, what, device="cuda"):
+    """Raises unless torch.profiler sees a replay of `graphed` run each of
+    the port's kernels as often as an eager call does, and the kernels the
+    counts (`launches` over n calls) name: the graph holds them. (K1 and K2
+    launch twice per wrapper call, the ungated templates and the gated.)"""
+    with torch.cuda.device(device):
+        got, total_g = profiled_launches(graphed, 3)
+        want, total_e = profiled_launches(eager, 3)
+    assert got == want and set(got) == set(launches), (what, got, want, launches)
+    assert all(got[k] >= launches[k] / n > 0 for k in got), (what, got, launches)
+    print(f"{what}: a replay runs {total_g} device kernels, an eager call {total_e}")
 
 
 def batched_case(words, case):
@@ -163,6 +179,8 @@ def test_batched_chunk_graph_equals_eager(cuda_device, words, case):
     # process_sequence: T replays of a graph of its own state set
     ss, evs = det.process_sequence(det.params, det.init_states(), frames)
     held(evs, evg, f"{case} process_sequence", tol, ss, sg)
+    replays_run(lambda: det.process_chunk(det.params, sg, frames[-1]),
+                lambda: eager(det.params, se, frames[-1]), lg, frames.shape[0], case)
 
 
 @pytest.mark.cuda
@@ -182,6 +200,8 @@ def test_make_step_graph_equals_eager(cuda_device, words, mode):
     assert lg == le == {kernel: 3 * frames.shape[0]}, (lg, le)
     assert step.captures == 1 and bool(evg.fired[:, 0].any())
     held(evg, eve, f"make_step {mode}", EV_TOL, sg, se)
+    replays_run(lambda: step(params, sg, frames[-1]), lambda: eager(params, se, frames[-1]),
+                lg, frames.shape[0], f"make_step {mode}")
 
 
 def _detections(rp, frames):
@@ -193,32 +213,72 @@ def _detections(rp, frames):
     return out
 
 
+def rustpotter_held(rp, wakewords, cfg, frames, device):
+    """Raises unless the graphed Rustpotter `rp` over `frames` detects at
+    the frames where `make_step` at B = 1 fires, with its counter, gain
+    and scores, and launches K2 3 times per frame; then that
+    `process_audio_sequence` after a reset gives the same detections without
+    capturing again. Returns the detections."""
+    static, params = build_bundle(wakewords, cfg, device)
+    step, state, evs = make_step(static), init_state(static, 1, device), []
+    before = fd.LAUNCHES["fused_dtw_v3"]
+    got = _detections(rp, frames)
+    assert fd.LAUNCHES["fused_dtw_v3"] - before == 3 * len(frames)
+    for frame in frames:
+        state, ev = step(params, state, torch.as_tensor(frame, device=device).reshape(1, -1))
+        evs.append(ev)
+    want = Event(*[torch.cat(f).cpu() for f in zip(*evs)])
+    assert got and [i for i, _ in got] == torch.nonzero(want.fired)[:, 0].tolist()
+    for i, d in got:
+        assert d.counter == int(want.counter[i]) and d.name == rp.wakewords[0][1].name
+        np.testing.assert_equal(np.float32(d.gain), want.gain[i].numpy())  # NaN = NaN
+        np.testing.assert_allclose(
+            [d.score, d.avg_score, *d.scores.values()],
+            [float(want.score[i]), float(want.avg_score[i]),
+             *want.scores[i, :len(d.scores)].tolist()], **EV_TOL)
+    captures = rp._step.captures
+    rp.reset()  # in place: the graph stays
+    seq = rp.process_audio_sequence(frames.reshape(-1))
+    assert rp._step.captures == captures == 1
+    assert [(d.name, d.counter, d.score) for d in seq] == [
+        (d.name, d.counter, d.score) for _, d in got]
+    return got
+
+
 @pytest.mark.cuda
 def test_rustpotter_graph_equals_eager(cuda_device, words):
     ww, _, utterance = words
-    frames = correctness_stream(100, utterance)
-    rps = []
-    for _ in range(2):
-        rp = Rustpotter(config(), device="cuda")
-        rp.add_wakeword_ref("w", ww)
-        rps.append(rp)
-    rps[1]._step = rps[1]._step.fn  # the eager step
-    before = fd.LAUNCHES["fused_dtw_v3"]
-    got = _detections(rps[0], frames)
-    assert fd.LAUNCHES["fused_dtw_v3"] - before == 3 * len(frames)
-    want = _detections(rps[1], frames)
-    assert got and [i for i, _ in got] == [i for i, _ in want]
-    for (_, g), (_, w) in zip(got, want):
-        assert (g.name, g.counter, list(g.scores)) == (w.name, w.counter, list(w.scores))
-        np.testing.assert_allclose([g.score, g.avg_score, *g.scores.values()],
-                                   [w.score, w.avg_score, *w.scores.values()], **EV_TOL)
-    assert rps[0]._step.captures == 1
-    # a reset keeps the graph; process_audio_sequence replays it per frame
-    rps[0].reset()
-    seq = rps[0].process_audio_sequence(frames.reshape(-1))
-    assert rps[0]._step.captures == 1
-    assert [(d.name, d.counter, d.score) for d in seq] == [
-        (d.name, d.counter, d.score) for _, d in got]
+    rp = Rustpotter(config(), device="cuda")
+    rp.add_wakeword_ref("w", ww)
+    rustpotter_held(rp, [("w", ww)], config(), correctness_stream(100, utterance), "cuda")
+
+
+@pytest.mark.cuda
+def test_a_detector_on_another_card_than_the_current_one(cuda_device, words):
+    """BatchedDetector and Rustpotter on cuda:1 while cuda:0 is current:
+    the capture and the replays run on cuda:1, so the graph holds the
+    chunk's kernels and its events are the eager chunk's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ww, _, utterance = words
+    dev = torch.device("cuda", 1)
+    assert torch.cuda.current_device() == 0
+    det = BatchedDetector([("w", ww)], config(), batch_size=B, device=dev)
+    frames = stream_frames(utterance, det.static.max_mfcc_frames, device=dev)
+    eager = make_batched_chunk(det.static)
+    sg, evg, lg = run(lambda s, x: det.process_chunk(det.params, s, x), det.init_states(), frames)
+    se, eve, le = run(lambda s, x: eager(det.params, s, x), det.init_states(), frames)
+    assert torch.cuda.current_device() == 0 and det._chunk.captures == 1
+    assert lg == le == {"fused_dtw_v4": frames.shape[0]} and bool(evg.fired[:, 0].any())
+    held(evg, eve, "cuda:1 batched", EV_TOL, sg, se)
+    ss, evs = det.process_sequence(det.params, det.init_states(), frames)
+    held(evs, evg, "cuda:1 process_sequence", EV_TOL, ss, sg)
+    replays_run(lambda: det.process_chunk(det.params, sg, frames[-1]),
+                lambda: eager(det.params, se, frames[-1]), lg, frames.shape[0], "cuda:1", dev)
+    rp = Rustpotter(config(), device=dev)
+    rp.add_wakeword_ref("w", ww)
+    rustpotter_held(rp, [("w", ww)], config(), correctness_stream(100, utterance), dev)
+    assert torch.cuda.current_device() == 0
 
 
 def _management(det, words, eager_of, device="cuda"):
@@ -287,7 +347,8 @@ def test_two_state_sets_in_turns(cuda_device, words):
             evs["g"][i].append(ev)
             e[i], ev = eager(det.params, e[i], x)
             evs["e"][i].append(ev)
-    assert det._chunk.captures == 2  # both kept (graph.GRAPHS_KEPT)
+    # one graph is kept: each turn drops the other state set's and captures
+    assert det._chunk.captures == 2 * frames.shape[0]
     for i in range(2):
         stack = lambda l: Event(*[torch.stack(f) for f in zip(*l)])
         held(stack(evs["g"][i]), stack(evs["e"][i]), f"state set {i}", EV_TOL, g[i], e[i])

@@ -1,9 +1,11 @@
 """rustpotter_tpu_torch.utils.profiling against the JAX package's
 utils/profiling.py: the step roofline counts field by field for the same
-wakeword, the H100 chip spec, the trace context on the CPU, and the work
-counts that chip_smoke.py and the tools divide by the peaks."""
+wakeword, the H100 chip spec, the trace context on the CPU, the work
+counts that chip_smoke.py and the tools divide by the peaks, and the kernel
+names that `profiled_launches` keys by wrapper."""
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -191,3 +193,22 @@ def test_sass_loop_facts_of_a_row_loop(body, blocks, branches, lds):
     assert profiling.innermost_loop(insns, ("STS",)) == (0x20, 0x30)
     with pytest.raises(ValueError, match="0 innermost loops holding MUFU"):
         profiling.innermost_loop(insns, ("MUFU",))
+
+
+@pytest.mark.parametrize("source", ["fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu",
+                                    "fused_dtw_v1.cu", "banded_dtw.cu", "biquad.cu"])
+def test_profiled_launches_keys_each_kernel_by_its_wrapper(source):
+    """Every `__global__` function of a wrapped kernel's source maps to the
+    one launch count its wrapper keeps (`profiled_launches` names a graph's
+    replayed kernels by it), and that count exists."""
+    from rustpotter_tpu_torch.ops import banded_dtw, biquad, fused_dtw
+
+    counts = {**fused_dtw.LAUNCHES, **banded_dtw.LAUNCHES, **biquad.LAUNCHES}
+    path = os.path.join(os.path.dirname(profiling.__file__), "..", "csrc", source)
+    text = open(path).read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text)
+    assert names, source
+    for name in names:
+        keys = [k for pattern, k in profiling._WRAPPER_OF
+                if pattern.search(f"void {name}<16, 5>(Args, int, bool)")]
+        assert len(keys) == 1 and keys[0] in counts, (source, name, keys)
