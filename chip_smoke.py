@@ -106,9 +106,20 @@ Phases, each of which raises (non-zero exit) when it fails:
      round-trips through save_wakeword / load_wakeword byte for byte and,
      served by BatchedDetector at B=4 over correctness_stream(168, the
      bench utterance), gives the CPU run's events (NN scores rtol 1e-4 /
-     atol 1e-3). Then the reference's 1000 epochs on the card on the host
-     clock, the MFCC extraction of the 80 WAVs, the epochs alone, and the
-     device time and launches per epoch by torch.profiler;
+     atol 1e-3). `trainer.fit` on the card (a CUDA graph of test_epochs
+     epochs replayed per chunk) and its eager yardstick (`eager_fit`) over
+     the same 200 epochs: losses, weights and test accuracy bit for bit.
+     Then the MFCC extraction of the 80 WAVs (eager), the reference's 1000
+     epochs through train_from_buffers on the host clock, the epochs alone
+     in turns eager (`eager_fit`) / graph (`fit`) / graph / eager, a graphed
+     call's first chunk (eager, then the capture), the graph's device time
+     per epoch by CUDA events around replays, and torch.profiler's device
+     time and launches per epoch of a replay and of the eager chunk: a
+     replay must run the eager chunk's kernels, each as often, plus its
+     input copy and its output's clone, and end on the same weights. With
+     two cards or more, F3's check (`f3_check`: K2 at w = 9, K3, K1 at w =
+     10 on cuda:0, then on cuda:1, each against the CPU); with one, a line
+     says it was not run;
   9. sharding phase (M11): a world-1 NCCL group (file:// rendezvous; one
      process per card, so one rank here), BatchedDetector sharded over it
      at B=8192 with the bench wakeword through the correctness pass (stream
@@ -2078,23 +2089,102 @@ TRAIN_FILES, TEST_FILES = 64, 16
 CHECK_EPOCHS = 200  # card against CPU: SGD carries the rounding forward
 TRAIN_EARLY = dict(rtol=2e-4, atol=2e-5)  # tests/test_training_torch_crosscheck.py
 TRAIN_LATE = dict(rtol=5e-3, atol=5e-4)
-PROFILED_EPOCHS = 10
+PROFILED_EPOCHS = 10  # one chunk of test_epochs
+GRAPH_TIMED_CHUNKS = 20  # replays inside the CUDA events of the graph's device time
+# F3: paths whose kernel asks for more than 48 KB of shared memory at C = 16
+# (kind, band, bundle options): K2 from w = 9, K3 at every band, K1 from w = 10
+F3_PATHS = (("make_step K2", 9, {}), ("make_step K3", 5, {"dtw_fused": False}),
+            ("BatchedDetector K1", 10, {}))
+F3_STREAMS = 4
+
+
+def f3_check(ww, utterance):
+    """F3 on two cards: each path of F3_PATHS on cuda:0, then on cuda:1 with
+    card 0 current, in this process, each held to a CPU run's events
+    (`match_events`). Returns {path: whether cuda:1's events equal cuda:0's
+    bit for bit}."""
+    import copy
+
+    import torch
+
+    from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.bundle import build_bundle
+    from rustpotter_tpu_torch.runtime.graph import GraphedStep
+    from rustpotter_tpu_torch.runtime.state import init_state
+    from rustpotter_tpu_torch.runtime.stream_step import make_step
+    from rustpotter_tpu_torch.synthetic import correctness_stream
+
+    base = RustpotterConfig()
+    base.detector.score_mode = ScoreMode.MAX
+    base.detector.avg_threshold = 0.2
+    noise_np = np.random.default_rng(0).normal(0, 0.05, (F3_STREAMS, 480)).astype(np.float32)
+    same = {}
+    for what, band, opts in F3_PATHS:
+        cfg = copy.deepcopy(base)
+        cfg.detector.band_size = band
+        evs = {}
+        for d in ("cuda:0", "cuda:1", "cpu"):
+            dev = torch.device(d)
+            if what.startswith("BatchedDetector"):
+                det = BatchedDetector([("w", ww)], cfg, batch_size=F3_STREAMS, device=dev)
+                static, states = det.static, det.init_states()
+                process = lambda s, x, det=det: det.process_chunk(det.params, s, x)
+            else:
+                static, params = build_bundle([("w", ww)], cfg, dev, **opts)
+                step = GraphedStep(make_step(static))
+                states = init_state(static, F3_STREAMS, dev)
+                process = lambda s, x, step=step, params=params: step(params, s, x)
+            stream0 = torch.tensor(correctness_stream(static.max_mfcc_frames, utterance),
+                                   device=dev)
+            evs[d] = run_correctness(process, states, stream0,
+                                     torch.tensor(noise_np, device=dev))
+        assert torch.cuda.current_device() == 0
+        for d in ("cuda:0", "cuda:1"):
+            n, worst = match_events(evs[d], evs["cpu"], f"F3 {what} on {d}")
+        same[what] = all(
+            np.array_equal(a.view(np.int32), b.view(np.int32)) if a.dtype == np.float32
+            else np.array_equal(a, b) for a, b in zip(evs["cuda:1"], evs["cuda:0"]))
+        log(f"F3 {what} (w = {band}): cuda:0 and then cuda:1 give the cpu run's events "
+            f"({n} events, max|d score| {worst:.3e}); cuda:1 bit-equal to cuda:0 "
+            f"{same[what]}")
+    return same
+
+
+def eager_fit(tr, host, x, y, learning_rate, epochs, chunk):
+    """The eager yardstick of `trainer.fit` (verbose off, epochs a multiple of
+    chunk): `sgd_epochs` called for every chunk, the losses read per chunk.
+    Returns the trained [(weight, bias), ...] and the losses."""
+    import torch
+
+    assert epochs % chunk == 0, (epochs, chunk)
+    consts = (y, torch.tensor(learning_rate, dtype=torch.float32, device=x.device))
+    state = tr.epoch_state(host, chunk, x.device)
+    history = []
+    for _ in range(epochs // chunk):
+        state, (losses,) = tr.sgd_epochs(consts, state, x)
+        history += losses.tolist()
+    return tr.layers(state), history
 
 
 def train_phase(dev, card):
     """NN training (see the module docstring, phase 8)."""
+    import gc
     import tempfile
 
     import torch
 
     from rustpotter_tpu_torch import RustpotterConfig, load_wakeword, save_wakeword
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.graph import GraphedStep
     from rustpotter_tpu_torch.synthetic import (
         NN_TRAIN_SIZE,
         bench_utterances,
+        build_bench_wakeword,
         correctness_stream,
         training_wavs,
     )
+    from rustpotter_tpu_torch.utils.profiling import profiled_kernels, split_copies
     from rustpotter_tpu_torch.wakewords import trainer as tr
     from rustpotter_tpu_torch.wakewords.files import ModelType
     from rustpotter_tpu_torch.wakewords.nn import init_params
@@ -2113,6 +2203,26 @@ def train_phase(dev, card):
     dims = [mg.weights[f"ln{i}.weight"].dims for i in (1, 2, 3)]
     assert dims == [[56, 2688], [28, 56], [2, 28]], dims
     assert mg.labels == mc.labels == ["bench", "none"] and mg.train_size == NN_TRAIN_SIZE
+    # the epochs graphed (`fit`) against eager on the card: the same kernels,
+    # the same bits
+    labeled, _ = tr._get_mfccs_labeled(samples, [], True, 16, dev)
+    test_labeled, _ = tr._get_mfccs_labeled(tests, ["bench", "none"], False, 16, dev)
+    x, y = (torch.tensor(a, device=dev) for a in tr._stack(labeled, NN_TRAIN_SIZE * 16))
+    xt, yt = (torch.tensor(a, device=dev) for a in tr._stack(test_labeled, NN_TRAIN_SIZE * 16))
+    host = init_params(ModelType.MEDIUM, NN_TRAIN_SIZE * 16, 16, 2, 0)
+    pg, loss_g = tr.fit(host, x, y, xt, yt, opts.learning_rate, CHECK_EPOCHS,
+                        opts.test_epochs, verbose=False)
+    pe, loss_e = eager_fit(tr, host, x, y, opts.learning_rate, CHECK_EPOCHS, opts.test_epochs)
+    assert np.array_equal(np.float32(loss_g).view(np.int32), np.float32(loss_e).view(np.int32))
+    assert np.array_equal(np.float32(loss_g), np.float32(hg["loss"]))  # fit is the entry's
+    for (wg, bg), (we, be) in zip(pg, pe):
+        assert torch.equal(wg.detach().view(torch.int32), we.detach().view(torch.int32))
+        assert torch.equal(bg.detach().view(torch.int32), be.detach().view(torch.int32))
+    acc_g, acc_e = float(tr.accuracy(pg, xt, yt)), float(tr.accuracy(pe, xt, yt))
+    assert acc_g == acc_e == hg["test_accuracy"], (acc_g, acc_e)
+    log(f"train: {CHECK_EPOCHS} epochs graphed (a CUDA graph of {opts.test_epochs} epochs "
+        f"replayed per chunk) equal the eager epochs on the card bit for bit: losses, "
+        f"weights, test accuracy {acc_g:.4f}")
     lg, lc = np.array(hg["loss"]), np.array(hc["loss"])
     np.testing.assert_allclose(lg[:10], lc[:10], **TRAIN_EARLY, err_msg="loss, epochs 1-10")
     np.testing.assert_allclose(lg, lc, **TRAIN_LATE, err_msg="loss")
@@ -2123,8 +2233,8 @@ def train_phase(dev, card):
         worst_w = max(worst_w, float(np.abs(a - b).max()))
     assert hg["test_accuracy"] == hc["test_accuracy"], (hg["test_accuracy"], hc["test_accuracy"])
     log(f"train: MEDIUM 2688 -> 56 -> 28 -> 2, {TRAIN_FILES} + {TEST_FILES} files, "
-        f"{CHECK_EPOCHS} epochs on the card ({sg:.3f} s) and the cpu ({sc:.3f} s): loss "
-        f"{lg[0]:.6f} -> {lg[-1]:.6f} (cpu {lc[-1]:.6f}), max|d loss| "
+        f"{CHECK_EPOCHS} epochs on the card ({sg:.3f} s, graphed) and the cpu ({sc:.3f} s): "
+        f"loss {lg[0]:.6f} -> {lg[-1]:.6f} (cpu {lc[-1]:.6f}), max|d loss| "
         f"{float(np.abs(lg - lc).max()):.3e}, max|d weight| {worst_w:.3e}, test accuracy "
         f"{hg['test_accuracy']:.4f} on both, rms_level {mg.rms_level:.6f} / {mc.rms_level:.6f}")
 
@@ -2152,7 +2262,8 @@ def train_phase(dev, card):
         f"events, max|d score| {worst:.3e}); stream 0 fired {fired0}x, streams 1-3 "
         f"{int(events[str(dev)][0][:, 1:].sum())}x")
 
-    # the reference's 1000 epochs, timed on the host clock
+    # the MFCC extraction of the 80 WAVs (M2a, eager), then the reference's
+    # 1000 epochs through the entry point (graphed), on the host clock
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr._get_mfccs_labeled(samples, [], True, 16, dev)
@@ -2166,40 +2277,117 @@ def train_phase(dev, card):
                           device=dev)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    # the epochs alone, and their device kernels by torch.profiler
-    labeled, _ = tr._get_mfccs_labeled(samples, [], True, 16, dev)
-    feats, labs = tr._stack(labeled, NN_TRAIN_SIZE * 16)
-    x, y = torch.tensor(feats, device=dev), torch.tensor(labs, device=dev)
-    params = [(torch.tensor(w, device=dev).requires_grad_(),
-               torch.tensor(b, device=dev).requires_grad_())
-              for w, b in init_params(ModelType.MEDIUM, NN_TRAIN_SIZE * 16, 16, 2, 0)]
-    lr = torch.tensor(full.learning_rate, dtype=torch.float32, device=dev)
-    tr.sgd_epochs(params, x, y, lr, PROFILED_EPOCHS)[1].tolist()
+    # the epochs alone (1000 epochs, the losses read per chunk of 10), in turns
+    # eager (`eager_fit`) / graph (`fit`, one capture per call) / graph / eager
+    turns = {"eager": [], "graph": []}
+    reserved = []
+    for which in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "graph":
+            tr.fit(host, x, y, xt, yt, full.learning_rate, full.epochs, full.test_epochs,
+                   verbose=False)
+        else:
+            eager_fit(tr, host, x, y, full.learning_rate, full.epochs, full.test_epochs)
+        torch.cuda.synchronize()
+        turns[which].append((time.perf_counter() - t0) * 1e3 / full.epochs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved() / 2**20)
+    (e1, e2), (g1, g2) = turns["eager"], turns["graph"]
+    log(f"train [{card}]: the epochs alone, host ms per epoch over {full.epochs} epochs in "
+        f"turns eager {e1:.4f} / graph {g1:.4f} / graph {g2:.4f} / eager {e2:.4f} (losses "
+        f"read per {full.test_epochs}; a graphed call's one eager chunk and capture "
+        f"included); memory reserved after each call and empty_cache "
+        f"{' / '.join(f'{m:.1f}' for m in reserved)} MiB")
+
+    # one chunk of PROFILED_EPOCHS epochs: the graph's device time by CUDA
+    # events around replays, and a replay's kernels against the eager chunk's
+    consts = (y, torch.tensor(full.learning_rate, dtype=torch.float32, device=dev))
+    step = GraphedStep(tr.sgd_epochs)
+    sgr = tr.epoch_state(host, PROFILED_EPOCHS, dev)
+    sea = tr.epoch_state(host, PROFILED_EPOCHS, dev)
+    calls = {"replay": 0, "eager": 0}
+
+    def replay():
+        calls["replay"] += 1
+        return step(consts, sgr, x)
+
+    def eager():
+        calls["eager"] += 1
+        return tr.sgd_epochs(consts, sea, x)
+
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p = params
-    for _ in range(full.epochs // full.test_epochs):
-        p, losses = tr.sgd_epochs(p, x, y, lr, full.test_epochs)
-        losses.tolist()
-    loop_s = time.perf_counter() - t0
-    rows = device_kernels(lambda: tr.sgd_epochs(params, x, y, lr, PROFILED_EPOCHS), 3)
-    dev_ms = sum(r[0] for r in rows) / PROFILED_EPOCHS
-    launches = sum(r[1] for r in rows) / PROFILED_EPOCHS
-    log(f"train: {full.epochs} epochs on the card in {train_s:.4f} s host clock "
-        f"({train_s * 1e3 / full.epochs:.4f} ms per epoch with the MFCCs; final loss "
-        f"{hist['loss'][-1]:.6f}, test accuracy {hist['test_accuracy']:.4f}); the MFCC "
-        f"extraction of the {TRAIN_FILES + TEST_FILES} WAVs {mfcc_s * 1e3:.4f} ms; the "
-        f"epochs alone {loop_s * 1e3 / full.epochs:.4f} ms per epoch (losses read per "
-        f"{full.test_epochs}); device {dev_ms:.4f} ms per epoch in {launches:.1f} launches "
-        f"({card})")
-    if not rows:
+    replay()  # eager, then the capture
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    replay()
+    torch.cuda.synchronize()
+    one_replay_ms = (time.perf_counter() - t0) * 1e3
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(GRAPH_TIMED_CHUNKS):
+        replay()
+    b.record()
+    torch.cuda.synchronize()
+    graph_dev_ms = a.elapsed_time(b) / (GRAPH_TIMED_CHUNKS * PROFILED_EPOCHS)
+    rows_e = device_kernels(eager, 3)
+    rows_g = device_kernels(replay, 3)
+    dev_ms = sum(r[0] for r in rows_e) / PROFILED_EPOCHS
+    launches = sum(r[1] for r in rows_e) / PROFILED_EPOCHS
+    gdev_ms = sum(r[0] for r in rows_g) / PROFILED_EPOCHS
+    glaunches = sum(r[1] for r in rows_g) / PROFILED_EPOCHS
+    got, want = profiled_kernels(replay, 3), profiled_kernels(eager, 3)
+    assert step.captures == 1
+    (kg, cg), (ke, ce) = split_copies(got), split_copies(want)
+    assert kg == ke, (got, want)
+    extra = cg - ce
+    assert extra == 2, (cg, ce)  # outside the graph: the input's copy and a clone
+    while calls["eager"] < calls["replay"]:
+        eager()
+    for ga, ea in zip(sgr, sea):  # as many chunks, the same bits
+        assert torch.equal(ga.detach().view(torch.int32), ea.detach().view(torch.int32))
+    log(f"train: {full.epochs} epochs through train_from_buffers (graphed) in "
+        f"{train_s:.4f} s host clock ({train_s * 1e3 / full.epochs:.4f} ms per epoch with "
+        f"the MFCCs; final loss {hist['loss'][-1]:.6f}, test accuracy "
+        f"{hist['test_accuracy']:.4f}); the MFCC extraction of the "
+        f"{TRAIN_FILES + TEST_FILES} WAVs {mfcc_s * 1e3:.4f} ms (eager); a graphed call's "
+        f"first chunk (eager, then the capture) {first_ms:.4f} ms against "
+        f"{one_replay_ms:.4f} ms for a synchronized replay; the graph's device "
+        f"time {graph_dev_ms:.4f} ms per epoch (CUDA events around {GRAPH_TIMED_CHUNKS} "
+        f"replays of {PROFILED_EPOCHS} epochs with their copies); profiled, a replay "
+        f"{gdev_ms:.4f} ms in {glaunches:.1f} launches per epoch, the eager chunk "
+        f"{dev_ms:.4f} ms in {launches:.1f} ({card})")
+    log(f"train: profiled, a replay runs the eager chunk's {len(ke)} device kernels "
+        f"({sum(ke.values()):.1f} per chunk), each as often, and its {ce:.0f} copies plus "
+        f"{extra:.0f} outside the graph (the input and the losses' clone); final weights "
+        f"bit-equal")
+    if not rows_e:
         log("train: the profiler recorded no device time: device ms per epoch not measured")
-    for ms, count, name in rows[:PROFILE_ROWS]:
+    for ms, count, name in rows_e[:PROFILE_ROWS]:
         log(f"profile: {ms / PROFILED_EPOCHS:9.4f} ms/epoch  {count / PROFILED_EPOCHS:5.1f} "
             f"launches/epoch  {name[:110]}")
+
+    if torch.cuda.device_count() >= 2:
+        ww, utterance = build_bench_wakeword(device=dev)
+        f3 = f3_check(ww, utterance)
+        f3_result = f"passed (cuda:1 bit-equal to cuda:0: {f3})"
+    else:
+        f3_result = "not run (one card)"
+    log(f"F3 (the shared-memory opt-in on a second card): {f3_result}")
     return {"train_ms_per_epoch": train_s * 1e3 / full.epochs,
-            "train_loop_ms_per_epoch": loop_s * 1e3 / full.epochs,
+            "train_eager_ms_per_epoch": turns["eager"],
+            "train_graph_ms_per_epoch": turns["graph"],
+            "train_graph_device_ms_per_epoch": graph_dev_ms,
+            "train_first_chunk_ms": first_ms, "train_reserved_mib": reserved,
+            "train_replay_device_ms_per_epoch": gdev_ms,
+            "train_replay_launches_per_epoch": glaunches,
             "train_device_ms_per_epoch": dev_ms, "train_launches_per_epoch": launches,
-            "train_mfcc_ms": mfcc_s * 1e3, "train_stream0_fired": fired0}
+            "train_mfcc_ms": mfcc_s * 1e3, "train_stream0_fired": fired0,
+            "train_f3": f3_result}
 
 
 # ------------------------------------------------------------- sharding

@@ -470,15 +470,18 @@ extern "C" int rp_front(int gain, int bp, const void* rms, const void* ref_sqrt,
   float* to = static_cast<float*>(taps_out);
   const float* xs = static_cast<const float*>(x);
   float* ys = static_cast<float*>(out);
-  // the opt-in past 48 KB of shared memory, once per form and process
+  // the opt-in past 48 KB of shared memory, once per form and card
   if (gain && bp) {
-    static const cudaError_t attr = opt_in_smem(front_bulk<true, true>, SMEM_OPTIN);
+    static SmemOptIn opt_in;
+    const cudaError_t attr = opt_in(front_bulk<true, true>, SMEM_OPTIN);
     return static_cast<int>(launch<true, true>(gn, tp, to, xs, ys, c, s, B, n, attr));
   }
   if (gain) {
-    static const cudaError_t attr = opt_in_smem(front_bulk<true, false>, SMEM_OPTIN);
+    static SmemOptIn opt_in;
+    const cudaError_t attr = opt_in(front_bulk<true, false>, SMEM_OPTIN);
     return static_cast<int>(launch<true, false>(gn, tp, to, xs, ys, c, s, B, n, attr));
   }
-  static const cudaError_t attr = opt_in_smem(front_bulk<false, true>, SMEM_OPTIN);
+  static SmemOptIn opt_in;
+  const cudaError_t attr = opt_in(front_bulk<false, true>, SMEM_OPTIN);
   return static_cast<int>(launch<false, true>(gn, tp, to, xs, ys, c, s, B, n, attr));
 }

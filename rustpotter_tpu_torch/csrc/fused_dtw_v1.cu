@@ -323,7 +323,8 @@ extern "C" int rp_fused_dtw_v1(const void* win, const void* means,
                static_cast<const float*>(tpl), static_cast<const int*>(lens),
                static_cast<float*>(out),       B, Lm, P};
   constexpr int DYN_BYTES = DYNAMIC ? SMEM_BYTES : 0;
-  static const cudaError_t attr = opt_in_smem(score_pairs_v1<DYNAMIC>, DYN_BYTES);
+  static SmemOptIn opt_in;
+  const cudaError_t attr = opt_in(score_pairs_v1<DYNAMIC>, DYN_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const int jy = P < MAX_JOBS ? P : MAX_JOBS;
   const dim3 grid((unsigned)((B + LANES - 1) / LANES), (unsigned)((P + jy - 1) / jy));

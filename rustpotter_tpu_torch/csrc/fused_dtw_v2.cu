@@ -330,7 +330,8 @@ __global__ void __launch_bounds__(LANES * MAX_JOBS) score_pairs_v2_rows(Args a) 
 template <bool Ring>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   if constexpr (Ring) {
-    static const cudaError_t attr = opt_in_smem(score_pairs_v2<W>, SMEM_BYTES);
+    static SmemOptIn opt_in;
+    const cudaError_t attr = opt_in(score_pairs_v2<W>, SMEM_BYTES);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((unsigned)a.P, (unsigned)((a.B + LANES - 1) / LANES));
     score_pairs_v2<W><<<grid, dim3(LANES, WARPS), SMEM_BYTES, st>>>(a);

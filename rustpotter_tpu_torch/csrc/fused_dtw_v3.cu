@@ -262,7 +262,8 @@ __global__ void __launch_bounds__(LANES * WARPS)
 }
 
 cudaError_t launch(const Args& a, int pair0, int npairs, bool gated, cudaStream_t st) {
-  static const cudaError_t attr = opt_in_smem(score_pairs_v3, RING_BYTES);
+  static SmemOptIn opt_in;
+  const cudaError_t attr = opt_in(score_pairs_v3, RING_BYTES);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((unsigned)npairs, (unsigned)((a.B + LANES - 1) / LANES));
   score_pairs_v3<<<grid, dim3(LANES, WARPS), RING_BYTES, st>>>(a, pair0, gated);

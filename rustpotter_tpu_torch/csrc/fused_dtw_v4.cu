@@ -274,7 +274,8 @@ __global__ void __launch_bounds__(LANES * SHIFTS)
 }
 
 cudaError_t launch(const Args& a, int pair0, int npairs, bool gated, cudaStream_t st) {
-  static const cudaError_t attr = opt_in_smem(score_pairs, RING_BYTES);
+  static SmemOptIn opt_in;
+  const cudaError_t attr = opt_in(score_pairs, RING_BYTES);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((unsigned)((a.B + LANES - 1) / LANES), (unsigned)npairs);
   score_pairs<<<grid, dim3(LANES, SHIFTS), RING_BYTES, st>>>(a, pair0, gated);

@@ -15,13 +15,22 @@ T inputs (`batch.py:155-162,211`, `detector.py:105-112`).
     call's result. The eager call does the first-use work that a capture
     must not see: it builds the parameter set's constants, loads the
     kernels' libraries, sets their shared-memory attributes on first
-    launch, and builds the resampler's matrix (a host-to-device copy). Then
-    fn is captured in a `torch.cuda.CUDAGraph` on a side stream of x's
-    card, reading an input buffer of its own; the Event it returns is the
-    graph's output. Every later call with that key copies x into the input
-    buffer, replays the graph on the current stream and returns a clone of
-    each Event field: eight device copies outside the graph, the input's
-    and the seven fields'.
+    launch on the card, and builds the resampler's matrix (a host-to-device
+    copy). Then fn is captured in a `torch.cuda.CUDAGraph`, reading an input
+    buffer of its own; the Event it returns is the graph's output. Every
+    later call with that key copies x into the input buffer, replays the
+    graph on the current stream and returns a clone of each Event field:
+    eight device copies outside the graph, the input's and the seven
+    fields'.
+  - the eager call and the capture both run on one side stream per card
+    (`capture_stream`), ordered after the current stream's work and before
+    its next. cuBLAS keeps a workspace per handle and stream, made at a
+    handle's first GEMM on a stream (the autograd engine's thread has a
+    handle of its own): made by the eager call on the one capture stream,
+    it is made once per card and handle, in the allocator's ordinary pool.
+    Made during a capture, on a new stream each time, it would land in that
+    graph's private pool and hold the pool after the graph is dropped (64
+    MiB more per `trainer.fit` on an H100, PERF.md).
 
 The capture key (`capture_key`) is the identity of `params` (an immutable
 object, held while its graph lives), the address, shape, strides and dtype
@@ -55,6 +64,19 @@ from ..ops import banded_dtw, biquad, fused_dtw
 
 # the launch counts of the kernel wrappers a step reaches
 _COUNTERS = (fused_dtw.LAUNCHES, banded_dtw.LAUNCHES, biquad.LAUNCHES)
+
+
+_capture_streams: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of `device`'s card that every first eager call and
+    capture runs on (see the module docstring), made at its first use."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _capture_streams.get(index)
+    if stream is None:
+        stream = _capture_streams[index] = torch.cuda.Stream(index)
+    return stream
 
 
 def capture_key(params, states, x: torch.Tensor) -> tuple:
@@ -120,22 +142,28 @@ class GraphedStep:
             return None
         # drop the old graph (and its memory pool) before the new one
         self._params = self._key = self._graph = self._x = self._out = None
-        result = self.fn(params, states, x)
-        self._capture(params, states, x)
+        current, side = torch.cuda.current_stream(x.device), capture_stream(x.device)
+        side.wait_stream(current)
+        try:
+            with torch.cuda.stream(side):
+                result = self.fn(params, states, x)
+                self._capture(params, states, x)
+        finally:
+            current.wait_stream(side)
         self._params, self._key = params, key
         return result
 
     def _capture(self, params, states, x) -> None:
+        """Captures fn on the current stream (the card's capture stream)."""
         xbuf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         graph = torch.cuda.CUDAGraph()
         before = [dict(c) for c in _COUNTERS]
         try:
-            with torch.cuda.stream(torch.cuda.Stream(x.device)):
-                graph.capture_begin()
-                try:
-                    _, out = self.fn(params, states, xbuf)
-                finally:
-                    graph.capture_end()
+            graph.capture_begin()
+            try:
+                _, out = self.fn(params, states, xbuf)
+            finally:
+                graph.capture_end()
         finally:
             launches = [(c, k, c[k] - b.get(k, 0)) for c, b in zip(_COUNTERS, before)
                         for k in c if c[k] != b.get(k, 0)]

@@ -26,7 +26,7 @@ import subprocess
 import time
 from collections import Counter
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -221,6 +221,39 @@ _WRAPPER_OF = (
 )
 
 
+def _readings(fn, n: int, readings: int):
+    """`readings` profiles of n calls of fn: [{kernel name: launches per call}]."""
+    return [{name: count for _, count, name in device_kernels(fn, n)}
+            for _ in range(readings)]
+
+
+def profiled_kernels(fn, n: int, readings: int = 3) -> Dict[str, int]:
+    """torch.profiler (CUPTI) over n calls of fn, `readings` times: {device
+    kernel or copy name: launches per call, the median of the readings (a
+    name missing from a reading counts 0 there) rounded to whole launches,
+    without the names that round to none}: a profile may drop a record (5
+    of the 6 copies of 3 replays read on an H100). Through a CUDA graph's
+    replays it names the kernels the graph holds."""
+    reads = _readings(fn, n, readings)
+    names = sorted(set().union(*reads))
+    counts = {k: round(float(np.median([r.get(k, 0.0) for r in reads]))) for k in names}
+    return {k: v for k, v in counts.items() if v}
+
+
+def is_copy(name: str) -> bool:
+    """Whether a profiler row is a device-to-device copy: a copy engine's
+    (`Memcpy DtoD`), or the kernel that a CUDA graph runs for a small copy
+    node (`memcpy32_post` for the 4-byte loss writes of the trainer's graph
+    on an H100)."""
+    return name.startswith("Memcpy DtoD") or re.fullmatch(r"memcpy\d+_post", name) is not None
+
+
+def split_copies(kernels: Dict[str, int]) -> Tuple[Dict[str, int], int]:
+    """({kernel: launches} without the copies, the copies' launches)."""
+    return ({k: v for k, v in kernels.items() if not is_copy(k)},
+            sum(v for k, v in kernels.items() if is_copy(k)))
+
+
 def profiled_launches(fn, n: int, readings: int = 3):
     """torch.profiler (CUPTI) over n calls of fn, `readings` times: ({the
     launches per call of each of the port's kernels the device ran, keyed as
@@ -232,15 +265,14 @@ def profiled_launches(fn, n: int, readings: int = 3):
     launches per call and without the kernels that round to none. Through a
     CUDA graph's replays it counts the kernels the graph holds."""
     keyed, totals = [], []
-    for _ in range(readings):
-        rows = device_kernels(fn, n)
+    for rows in _readings(fn, n, readings):
         counts = Counter()
-        for _, count, name in rows:
+        for name, count in rows.items():
             for pattern, key in _WRAPPER_OF:
                 if pattern.search(name):
                     counts[key] += count
         keyed.append(counts)
-        totals.append(sum(r[1] for r in rows))
+        totals.append(sum(rows.values()))
     keys = sorted(set().union(*keyed))
     launches = {k: round(float(np.median([c[k] for c in keyed]))) for k in keys}
     return {k: v for k, v in launches.items() if v}, float(np.median(totals))

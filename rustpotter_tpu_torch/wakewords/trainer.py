@@ -11,15 +11,24 @@ model with the label set frozen (:65-79,310-318).
 Data preparation is host-side (the MFCCs on `device`); the epochs run on
 `device` as fp32 tensors under autograd, the products `torch.matmul` (the
 package disables TF32). The update is JAX's `p - lr * g` with `lr` an fp32
-scalar, not `torch.optim.SGD` (its `add_(g, alpha=-lr)` rounds otherwise).
-Epochs run in chunks of `test_epochs`; each chunk's losses stay on the
-device and are read on the host once per chunk.
+scalar, written in place as `p.sub_(lr * g)` (the same rounding), not
+`torch.optim.SGD` (its `add_(g, alpha=-lr)` rounds otherwise).
+
+Epochs run in chunks of `test_epochs` (`fit`); each chunk's losses stay on
+the device and are read on the host once per chunk. `sgd_epochs` runs one
+chunk on one set of parameter tensors, updated in place, and reads nothing
+on the host: on the card `fit` replays it from a CUDA graph
+(`runtime/graph.py` `GraphedStep`, captured after one eager chunk), the
+counterpart of the JAX package's jitted `sgd_step` under `lax.scan`; a
+shorter last chunk runs eagerly, and so does every chunk on the CPU. The
+graph and its memory pool are dropped when `fit` returns. The test-set
+accuracy is an eager call, per chunk when verbose and once at the end.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,10 +36,14 @@ import torch
 from ..constants import NN_NONE_LABEL
 from ..device import DeviceLike, resolve_device
 from ..mfcc.offline import compute_mfccs
+from ..runtime.graph import GraphedStep
 from .files import ModelType, WakewordModel
 from .nn import forward, init_params, params_from_tensor_data, params_to_tensor_data
 
 Params = List[Tuple[torch.Tensor, torch.Tensor]]
+# the tensors `sgd_epochs` updates in place: each layer's weight and bias
+# (leaf tensors with requires_grad), then the (n,) loss buffer of n epochs
+EpochState = Tuple[torch.Tensor, ...]
 
 
 @dataclass
@@ -108,21 +121,43 @@ def nll_loss(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -torch.mean(torch.gather(logp, 1, y[:, None]))
 
 
-def sgd_epochs(params: Params, x: torch.Tensor, y: torch.Tensor, lr: torch.Tensor,
-               n: int) -> Tuple[Params, torch.Tensor]:
-    """`n` full-batch SGD epochs. `params` are leaf tensors with
-    requires_grad; returns new ones and the (n,) losses before each update,
-    on the device (nothing is read on the host)."""
-    losses = torch.empty(n, dtype=torch.float32, device=x.device)
-    for e in range(n):
-        flat = [t for wb in params for t in wb]
+class Losses(NamedTuple):
+    """What `sgd_epochs` returns beside its state: the chunk's (n,) losses."""
+    loss: torch.Tensor
+
+
+def epoch_state(host: Sequence[Tuple[np.ndarray, np.ndarray]], n: int,
+                device: torch.device) -> EpochState:
+    """The state of `sgd_epochs` for n epochs per call, from the host
+    weights [(W, b), ...]."""
+    flat = [torch.tensor(a, device=device).requires_grad_() for wb in host for a in wb]
+    return (*flat, torch.empty(n, dtype=torch.float32, device=device))
+
+
+def layers(state: EpochState) -> Params:
+    """The [(weight, bias), ...] of a state (its loss buffer left out)."""
+    flat = state[:-1]
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+def sgd_epochs(consts: Tuple[torch.Tensor, torch.Tensor], state: EpochState,
+               x: torch.Tensor) -> Tuple[EpochState, Losses]:
+    """n = len(state[-1]) full-batch SGD epochs on the rows x and their
+    labels y, consts = (y, lr). Updates the parameters in place and writes
+    the loss before each update into the loss buffer; returns the state and
+    the buffer. Creates no leaf tensor and reads nothing on the host: the
+    `GraphedStep` contract fn(params, states, x) -> (states, out)."""
+    y, lr = consts
+    flat, losses = state[:-1], state[-1]
+    params = layers(state)
+    for e in range(losses.shape[0]):
         loss = nll_loss(params, x, y)
         grads = torch.autograd.grad(loss, flat)
         with torch.no_grad():
-            new = [(p - lr * g).requires_grad_() for p, g in zip(flat, grads)]
+            for p, g in zip(flat, grads):
+                p.sub_(lr * g)
             losses[e] = loss
-        params = list(zip(new[0::2], new[1::2]))
-    return params, losses
+    return state, Losses(losses)
 
 
 def accuracy(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -130,6 +165,46 @@ def accuracy(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     an fp32 tensor on the device."""
     with torch.no_grad():
         return (torch.argmax(forward(params, x), dim=-1) == y).to(torch.float32).mean()
+
+
+def fit(
+    host: Sequence[Tuple[np.ndarray, np.ndarray]],
+    x: torch.Tensor,
+    y: torch.Tensor,
+    x_test: torch.Tensor,
+    y_test: torch.Tensor,
+    learning_rate: float,
+    epochs: int,
+    test_epochs: int,
+    verbose: bool = True,
+) -> Tuple[Params, List[float]]:
+    """`epochs` SGD epochs from the host weights [(W, b), ...] on the rows x
+    and labels y (on the device they lie on), in chunks of `test_epochs`,
+    the losses read once per chunk; verbose prints the last loss and the
+    test-set accuracy per chunk. On the card each full chunk replays a CUDA
+    graph of `sgd_epochs` (one capture per call, after an eager chunk; a
+    capture that fails raises); on the CPU every chunk runs eagerly. Returns
+    the trained [(weight, bias), ...] and the loss of every epoch."""
+    chunk = max(1, test_epochs)
+    consts = (y, torch.tensor(learning_rate, dtype=torch.float32, device=x.device))
+    state = epoch_state(host, chunk, x.device)
+    step = GraphedStep(sgd_epochs)
+    epoch = 0
+    loss_history: List[float] = []
+    while epoch < epochs:
+        n = min(chunk, epochs - epoch)
+        if n < chunk:  # the shorter last chunk, eagerly
+            state = (*state[:-1], torch.empty(n, dtype=torch.float32, device=x.device))
+            state, (losses,) = sgd_epochs(consts, state, x)
+        else:
+            state, (losses,) = step(consts, state, x)
+        epoch += n
+        chunk_losses = losses.tolist()
+        loss_history.extend(chunk_losses)
+        if verbose:
+            acc = float(accuracy(layers(state), x_test, y_test))
+            print(f"{epoch:4} train loss: {chunk_losses[-1]:8.5f} test acc: {100.0 * acc:5.2f}%")
+    return layers(state), loss_history
 
 
 def train_from_buffers(
@@ -145,7 +220,8 @@ def train_from_buffers(
     """Train on `device` (default: the CUDA card; RuntimeError without one).
     history_out (optional dict) receives {'loss': [per-epoch train loss],
     'test_accuracy': final test-set accuracy} — the telemetry the reference
-    prints during training (wakeword_model_train.rs:210-218)."""
+    prints during training (wakeword_model_train.rs:210-218). The epochs
+    run as in `fit`."""
     dev = resolve_device(device)
     if not samples:
         raise ValueError("No training data provided")
@@ -171,22 +247,9 @@ def train_from_buffers(
         host = params_from_tensor_data(prior_model.weights)
     else:
         host = init_params(m_type, input_len, mfcc_size, len(labels), seed)
-    params = [(torch.tensor(w, device=dev).requires_grad_(),
-               torch.tensor(b, device=dev).requires_grad_()) for w, b in host]
-
-    lr = torch.tensor(options.learning_rate, dtype=torch.float32, device=dev)
-    chunk = max(1, options.test_epochs)
-    epoch = 0
-    loss_history: List[float] = []
-    while epoch < options.epochs:
-        n = min(chunk, options.epochs - epoch)
-        params, losses = sgd_epochs(params, x_train, y_train, lr, n)
-        epoch += n
-        chunk_losses = losses.tolist()
-        loss_history.extend(chunk_losses)
-        if verbose:
-            acc = float(accuracy(params, x_test, y_test))
-            print(f"{epoch:4} train loss: {chunk_losses[-1]:8.5f} test acc: {100.0 * acc:5.2f}%")
+    params, loss_history = fit(host, x_train, y_train, x_test, y_test,
+                               options.learning_rate, options.epochs, options.test_epochs,
+                               verbose)
     if history_out is not None:
         history_out["loss"] = loss_history
         history_out["test_accuracy"] = float(accuracy(params, x_test, y_test))

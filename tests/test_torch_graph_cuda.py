@@ -8,7 +8,9 @@ turns), `make_step` in its K2, K4 and K3 modes, and `Rustpotter`
 (`process_audio`, `process_audio_sequence`, held to `make_step`'s events);
 each kernel's launch count per replay, and the kernels a replay runs as
 torch.profiler sees them; a detector on a card other than the current one
-(two cards); a capture that reads the host raises. Every test needs a card
+(two cards); the kernels past 48 KB of shared memory (K2 at w = 9, K3, K1
+at w = 10) on cuda:0, then on cuda:1 in the same process, against the CPU
+(F3, two cards); a capture that reads the host raises. Every test needs a card
 (and nvcc, which builds the kernels at first use); without one they skip.
 The file imports no JAX:
 
@@ -77,11 +79,11 @@ def config(filters=False, rate=16000):
     return cfg
 
 
-def stream_frames(utterance, F, n=480, seed=0, device="cuda"):
-    """(T, B, n) chunks on `device`: stream 0 the correctness stream, the
+def stream_frames(utterance, F, n=480, seed=0, device="cuda", b=B):
+    """(T, b, n) chunks on `device`: stream 0 the correctness stream, the
     rest noise."""
     s0 = correctness_stream(F, utterance, n)
-    frames = np.random.default_rng(seed).normal(0, 0.05, (len(s0), B, n)).astype(np.float32)
+    frames = np.random.default_rng(seed).normal(0, 0.05, (len(s0), b, n)).astype(np.float32)
     frames[:, 0] = s0
     return torch.tensor(frames, device=device)
 
@@ -279,6 +281,61 @@ def test_a_detector_on_another_card_than_the_current_one(cuda_device, words):
     rp.add_wakeword_ref("w", ww)
     rustpotter_held(rp, [("w", ww)], config(), correctness_stream(100, utterance), dev)
     assert torch.cuda.current_device() == 0
+
+
+# F3: paths whose kernel asks for more than 48 KB of shared memory at C = 16
+# (kind, band, bundle options): K2 from w = 9, K3 at every band, K1 from w = 10
+F3_PATHS = (("make_step K2", 9, {}), ("make_step K3", 5, {"dtw_fused": False}),
+            ("BatchedDetector K1", 10, {}))
+B_F3 = 8
+
+
+def _f3_events(ww, utterance, device):
+    """{path: the Events (T, B_F3, ...) on the CPU} of each F3 path on
+    `device` over the correctness stream: make_step graphed on the card
+    (eager on the CPU), BatchedDetector.process_chunk."""
+    out = {}
+    for what, band, opts in F3_PATHS:
+        cfg = config()
+        cfg.detector.band_size = band
+        if what.startswith("BatchedDetector"):
+            det = BatchedDetector([("w", ww)], cfg, batch_size=B_F3, device=device)
+            static, states = det.static, det.init_states()
+            process = lambda s, x, det=det: det.process_chunk(det.params, s, x)
+        else:
+            static, params = build_bundle([("w", ww)], cfg, device, **opts)
+            step = graph.GraphedStep(make_step(static))
+            states = init_state(static, B_F3, device)
+            process = lambda s, x, step=step, params=params: step(params, s, x)
+        assert static.band_size == band
+        frames = stream_frames(utterance, static.max_mfcc_frames, device=device, b=B_F3)
+        evs = []
+        for x in frames:
+            states, ev = process(states, x)
+            evs.append([f.cpu() for f in ev])
+        out[what] = Event(*[torch.stack(f) for f in zip(*evs)])
+    return out
+
+
+@pytest.mark.cuda
+def test_kernels_past_48_kb_launch_on_a_second_card(cuda_device, words):
+    """F3: each launcher sets its shared-memory opt-in on every card it
+    launches on, not once per process. K2 at w = 9, K3 and K1 at w = 10 run
+    on cuda:0, then in the same process on cuda:1 (card 0 current), and each
+    gives the CPU's events."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ww, _, utterance = words
+    assert fd.k2_smem_bytes(9, 16) > 48 * 1024 and bd.smem_bytes(5) > 48 * 1024
+    assert fd.k1_smem_bytes(10, 16) > 48 * 1024
+    want = _f3_events(ww, utterance, "cpu")
+    cards = [_f3_events(ww, utterance, torch.device("cuda", i)) for i in (0, 1)]
+    assert torch.cuda.current_device() == 0
+    for what, _, _ in F3_PATHS:
+        for i, got in enumerate(cards):
+            held(got[what], want[what], f"F3 {what} on cuda:{i} against the cpu")
+        print(f"F3 {what}: cuda:1 bit-equal to cuda:0 "
+              f"{all(bits(a, b) for a, b in zip(cards[1][what], cards[0][what]))}")
 
 
 def _management(det, words, eager_of, device="cuda"):

@@ -212,3 +212,35 @@ def test_profiled_launches_keys_each_kernel_by_its_wrapper(source):
         keys = [k for pattern, k in profiling._WRAPPER_OF
                 if pattern.search(f"void {name}<16, 5>(Args, int, bool)")]
         assert len(keys) == 1 and keys[0] in counts, (source, name, keys)
+
+
+def test_profiled_kernels_and_launches_take_the_median_of_the_readings(monkeypatch):
+    """Both read the same profiles: per name the median launches per call
+    over the readings (a name a reading missed counts 0 there), rounded to
+    whole launches; the port's kernels keyed by wrapper, and the total of
+    every row."""
+    readings = iter([
+        [(0.5, 2.0, "void score_pairs<16, 5>(Args, int, bool)"), (0.1, 45.0, "ampere_sgemm"),
+         (0.0, 3.0, "Memcpy DtoD (Device -> Device)"), (0.0, 0.2, "vectorized_elementwise")],
+        [(0.5, 2.0, "void score_pairs<16, 5>(Args, int, bool)"), (0.1, 44.0, "ampere_sgemm")],
+        [(0.5, 1.0, "void score_pairs<16, 5>(Args, int, bool)"), (0.1, 45.0, "ampere_sgemm"),
+         (0.0, 2.6, "Memcpy DtoD (Device -> Device)")],
+    ] * 2)
+    monkeypatch.setattr(profiling, "device_kernels", lambda fn, n: next(readings))
+    kernels = profiling.profiled_kernels(None, 5)
+    # medians 2, 45, 2.6 (a dropped record) and 0 (read once), rounded
+    assert kernels == {"void score_pairs<16, 5>(Args, int, bool)": 2, "ampere_sgemm": 45,
+                       "Memcpy DtoD (Device -> Device)": 3}
+    assert profiling.profiled_launches(None, 5) == ({"fused_dtw_v4": 2}, 48.6)
+
+
+@pytest.mark.parametrize("name,copy", [
+    ("Memcpy DtoD (Device -> Device)", True), ("memcpy32_post", True),
+    ("memcpy64_post", True), ("Memcpy HtoD (Pageable -> Device)", False),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>", False),
+    ("memcpy32_postfix_kernel", False)])
+def test_is_copy_names_the_device_copies_of_an_eager_call_and_a_replay(name, copy):
+    assert profiling.is_copy(name) is copy
+    kernels, copies = profiling.split_copies({name: 3.0, "ampere_sgemm": 2.0})
+    assert (copies, kernels) == ((3.0, {"ampere_sgemm": 2.0}) if copy
+                                 else (0, {name: 3.0, "ampere_sgemm": 2.0}))

@@ -10,11 +10,26 @@ JAX:
     `tests/test_training_torch_crosscheck.py`'s tolerances (the first 10
     epochs rtol 2e-4 / atol 2e-5, all rtol 5e-3 / atol 5e-4), the final
     weights at the late tolerance, the test accuracy equal;
+  - training graphed (on the card: a CUDA graph of test_epochs epochs
+    replayed per chunk) against the eager epochs (the same call with
+    `trainer.GraphedStep` substituted by the bare function), with
+    a shorter last chunk and as a fine-tune from a prior model: losses,
+    weights and test accuracy bit for bit, the verbose lines equal, one
+    capture per call, and the graph and its memory dropped when the call
+    returns (the memory reserved after `empty_cache` does not grow over
+    three calls);
+  - a replay of the epochs' graph runs the eager chunk's device kernels
+    (torch.profiler, `utils/profiling.profiled_kernels`), and its copies
+    plus two outside the graph, the input's and the output's clone (the
+    graph's 4-byte loss writes run as `memcpy32_post` kernels);
   - a BatchedDetector sharded over a world-1 NCCL group gives the unsharded
     detector's events and scores on the card bit for bit (the same kernels
     on the same shapes), K1 launching once per chunk, and the collectives
     return the local values.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +39,13 @@ from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
 from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.parallel.collectives import fleet_detection_count, gather_detections
 from rustpotter_tpu_torch.parallel.mesh import make_stream_group, multihost_initialize
+from rustpotter_tpu_torch.runtime import graph
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector
 from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream, training_wavs
+from rustpotter_tpu_torch.utils.profiling import profiled_kernels, split_copies
+from rustpotter_tpu_torch.wakewords import trainer as tr
+from rustpotter_tpu_torch.wakewords.files import ModelType
+from rustpotter_tpu_torch.wakewords.nn import init_params
 from rustpotter_tpu_torch.wakewords.trainer import WakewordModelTrainOptions, train_from_buffers
 
 EARLY = dict(rtol=2e-4, atol=2e-5)
@@ -58,6 +78,96 @@ def test_training_on_card_matches_cpu(cuda_device):
     for k in mc.weights:
         np.testing.assert_allclose(mg.weights[k].to_numpy(), mc.weights[k].to_numpy(),
                                    **LATE, err_msg=k)
+
+
+def _captures(monkeypatch):
+    """A list that gets a weak reference to each GraphedStep at its capture."""
+    seen = []
+    capture = graph.GraphedStep._capture
+
+    def counted(self, *args):
+        capture(self, *args)
+        seen.append(weakref.ref(self))
+
+    monkeypatch.setattr(graph.GraphedStep, "_capture", counted)
+    return seen
+
+
+def _f32_bits(values):
+    return np.asarray(values, np.float32).view(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["remainder", "finetune"])
+def test_graphed_training_equals_eager_bit_for_bit(cuda_device, case, monkeypatch, capsys):
+    samples, tests = training_wavs(42, 12, seed=0), training_wavs(45, 6, seed=1)
+    prior = None
+    if case == "finetune":
+        prior = train_from_buffers(WakewordModelTrainOptions(epochs=30), samples, tests,
+                                   device="cpu", verbose=False)
+        samples, tests = training_wavs(39, 8, seed=3), training_wavs(39, 4, seed=4)
+    opts = WakewordModelTrainOptions(epochs=65)  # 6 chunks of 10, then 5 epochs
+    seen = _captures(monkeypatch)
+    runs = {}
+    for graphed in (True, False):
+        if not graphed:  # the eager yardstick: every chunk calls sgd_epochs
+            monkeypatch.setattr(tr, "GraphedStep", lambda fn: fn)
+        hist = {}
+        model = train_from_buffers(opts, samples, tests, prior, device=cuda_device,
+                                   history_out=hist)
+        runs[graphed] = (model, hist, capsys.readouterr().out.splitlines())
+        assert len(seen) == 1, (graphed, len(seen))  # the graphed call's one capture
+        gc.collect()
+        assert seen[0]() is None  # dropped, with its graph, when the call returned
+    (mg, hg, lg), (me, he, le) = runs[True], runs[False]
+    assert len(hg["loss"]) == 65 and len(lg) == 7
+    np.testing.assert_array_equal(_f32_bits(hg["loss"]), _f32_bits(he["loss"]))
+    assert hg["test_accuracy"] == he["test_accuracy"] and lg == le
+    assert mg.labels == me.labels and mg.train_size == me.train_size
+    for k in me.weights:
+        assert mg.weights[k].bytes == me.weights[k].bytes, k
+    print(f"{case}: graphed training equals eager bit for bit over 65 epochs, "
+          f"final loss {hg['loss'][-1]:.6f}")
+
+
+@pytest.mark.cuda
+def test_training_keeps_no_graph_memory_across_calls(cuda_device):
+    samples, tests = training_wavs(42, 12, seed=0), training_wavs(45, 6, seed=1)
+    opts = WakewordModelTrainOptions(epochs=40)
+    reserved = []
+    for _ in range(3):
+        train_from_buffers(opts, samples, tests, device=cuda_device, verbose=False)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved(cuda_device))
+    print(f"memory reserved after each call and empty_cache: {reserved} B")
+    assert reserved[2] <= reserved[0], reserved
+
+
+@pytest.mark.cuda
+def test_a_replay_runs_the_eager_chunks_kernels(cuda_device):
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(0, 1, (64, 2688)).astype(np.float32), device=cuda_device)
+    y = torch.tensor(np.arange(64) % 2, device=cuda_device)
+    host = init_params(ModelType.MEDIUM, 2688, 16, 2, 0)
+    consts = (y, torch.tensor(0.017, dtype=torch.float32, device=cuda_device))
+    step = graph.GraphedStep(tr.sgd_epochs)
+    sg, se = tr.epoch_state(host, 10, cuda_device), tr.epoch_state(host, 10, cuda_device)
+    sg, _ = step(consts, sg, x)  # eager, then the capture
+    se, _ = tr.sgd_epochs(consts, se, x)
+    got = profiled_kernels(lambda: step(consts, sg, x), 3)
+    want = profiled_kernels(lambda: tr.sgd_epochs(consts, se, x), 3)
+    assert step.captures == 1
+    (kg, cg), (ke, ce) = split_copies(got), split_copies(want)
+    print(f"a replay runs {sum(kg.values())} device kernels and {cg} copies, an eager "
+          f"chunk {sum(ke.values())} and {ce}")
+    assert kg == ke
+    # the graph's 10 loss writes, then outside it the input's copy and the
+    # loss buffer's clone
+    assert cg - ce == 2, (cg, ce)
+    for a, b in zip(sg, se):  # the same epochs, the same bits
+        assert torch.equal(a.detach().view(torch.int32), b.detach().view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -12,7 +12,8 @@ training length), 60 epochs in chunks of 10.
       test accuracy and the verbose lines' epochs and accuracies equal;
   (b) fine-tuning from a prior model (39-frame files, zero-padded to the
       prior's 42): labels frozen, the same trajectory; a foreign label
-      raises JAX's ValueError;
+      raises JAX's ValueError; (a) and (b) also with a shorter last chunk
+      (25 or 65 epochs in chunks of 10, 60 in chunks of 7);
   (c) no training data, no test data, a single label: JAX's errors;
   (d) train_from_dirs on one directory, whose os.listdir order fixes the
       labels in both packages;
@@ -67,13 +68,13 @@ def _train(samples, tests, capsys, prior=None, **kw):
     return mp, hp, lp, mj, hj, lj
 
 
-def _assert_same_training(mp, hp, lp, mj, hj, lj):
+def _assert_same_training(mp, hp, lp, mj, hj, lj, epochs=EPOCHS, test_epochs=10):
     assert mp.labels == mj.labels
     assert mp.m_type.value == mj.m_type.value
     assert (mp.train_size, mp.mfcc_size) == (mj.train_size, mj.mfcc_size)
     np.testing.assert_allclose(mp.rms_level, mj.rms_level, rtol=1e-6)
     lossp, lossj = np.array(hp["loss"]), np.array(hj["loss"])
-    assert lossp.shape == lossj.shape == (EPOCHS,)
+    assert lossp.shape == lossj.shape == (epochs,)
     np.testing.assert_allclose(lossp[:10], lossj[:10], **EARLY)
     np.testing.assert_allclose(lossp, lossj, **LATE)
     assert lossp[-1] < lossp[0] * 0.5  # genuinely trained
@@ -83,9 +84,10 @@ def _assert_same_training(mp, hp, lp, mj, hj, lj):
         assert mp.weights[k].dims == mj.weights[k].dims, k
         np.testing.assert_allclose(mp.weights[k].to_numpy(), mj.weights[k].to_numpy(),
                                    **LATE, err_msg=k)
-    # verbose: one line per chunk; epochs and accuracies equal, losses close
+    # verbose: one line per chunk (a shorter last one too); epochs and
+    # accuracies equal, losses close
     pat = re.compile(r"^ *(\d+) train loss: +(\S+) test acc: +(\S+)%$")
-    assert len(lp) == len(lj) == EPOCHS // 10
+    assert len(lp) == len(lj) == -(-epochs // test_epochs)
     for a, b in zip(lp, lj):
         ma, mb = pat.match(a), pat.match(b)
         assert ma and mb, (a, b)
@@ -136,6 +138,28 @@ def test_finetune_from_prior_matches_jax(trained, capsys):
     assert mp.labels == trained.labels and mp.train_size == trained.train_size
     assert mp.m_type == ModelType.MEDIUM and mp.mfcc_size == 16
     _assert_same_training(mp, hp, lp, mj, hj, lj)
+
+
+# a shorter last chunk (epochs % test_epochs), which the port runs eagerly
+# after the graphed chunks on the card
+REMAINDERS = [(25, 10), (65, 10), (60, 7)]
+
+
+@pytest.mark.parametrize("epochs,test_epochs", REMAINDERS)
+def test_a_shorter_last_chunk_matches_jax(data, capsys, epochs, test_epochs):
+    mp, hp, lp, mj, hj, lj = _train(*data, capsys, epochs=epochs, test_epochs=test_epochs)
+    _assert_same_training(mp, hp, lp, mj, hj, lj, epochs, test_epochs)
+    assert int(lp[-1].split()[0]) == epochs
+
+
+@pytest.mark.parametrize("epochs,test_epochs", REMAINDERS[:2])
+def test_finetune_with_a_shorter_last_chunk_matches_jax(trained, capsys, epochs, test_epochs):
+    samples = training_wavs(FRAMES, 8, seed=3)
+    tests = training_wavs(FRAMES, 4, seed=4)
+    mp, hp, lp, mj, hj, lj = _train(samples, tests, capsys, prior=trained, epochs=epochs,
+                                    test_epochs=test_epochs)
+    assert mp.labels == trained.labels and mp.train_size == trained.train_size
+    _assert_same_training(mp, hp, lp, mj, hj, lj, epochs, test_epochs)
 
 
 @pytest.mark.parametrize("where", ["train", "test"])
