@@ -58,7 +58,8 @@ Phases, each of which raises (non-zero exit) when it fails:
   5. tools phase (K5, V1-V6): the kernel tooling path with the counts reset
      before it: kernel_parity's seven checks at B=8192, kernel_probe in its
      five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
-     default K2), fma_probe timing
+     default K2) and K4's row form at the bands K4_ROW_BANDS (--v2 --w=N),
+     fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
      peak), V3's, V4's, V5's and V6's ptxas registers and spills at S = 8
      and 32 and every opcode of their SASS rep loops (which must hold no
@@ -78,8 +79,18 @@ Phases, each of which raises (non-zero exit) when it fails:
      21 and 24, past K1's and K2's rings, through BatchedDetector, make_step
      and Rustpotter at B=64 on a 30-frame bench wakeword (each routes to K4,
      3 launches per chunk or frame and no other kernel; the cpu run's
-     events); and the NN wakeword added to a live B=8192 DTW fleet after 10
-     chunks (the chunks after it give the cpu run's events at B=4);
+     events), and at B=8192 on the bench wakeword through the graphed
+     make_step (K4's row form: 3 launches per chunk of the correctness pass,
+     the host clock, the graph's device time and K4's by torch.profiler); the
+     NN wakeword added to a live B=8192 DTW fleet after 10 chunks (the chunks
+     after it give the cpu run's events at B=4); the memory of management
+     calls (`management_memory`: ten calls, add and remove in turns, each
+     followed by a graphed chunk, read before and after empty_cache, which
+     must stay flat per bundle; ten more without it, then one tensor as large
+     as the reserved memory they left); and `reset_streams` at B=8192
+     graphed against `make_reset` (`reset_turns`: bit for bit with three
+     masks, host ms per call in turns, the next chunk replayed without a
+     capture);
   7. audio front-end phase (K1, K2, the front-end kernel): `dtw_filters`,
      the bench wakeword at B=8192 with the gain normalizer and the 80-400 Hz
      band-pass on (__graft_entry__.entry()'s filters; stream 1 at noise
@@ -109,7 +120,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      atol 1e-3). `trainer.fit` on the card (a CUDA graph of test_epochs
      epochs replayed per chunk) and its eager yardstick (`eager_fit`) over
      the same 200 epochs: losses, weights and test accuracy bit for bit.
-     Then the MFCC extraction of the 80 WAVs (eager), the reference's 1000
+     Then the MFCC extraction of the 80 WAVs (M2a, `extraction_phase`) in
+     turns eager (`mfcc_features` called directly) / graphed / graphed /
+     eager, split into host encoder and device pipeline, bit for bit, with
+     one capture, and its launches and device ms per WAV eager and per
+     replay (torch.profiler); the bench wakeword built from WAV bytes of the
+     5 bench utterances, graphed bit-equal to eager and to a device="cpu"
+     build at rtol 1e-5 / atol 1e-4; the reference's 1000
      epochs through train_from_buffers on the host clock, the epochs alone
      in turns eager (`eager_fit`) / graph (`fit`) / graph / eager, a graphed
      call's first chunk (eager, then the capture), the graph's device time
@@ -194,6 +211,7 @@ RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 # version's order (bit-exact, rtol 0); V5 and V6 fuse a product that the plain
 # version rounds first (rtol by reps and S: fma_probe.PROBE_RTOL)
 EV_RTOL, EV_ATOL = 2e-5, 2e-5  # event scores, card vs CPU
+MFCC_RTOL, MFCC_ATOL = 1e-5, 1e-4  # MFCCs, card vs CPU (tests/test_torch_frontend.py)
 NN_RTOL, NN_ATOL = 1e-4, 1e-3  # NN logits and scores, card vs CPU
 BENCH_STREAMS = 8192  # bench.py's B
 TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
@@ -209,7 +227,9 @@ K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
 # grow with w (K2's passes 48 KB of shared memory from w = 9, K4's from 8); K4
 # takes its row form past w = 19, K5 one row per step at w = 37
 WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v1.cu", 37), ("fused_dtw_v4.cu", 8),
-        ("fused_dtw_v3.cu", 9), ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21))
+        ("fused_dtw_v3.cu", 9), ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21),
+        ("fused_dtw_v2.cu", 24))
+K4_ROW_BANDS = (21, 24)  # F1's bands: K4's row form, timed at the bench's B
 
 
 def log(*a):
@@ -735,6 +755,15 @@ def tools_phase(dev, record):
             log(f"kernel_probe {' '.join(argv) or '(default)'}: {line}")
     log(f"tools: K5 {probes[1]['ms']:.4f} ms beside K4 {probes[2]['ms']:.4f} ms on the same "
         "inputs")
+    k4_row = {}
+    for w in K4_ROW_BANDS:  # K4's row form at F1's bands (--v2 --w=N)
+        argv = [str(BENCH_STREAMS), "20", "--v2", f"--w={w}"]
+        B, iters, variant, gate = kernel_probe.parse(argv)
+        r = kernel_probe.measure(B, iters, variant, gate, dev, kernel_probe.band(argv))
+        for line in kernel_probe.report(r):
+            log(f"kernel_probe --v2 --w={w}: {line}")
+        k4_row[w] = dict(ms=r["ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         flops=r["flops"])
     rows, chip = fma_probe.measure(dev)
     loops = fma_probe.rep_loop_facts(fma_probe.sass_listing())
     probe_log = _build.build_log(fma_probe.SOURCE, {})
@@ -782,7 +811,7 @@ def tools_phase(dev, record):
         bound_ms, bound_by = bound(r["flops"], r["bytes"])
         record[f"fma_probe_{name}"].update(launches=launches[name], ms=r["ms"],
                                            bound_ms=bound_ms, bound_by=bound_by)
-    return {"fp32_fma_tflops_measured": chip.fp32_fma_tflops_measured}
+    return {"fp32_fma_tflops_measured": chip.fp32_fma_tflops_measured, "k4_row_probe": k4_row}
 
 
 # ---------------------------------------------------------------- slice
@@ -1478,6 +1507,7 @@ def nn_phase(dev, card):
 
     from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+    from rustpotter_tpu_torch.runtime.bundle import build_bundle
     from rustpotter_tpu_torch.runtime.graph import GraphedStep
     from rustpotter_tpu_torch.runtime.state import init_state
     from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk, make_step
@@ -1564,6 +1594,43 @@ def nn_phase(dev, card):
         log(f"F1 w={band} Rustpotter: fired at frames {[i for i, _ in gpu_dets]} as the cpu run "
             f"(max|d score| {worst:.3e}); K4 launches {launches['fused_dtw_v2']} for {n} frames")
 
+    # (d') K4's row form at the bench's B, on the graphed make_step path: the
+    # bench wakeword (Lm = 100) at F1's bands, the launches of the correctness
+    # pass, the host clock and the graph's device time (one turn), and K4's
+    # device time per chunk by torch.profiler over the eager step
+    noise_card = torch.tensor(noise_np, device=dev)
+    for band in K4_ROW_BANDS:
+        cfg_b = copy.deepcopy(cfg)
+        cfg_b.detector.band_size = band
+        static, params = build_bundle([("w", ww)], cfg_b, dev)
+        assert static.dtw_k4_for_band and static.dtw_fused_variant == 2
+        step, eager = GraphedStep(make_step(static)), make_step(static)
+        process = lambda s, f: step(params, s, f)
+        s0 = torch.tensor(correctness_stream(static.max_mfcc_frames, utterance), device=dev)
+        reset_counts()
+        evs = run_pass(process, init_state(static, B, dev), s0, noise_card)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        n = s0.shape[0]
+        assert launches["fused_dtw_v2"] == 3 * n == sum(launches.values()), (band, launches)
+        device = []
+        _, windows = timed_windows(process, init_state(static, B, dev), noise_card, device)
+        host_ms = float(np.median(windows)) / TIMED_CHUNKS * 1e3
+        graph_ms = float(np.median(device)) / TIMED_CHUNKS * 1e3
+        states = init_state(static, B, dev)
+        rows = device_kernels(lambda: eager(params, states, noise_card), PROFILED_CHUNKS)
+        k4_ms = sum(r[0] for r in rows if "score_pairs_v2" in r[2])
+        k4_n = sum(r[1] for r in rows if "score_pairs_v2" in r[2])
+        log(f"F1 w={band} make_step at B={B} [{card}]: K4 (row form) launches "
+            f"{launches['fused_dtw_v2']} in the {n}-chunk pass, stream 0 fired "
+            f"{int(evs[0][:, 0].sum())}x; graphed {host_ms:.4f} ms per chunk host clock (median "
+            f"of {TIMED_WINDOWS} windows of {TIMED_CHUNKS}), graph device {graph_ms:.4f} ms; "
+            f"profiled eager: K4 {k4_ms:.4f} ms per chunk in {k4_n:.1f} launches "
+            f"({k4_ms / max(k4_n, 1):.4f} ms per launch) of {sum(r[0] for r in rows):.4f} ms")
+        summary[f"k4_row_w{band}"] = dict(launches=launches["fused_dtw_v2"], chunks=n,
+                                          host_ms=host_ms, graph_device_ms=graph_ms,
+                                          k4_ms_per_chunk=k4_ms, k4_launches_per_chunk=k4_n)
+
     # (e) M6b: the NN wakeword joins a live B=8192 DTW fleet mid-stream;
     # the same calls on the CPU at B=4
     # The eager run goes first, so that the allocator holds the eager chunk's
@@ -1634,7 +1701,144 @@ def nn_phase(dev, card):
         f"{len(stream0_np) - split} chunks after it match the cpu run at B=4 ({n_events} "
         f"events, stream 0 fired {fired0}x, max|d score| {worst:.3e}); K1 launches "
         f"{launches['fused_dtw_v4']}")
+    summary.update(management_memory(dev, card, ww, firing, cfg, noise_card))
+    summary.update(reset_turns(dev, card, ww, cfg, noise_card))
     return summary
+
+
+MANAGEMENT_CALLS = 10
+RESET_CALLS = 50  # reset_streams calls per timed turn
+MIB = 2 ** 20
+
+
+def management_memory(dev, card, ww, firing, cfg, noise):
+    """The memory of management calls at B=8192 (F4's question): the NN
+    wakeword added, then removed, in turns, each call followed by a graphed
+    chunk, which captures. Ten calls read before and after `empty_cache`
+    (allocated and reserved); ten more never emptied, then one tensor as
+    large as the reserved memory they left is allocated. Raises unless the
+    allocated memory, and the reserved memory after `empty_cache`, are the
+    same after every call of the same bundle."""
+    import gc
+
+    import torch
+
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+
+    det = BatchedDetector([("w", ww)], cfg, batch_size=BENCH_STREAMS, device=dev)
+    states = det.init_states()
+    states, _ = det.process_chunk(det.params, states, noise)
+
+    def call(i, states):
+        if i % 2 == 0:
+            states = det.add_wakeword("n", firing, states)
+        else:
+            states = det.remove_wakeword("n", states)
+        states, _ = det.process_chunk(det.params, states, noise)
+        gc.collect()
+        torch.cuda.synchronize()
+        return states
+
+    mem = lambda: (torch.cuda.memory_allocated() / MIB, torch.cuda.memory_reserved() / MIB)
+    torch.cuda.empty_cache()
+    start = mem()
+    rows = []
+    for i in range(MANAGEMENT_CALLS):
+        states = call(i, states)
+        before = mem()
+        torch.cuda.empty_cache()
+        rows.append((*before, *mem()))
+    log(f"F4 [{card}]: memory after each of {MANAGEMENT_CALLS} management calls at "
+        f"B={BENCH_STREAMS} (add, remove, ...; each then a graphed chunk, which captures), "
+        f"MiB allocated / reserved before empty_cache -> allocated / reserved after, from "
+        f"{start[0]:.1f} / {start[1]:.1f}: "
+        + "; ".join(f"{a0:.1f} / {r0:.1f} -> {a1:.1f} / {r1:.1f}" for a0, r0, a1, r1 in rows))
+    base = mem()
+    for i in range(MANAGEMENT_CALLS):
+        states = call(i, states)
+    grown = mem()
+    growth = int((grown[1] - base[1]) * MIB)
+    try:
+        big = torch.empty(max(growth, 1), dtype=torch.uint8, device=dev)
+        big.fill_(1)
+        torch.cuda.synchronize()
+        after, held = mem(), "succeeded"
+        del big
+    except torch.cuda.OutOfMemoryError:
+        after, held = mem(), "failed (out of memory)"
+    log(f"F4 [{card}]: {MANAGEMENT_CALLS} more calls without empty_cache: reserved "
+        f"{base[1]:.1f} -> {grown[1]:.1f} MiB (+{grown[1] - base[1]:.1f}), allocated "
+        f"{base[0]:.1f} -> {grown[0]:.1f}; one tensor of {growth / MIB:.1f} MiB then {held}, "
+        f"reserved {grown[1]:.1f} -> {after[1]:.1f} MiB (+{after[1] - grown[1]:.1f})")
+    for i in range(2, MANAGEMENT_CALLS):  # the same bundle as two calls before
+        assert rows[i][2] == rows[i - 2][2], ("F4: memory allocated grows", rows)
+        assert rows[i][3] <= rows[i % 2][3], ("F4: reserved after empty_cache grows", rows)
+    return {"f4_rows_mib": rows, "f4_start_mib": start,
+            "f4_no_empty_cache_mib": (base, grown, after), "f4_big_alloc": held}
+
+
+def reset_turns(dev, card, ww, cfg, noise):
+    """`reset_streams` at B=8192 after 20 graphed chunks, graphed (the
+    detector's) against eager (`make_reset` called directly) on copies of
+    the same states: every field bit for bit with a mixed, an all-true and
+    an all-false mask; host ms per call (a numpy mask each, RESET_CALLS
+    calls synchronized at the end) in turns eager, graph, graph, eager;
+    then a chunk, which must replay without a capture and give the eager
+    chunk's events."""
+    import torch
+
+    from rustpotter_tpu_torch.runtime.batch import BatchedDetector, make_reset
+    from rustpotter_tpu_torch.runtime.state import StreamState
+    from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk
+
+    B = BENCH_STREAMS
+    det = BatchedDetector([("w", ww)], cfg, batch_size=B, device=dev)
+    eager = make_reset(det.static, dev)
+    states = det.init_states()
+    for _ in range(20):
+        states, _ = det.process_chunk(det.params, states, noise)
+    base = [t.clone() for t in states]
+    mine = StreamState(*[t.clone() for t in base])
+    masks = {"mixed": np.arange(B) % 3 == 0, "all": np.ones(B, bool), "none": np.zeros(B, bool)}
+    graphed = lambda s, m: det.reset_streams(s, m)
+    direct = lambda s, m: eager(det.params, s, torch.as_tensor(m, device=dev))
+    captures = det._chunk.captures
+    for name, m in masks.items():
+        for _ in range(2):  # the capture, then a replay
+            for a, b, c in zip(states, mine, base):
+                a.copy_(c)
+                b.copy_(c)
+            graphed(states, m)
+            direct(mine, m)
+            assert all(bits_equal(a, b) for a, b in zip(states, mine)), f"reset {name}"
+    assert det._reset.captures == 1, det._reset.captures
+    ms = {"eager": [], "graph": []}
+    for which in ("eager", "graph", "graph", "eager"):
+        fn, s = (direct, mine) if which == "eager" else (graphed, states)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(RESET_CALLS):
+            fn(s, masks["mixed"] if i % 2 else masks["none"])
+        torch.cuda.synchronize()
+        ms[which].append((time.perf_counter() - t0) * 1e3 / RESET_CALLS)
+    for a, b, c in zip(states, mine, base):
+        a.copy_(c)
+        b.copy_(c)
+    graphed(states, masks["mixed"])
+    direct(mine, masks["mixed"])
+    _, ev = det.process_chunk(det.params, states, noise)
+    _, ev_e = make_batched_chunk(det.static)(det.params, mine, noise)
+    for j, name in ((0, "fired"), (1, "ww"), (4, "counter")):
+        assert torch.equal(ev[j], ev_e[j]), f"the chunk after a reset: {name}"
+    same = all(bits_equal(a, b) for a, b in zip(ev, ev_e))
+    assert det._chunk.captures == captures, "the chunk after a reset captured again"
+    log(f"M6c reset_streams at B={B} [{card}]: graphed equals eager bit for bit on every "
+        f"field (mixed, all-true, all-false masks; 1 capture); host ms per call (a numpy "
+        f"mask, {RESET_CALLS} calls) in turns eager {ms['eager'][0]:.4f} / graph "
+        f"{ms['graph'][0]:.4f} / graph {ms['graph'][1]:.4f} / eager {ms['eager'][1]:.4f}; "
+        f"the next chunk replayed without a capture, events as the eager chunk's "
+        f"(bit-equal {same})")
+    return {"reset_eager_ms": ms["eager"], "reset_graph_ms": ms["graph"]}
 
 
 # ------------------------------------------------------- audio front-end
@@ -2091,6 +2295,11 @@ TRAIN_EARLY = dict(rtol=2e-4, atol=2e-5)  # tests/test_training_torch_crosscheck
 TRAIN_LATE = dict(rtol=5e-3, atol=5e-4)
 PROFILED_EPOCHS = 10  # one chunk of test_epochs
 GRAPH_TIMED_CHUNKS = 20  # replays inside the CUDA events of the graph's device time
+# calls of a chunk in each profile that holds a replay's kernels to the eager
+# chunk's: a record the profiler drops or takes in moves a kernel's launches
+# per call by 1/PROFILED_CALLS, so at 3 calls two in one reading rounded to
+# another whole launch
+PROFILED_CALLS = 10
 # F3: paths whose kernel asks for more than 48 KB of shared memory at C = 16
 # (kind, band, bundle options): K2 from w = 9, K3 at every band, K1 from w = 10
 F3_PATHS = (("make_step K2", 9, {}), ("make_step K3", 5, {"dtw_fused": False}),
@@ -2262,14 +2471,10 @@ def train_phase(dev, card):
         f"events, max|d score| {worst:.3e}); stream 0 fired {fired0}x, streams 1-3 "
         f"{int(events[str(dev)][0][:, 1:].sum())}x")
 
-    # the MFCC extraction of the 80 WAVs (M2a, eager), then the reference's
-    # 1000 epochs through the entry point (graphed), on the host clock
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr._get_mfccs_labeled(samples, [], True, 16, dev)
-    tr._get_mfccs_labeled(tests, ["bench", "none"], False, 16, dev)
-    torch.cuda.synchronize()
-    mfcc_s = time.perf_counter() - t0
+    # the MFCC extraction of the 80 WAVs (M2a) graphed against eager, the
+    # bench templates built from WAVs, then the reference's 1000 epochs
+    # through the entry point (graphed), on the host clock
+    m2a = extraction_phase(dev, card, list(samples.values()) + list(tests.values()))
     full = tr.WakewordModelTrainOptions()
     hist = {}
     t0 = time.perf_counter()
@@ -2340,10 +2545,12 @@ def train_phase(dev, card):
     launches = sum(r[1] for r in rows_e) / PROFILED_EPOCHS
     gdev_ms = sum(r[0] for r in rows_g) / PROFILED_EPOCHS
     glaunches = sum(r[1] for r in rows_g) / PROFILED_EPOCHS
-    got, want = profiled_kernels(replay, 3), profiled_kernels(eager, 3)
+    got = profiled_kernels(replay, PROFILED_CALLS)
+    want = profiled_kernels(eager, PROFILED_CALLS)
     assert step.captures == 1
     (kg, cg), (ke, ce) = split_copies(got), split_copies(want)
-    assert kg == ke, (got, want)
+    assert kg == ke, {k: (kg.get(k), ke.get(k)) for k in kg.keys() | ke.keys()
+                      if kg.get(k) != ke.get(k)}
     extra = cg - ce
     assert extra == 2, (cg, ce)  # outside the graph: the input's copy and a clone
     while calls["eager"] < calls["replay"]:
@@ -2353,8 +2560,7 @@ def train_phase(dev, card):
     log(f"train: {full.epochs} epochs through train_from_buffers (graphed) in "
         f"{train_s:.4f} s host clock ({train_s * 1e3 / full.epochs:.4f} ms per epoch with "
         f"the MFCCs; final loss {hist['loss'][-1]:.6f}, test accuracy "
-        f"{hist['test_accuracy']:.4f}); the MFCC extraction of the "
-        f"{TRAIN_FILES + TEST_FILES} WAVs {mfcc_s * 1e3:.4f} ms (eager); a graphed call's "
+        f"{hist['test_accuracy']:.4f}; its MFCC extraction graphed); a graphed call's "
         f"first chunk (eager, then the capture) {first_ms:.4f} ms against "
         f"{one_replay_ms:.4f} ms for a synchronized replay; the graph's device "
         f"time {graph_dev_ms:.4f} ms per epoch (CUDA events around {GRAPH_TIMED_CHUNKS} "
@@ -2386,8 +2592,124 @@ def train_phase(dev, card):
             "train_replay_device_ms_per_epoch": gdev_ms,
             "train_replay_launches_per_epoch": glaunches,
             "train_device_ms_per_epoch": dev_ms, "train_launches_per_epoch": launches,
-            "train_mfcc_ms": mfcc_s * 1e3, "train_stream0_fired": fired0,
-            "train_f3": f3_result}
+            "train_stream0_fired": fired0, "train_f3": f3_result, **m2a}
+
+
+def eager_pipeline(samples, num_coefficients, device=None):
+    """`offline.mfcc_pipeline` without its graphs: the wrapped function,
+    `mfcc_features`, called directly."""
+    import torch
+
+    from rustpotter_tpu_torch.device import resolve_device
+    from rustpotter_tpu_torch.mfcc import offline
+
+    x = torch.as_tensor(np.asarray(samples, np.float32), device=resolve_device(device))
+    return offline.mfcc_features(x, num_coefficients).cpu().numpy()
+
+
+def extraction_phase(dev, card, wavs):
+    """M2a (see the module docstring, phase 8): the extraction of `wavs`
+    (the 80 training and test WAVs, 168 frames each) in turns eager /
+    graphed / graphed / eager, each split into the host encoder and the
+    device pipeline (host clock; the pipeline's time ends in its read of the
+    features), bit for bit; the captures of the graphed turns; launches and
+    device ms per WAV of the eager pipeline and of a replay (torch.profiler);
+    then the bench wakeword built from WAV bytes of the 5 bench utterances,
+    graphed against eager bit for bit and against a device="cpu" build."""
+    import gc
+
+    import torch
+
+    from rustpotter_tpu_torch.constants import DETECTOR_INTERNAL_SAMPLE_RATE
+    from rustpotter_tpu_torch.mfcc import offline
+    from rustpotter_tpu_torch.synthetic import bench_utterances
+    from rustpotter_tpu_torch.utils.profiling import profiled_kernels
+    from rustpotter_tpu_torch.utils.wav import wav_bytes
+    from rustpotter_tpu_torch.wakewords.builder import build_wakeword_ref_from_buffers
+
+    n = 17  # mfcc_size 16, coefficient 0 dropped
+    offline.GRAPHS.clear()
+    captures = offline.GRAPHS.captures
+
+    def extract(pipeline):
+        host = device = 0.0
+        outs = []
+        for wav in wavs:
+            t0 = time.perf_counter()
+            x, _ = offline.encode_wav(wav)
+            t1 = time.perf_counter()
+            outs.append(pipeline(x, n, dev))
+            host, device = host + t1 - t0, device + time.perf_counter() - t1
+        return host * 1e3, device * 1e3, outs
+
+    turns = []
+    for which in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        turns.append((which, *extract(eager_pipeline if which == "eager" else
+                                      offline.mfcc_pipeline)))
+    made = offline.GRAPHS.captures - captures
+    want = [o.view(np.int32) for o in turns[0][3]]
+    for which, _, _, outs in turns[1:]:
+        assert all(np.array_equal(o.view(np.int32), w) for o, w in zip(outs, want)), which
+    assert made == 1, made
+    x, _ = offline.encode_wav(wavs[0])
+    prof = {"eager": lambda: eager_pipeline(x, n, dev),
+            "replay": lambda: offline.mfcc_pipeline(x, n, dev)}
+    kernels = {k: profiled_kernels(f, 5) for k, f in prof.items()}
+    extra = {k: v - kernels["eager"].get(k, 0) for k, v in kernels["replay"].items()
+             if v != kernels["eager"].get(k, 0)}
+    dev_ms = {k: sum(r[0] for r in device_kernels(f, 5)) for k, f in prof.items()}
+    # what the one graph's pool holds: the reserved memory with it and without
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    offline.GRAPHS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_mib = (held - torch.cuda.memory_reserved()) / MIB
+    log(f"M2a extraction of {len(wavs)} WAVs of {len(want[0])} frames [{card}]: host ms in "
+        f"turns " + " / ".join(f"{w} {h + d:.4f} (host encoder {h:.4f} + pipeline {d:.4f})"
+                                for w, h, d, _ in turns)
+        + f"; graphed equals eager bit for bit on every WAV; {made} capture, whose graph "
+        f"held {pool_mib:.1f} MiB reserved (after empty_cache, with it and without)")
+    log(f"M2a per WAV: the eager pipeline runs {sum(kernels['eager'].values())} device "
+        f"kernels and copies ({dev_ms['eager']:.4f} ms device busy), a replay "
+        f"{sum(kernels['replay'].values())} ({dev_ms['replay']:.4f} ms); the replay's "
+        f"more: {extra}; eager: {kernels['eager']}")
+
+    buffers = {f"s{i}.wav": wav_bytes(w, DETECTOR_INTERNAL_SAMPLE_RATE)
+               for i, w in enumerate(bench_utterances(100))}
+    offline.GRAPHS.clear()
+    captures = offline.GRAPHS.captures
+    built = {"graph": build_wakeword_ref_from_buffers("bench", buffers, 16, device=dev)}
+    made_build = offline.GRAPHS.captures - captures
+    real = offline.mfcc_pipeline
+    offline.mfcc_pipeline = eager_pipeline
+    try:
+        built["eager"] = build_wakeword_ref_from_buffers("bench", buffers, 16, device=dev)
+    finally:
+        offline.mfcc_pipeline = real
+    built["cpu"] = build_wakeword_ref_from_buffers("bench", buffers, 16, device="cpu")
+    g, e, c = built["graph"], built["eager"], built["cpu"]
+    lengths = [len(g.samples_features[k]) for k in buffers]
+    for k in buffers:
+        assert np.array_equal(g.samples_features[k].view(np.int32),
+                              e.samples_features[k].view(np.int32)), k
+        np.testing.assert_allclose(g.samples_features[k], c.samples_features[k],
+                                   rtol=MFCC_RTOL, atol=MFCC_ATOL, err_msg=k)
+    assert np.array_equal(g.avg_features.view(np.int32), e.avg_features.view(np.int32))
+    np.testing.assert_allclose(g.avg_features, c.avg_features, rtol=MFCC_RTOL, atol=MFCC_ATOL)
+    assert g.rms_level == e.rms_level == c.rms_level
+    worst = max(float(np.abs(g.samples_features[k] - c.samples_features[k]).max())
+                for k in buffers)
+    log(f"M2a builder: the bench wakeword from WAV bytes of the 5 bench utterances "
+        f"({lengths} frames: the encoder keeps whole 30 ms chunks), graphed equals eager bit "
+        f"for bit (templates, avg, rms), {made_build} capture (a repeated length), and the "
+        f"cpu build at rtol {MFCC_RTOL} / atol {MFCC_ATOL} (max|d| {worst:.3e})")
+    return {"m2a_turns_ms": [(w, h, d) for w, h, d, _ in turns], "m2a_captures": made,
+            "m2a_launches_per_wav": {k: sum(v.values()) for k, v in kernels.items()},
+            "m2a_device_ms_per_wav": dev_ms, "m2a_builder_captures": made_build,
+            "m2a_graph_pool_mib": pool_mib}
 
 
 # ------------------------------------------------------------- sharding

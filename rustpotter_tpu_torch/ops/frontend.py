@@ -145,6 +145,7 @@ class DeviceConstants:
     the windowed DFT is a single GEMM."""
 
     def __init__(self, consts: FrontendConstants, device: torch.device):
+        self.num_coefficients = consts.num_coefficients
         self.dft = torch.from_numpy(
             np.concatenate([consts.dft_cos, consts.dft_sin], axis=1)
         ).to(device)

@@ -41,8 +41,15 @@ field copies, nothing read on the host), the counterpart of the jitted
 `lax.scan`. A new state set or parameter set is captured at its first chunk,
 which runs eagerly; a rebuild (`add_wakeword`, `remove_wakeword`,
 `update_*config`) makes a new `GraphedStep`, and the old graph goes with the
-old one; `reset_streams` writes in place and keeps the graph. On the CPU the
-chunk runs eagerly. The eager chunk is `make_batched_chunk(static)`.
+old one. `reset_streams` is a graph too, the counterpart of the JAX
+runtime's `jax.jit(_reset_streams)`: a `GraphedStep` of `make_reset(static)`
+keyed as the chunk's (the parameter set, the states' addresses, the mask's
+shape), captured at its key's first call after an eager call; each later
+call copies the mask into the graph's (B,) input and replays it. It writes
+the fresh values into the masked streams in place, so the chunk's graph
+stays valid and is not captured again; a rebuild drops it with the chunk's.
+On the CPU the chunk and the reset run eagerly. The eager functions are
+`make_batched_chunk(static)` and `make_reset(static, device)`.
 
 Differences from the JAX runtime: `process_chunk` updates the states in place
 (the counterpart of donating them) and still returns them. What runs on the
@@ -71,6 +78,24 @@ from .stream_step import make_batched_chunk
 # streams; win — window content is left stale on purpose: win_count=0 masks
 # scoring until the window refills.
 _RESET_SKIP_FIELDS = frozenset({"rot", "win"})
+
+
+def make_reset(static: StepStatic, device: torch.device):
+    """reset(params, states, mask (B,) bool) -> (states, ()): every field but
+    `_RESET_SKIP_FIELDS` takes its fresh value in the streams where mask is
+    True, in place (the `GraphedStep` form; params is not read). The fresh
+    values are one stream's `init_state`, made once here and broadcast over
+    the streams: one `where` per field, written over the field."""
+    fresh = [(f, v) for f, v in zip(StreamState._fields, init_state(static, 1, device))
+             if f not in _RESET_SKIP_FIELDS]
+
+    def reset(params, states: StreamState, mask: torch.Tensor):
+        for f, row in fresh:
+            a = getattr(states, f)
+            torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), row, a, out=a)
+        return states, ()
+
+    return reset
 
 
 def _keep_newest(arr: torch.Tensor, axis: int, new_len: int) -> torch.Tensor:
@@ -177,8 +202,9 @@ class BatchedDetector:
         static, params = build_bundle(wakewords, config, self.device,
                                       self._in_graph_resample)
         chunk = GraphedStep(make_batched_chunk(static))
+        reset = GraphedStep(make_reset(static, self.device))
         self._wakewords, self.config = wakewords, config
-        self.static, self.params, self._chunk = static, params, chunk
+        self.static, self.params, self._chunk, self._reset = static, params, chunk, reset
 
     def _rebuild(self, wakewords, config, states, reset_stream=False,
                  reset_filters=False) -> Optional[StreamState]:
@@ -276,17 +302,11 @@ class BatchedDetector:
 
     def reset_streams(self, states: StreamState, mask) -> StreamState:
         """Clear streams where mask (B,) is True, in place (so the chunk's
-        graph stays valid). Sharded, the mask is this rank's block
+        graph stays valid); on the card by a graph's replay (see the module
+        docstring). Sharded, the mask is this rank's block
         (`StreamSharding.local` of a global mask)."""
         m = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        fresh = init_state(self.static, self.local_batch, self.device)
-        for f in StreamState._fields:
-            if f in _RESET_SKIP_FIELDS:
-                continue
-            a = getattr(states, f)
-            mm = m.reshape(m.shape + (1,) * (a.dim() - 1))
-            a.copy_(torch.where(mm, getattr(fresh, f), a))
-        return states
+        return self._reset(self.params, states, m)[0]
 
 
 def events_to_numpy(ev: Event) -> Event:

@@ -2,13 +2,16 @@
 on the card: the counterpart of the JAX package's tools/kernel_probe.py.
 
     python -m rustpotter_tpu_torch.tools.kernel_probe [B] [iters] [--v1|--v2|--v4|--k3] [--gate]
+        [--w=N]
 
 The default is K2 (`fused_dtw_batch_v3`); --v1 is K5 and --v2 K4
 (`fused_dtw_batch(variant=1 or 2)`), --v4 is K1 (`fused_dtw_chunk_v4`, all 3
 shifts of a chunk), --k3 is K3 (`banded_dtw_kernel` over N = 6B DPs of the
 bench pair lengths, L = 100, costs drawn uniform in [0, 2)). --gate sets a
 gate bound that no random stream passes (K1 and K2 then score the avg pairs
-only; K3 has no gate and refuses it). It prints:
+only; K3 has no gate and refuses it). --w=N sets the band (default 5): K4
+takes its row form past `fused_dtw.K4_W_MAX`, as the bundle routes a band
+past K1's and K2's rings (F1). It prints:
   - the launch alone, its template set and layouts prepared outside it:
     CUDA events, the median of 20 samples of 10 back-to-back launches (K1
     and K2 also with the gate closed);
@@ -37,10 +40,10 @@ FLAGS = (*VARIANTS, "--gate")
 
 
 def parse(argv):
-    """(B, iters, variant, gate) from the command line; ValueError on
-    anything else."""
+    """(B, iters, variant, gate) from the command line (the band: `band`);
+    ValueError on anything else."""
     args = [a for a in argv if not a.startswith("--")]
-    opts = [a for a in argv if a.startswith("--")]
+    opts = [a for a in argv if a.startswith("--") and not a.startswith("--w=")]
     bad = [o for o in opts if o not in FLAGS]
     chosen = [VARIANTS[o] for o in opts if o in VARIANTS]
     gate = "--gate" in opts
@@ -52,13 +55,21 @@ def parse(argv):
     return B, iters, chosen[0] if chosen else 3, gate
 
 
-def inputs(B: int, variant: int, device) -> dict:
+def band(argv) -> int:
+    """The band of --w=N (default W); ValueError unless one integer >= 2."""
+    given = [a[len("--w="):] for a in argv if a.startswith("--w=")]
+    if len(given) > 1 or (given and not (given[0].isdigit() and int(given[0]) >= 2)):
+        raise ValueError(f"bad band {given}: usage --w=N with one integer N >= 2")
+    return int(given[0]) if given else W
+
+
+def inputs(B: int, variant: int, device, w: int = W) -> dict:
     """The JAX tool's inputs (seed 0, the same draws in the same order)."""
     rng = np.random.default_rng(0)
     P = len(LENS)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     if variant == 0:  # K3: the band costs of B streams x P pairs
-        return dict(costs=t(rng.uniform(0, 2, (B * P, LM, 2 * W))),
+        return dict(costs=t(rng.uniform(0, 2, (B * P, LM, 2 * w))),
                     lens=torch.tensor(np.tile(np.array(LENS, np.int32), B), device=device))
     x = dict(win=t(rng.normal(0, 1, (B, LM, C))), means=t(rng.normal(0, 0.2, (B, P, C))),
              templates=t(rng.normal(0, 1, (P, LM, C))))
@@ -69,18 +80,18 @@ def inputs(B: int, variant: int, device) -> dict:
     return x
 
 
-def calls(x: dict, variant: int, gate: bool):
-    """(the whole wrapper call, the launch alone, what it scores): two
-    functions of no arguments, and (flops, bytes) of the work."""
+def calls(x: dict, variant: int, gate: bool, w: int = W):
+    """(the whole wrapper call, the launch alone, what it scores) at band w:
+    two functions of no arguments, and (flops, bytes) of the work."""
     if variant == 0:
-        k3 = lambda: bd.banded_dtw_kernel(x["costs"], x["lens"], W)
-        return k3, k3, profiling.k3_work(x["lens"].cpu().numpy(), W, LM)
+        k3 = lambda: bd.banded_dtw_kernel(x["costs"], x["lens"], w)
+        return k3, k3, profiling.k3_work(x["lens"].cpu().numpy(), w, LM)
     B = x["win"].shape[0]
     P = len(LENS)
     D, K = 1, P - 1
     dev = x["win"].device
     bounds = torch.tensor([-1.0 if gate else np.inf], dtype=torch.float32, device=dev)
-    tset = fd.prepare_templates(x["templates"], x["tnorms"], LENS, W)
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], LENS, w)
     win_t = x["win"].permute(1, 2, 0).contiguous()  # (Lm, C, B)
     means_t = x["means"].permute(1, 2, 0).contiguous()  # (P, C, B)
     # the pairs scored: with --gate only the avg pairs pass the K1/K2 gate
@@ -88,22 +99,22 @@ def calls(x: dict, variant: int, gate: bool):
     if variant == 4:
         rot0 = torch.tensor(LM - 2, dtype=torch.int32, device=dev)
         whole = lambda: fd.fused_dtw_chunk_v4(win_t, x["new"], x["means3"], x["templates"],
-                                              x["tnorms"], bounds, LENS, W, D, K, rot0)
+                                              x["tnorms"], bounds, LENS, w, D, K, rot0)
         alone = lambda: fd.score_chunk(win_t, x["new"], x["means3"], tset, bounds, D, K, rot0)
-        dots, rest = profiling.k1_work(scored, W, C, B)
+        dots, rest = profiling.k1_work(scored, w, C, B)
         return whole, alone, (dots + rest, profiling.k1_bytes(LM, C, B, P, LM))
     if variant == 3:
         rot = torch.tensor(LM - 1, dtype=torch.int32, device=dev)  # a linear window
         whole = lambda: fd.fused_dtw_batch_v3(x["win"], x["means"], x["templates"],
-                                              x["tnorms"], bounds, LENS, W, D, K)
+                                              x["tnorms"], bounds, LENS, w, D, K)
         dotm = torch.einsum("plc,pcb->plb", tset.tp, means_t).contiguous()
         alone = lambda: fd.launch_v3(win_t, means_t, dotm, tset, bounds, D, K, rot)
-        flops = B * sum(profiling.dp_work(n, W, C, False) for n in scored)
+        flops = B * sum(profiling.dp_work(n, w, C, False) for n in scored)
         return whole, alone, (flops, profiling.shift_bytes(LM, C, B, P, D))
     whole = lambda: fd.fused_dtw_batch(x["win"], x["means"], x["templates"], x["tnorms"],
-                                       LENS, W, variant=variant)
+                                       LENS, w, variant=variant)
     alone = lambda: fd.score_linear(win_t, means_t, tset, variant=variant)
-    flops = B * sum(profiling.dp_work(n, W, C, True) for n in scored)
+    flops = B * sum(profiling.dp_work(n, w, C, True) for n in scored)
     return whole, alone, (flops, profiling.linear_bytes(LM, C, B, P))
 
 
@@ -111,26 +122,28 @@ NAMES = {0: "K3 banded_dtw (6B DPs)", 1: "K5 fused_dtw_v1", 2: "K4 fused_dtw_v2"
          3: "K2 fused_dtw_v3", 4: "K1 fused_dtw_v4 (time = 3 shifts)"}
 
 
-def measure(B: int, iters: int, variant: int, gate: bool, device) -> dict:
+def measure(B: int, iters: int, variant: int, gate: bool, device, w: int = W) -> dict:
     """Time the launch alone (CUDA events) and list the device kernels of
-    `iters` whole wrapper calls (torch.profiler), on the card. A dict of B,
-    variant, gate, ms, bound_ms, bound_by, flops, bytes and kernels."""
-    x = inputs(B, variant, device)
-    whole, alone, (flops, nbytes) = calls(x, variant, gate)
+    `iters` whole wrapper calls (torch.profiler), on the card, at band w. A
+    dict of B, variant, gate, w, ms, bound_ms, bound_by, flops, bytes and
+    kernels."""
+    x = inputs(B, variant, device, w)
+    whole, alone, (flops, nbytes) = calls(x, variant, gate, w)
     ms = profiling.time_cuda(alone)
     # K1 and K2 have a gate: their gate-closed launch is timed beside
     ms_closed = None
     if variant in (3, 4):
-        ms_closed = ms if gate else profiling.time_cuda(calls(x, variant, True)[1])
+        ms_closed = ms if gate else profiling.time_cuda(calls(x, variant, True, w)[1])
     bound_ms, by = profiling.bound(flops, nbytes)
-    return dict(B=B, variant=variant, gate=gate, ms=ms, ms_gate_closed=ms_closed,
+    return dict(B=B, variant=variant, gate=gate, w=w, ms=ms, ms_gate_closed=ms_closed,
                 bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes,
                 kernels=profiling.device_kernels(whole, iters))
 
 
 def report(r: dict) -> list:
     """The lines main prints for a `measure` result."""
-    lines = [f"variant={r['variant']} {NAMES[r['variant']]} B={r['B']} gate={r['gate']}: "
+    lines = [f"variant={r['variant']} {NAMES[r['variant']]} B={r['B']} w={r.get('w', W)} "
+             f"gate={r['gate']}: "
              f"{r['ms'] * 1e3:10.1f} us per launch; bound {r['bound_ms'] * 1e3:.1f} us by "
              f"{r['bound_by']} ({r['flops'] / 1e9:.4f} GFLOP, {r['bytes'] / 1e6:.2f} MB) = "
              f"{r['ms'] / r['bound_ms']:.1f}x"
@@ -145,6 +158,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
         B, iters, variant, gate = parse(argv)
+        w = band(argv)
     except ValueError as e:
         print(f"kernel_probe: {e}", file=sys.stderr)
         return 2
@@ -152,7 +166,7 @@ def main(argv=None) -> int:
         print("kernel_probe: no CUDA device; the kernels run only on the card",
               file=sys.stderr)
         return 2
-    for line in report(measure(B, iters, variant, gate, torch.device("cuda"))):
+    for line in report(measure(B, iters, variant, gate, torch.device("cuda"), w)):
         print(line, flush=True)
     return 0
 

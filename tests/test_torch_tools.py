@@ -12,6 +12,7 @@ import torch
 from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
 from rustpotter_tpu_torch.tools import fma_probe, kernel_parity, kernel_probe
+from rustpotter_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -96,3 +97,23 @@ def test_kernel_probe_report_gives_the_gate_closed_time(variant, closed):
     assert ("gate closed" in head) == (closed is not None)
     if closed is not None:
         assert f"gate closed {closed * 1e3:.1f} us per launch" in head
+
+
+@pytest.mark.parametrize("w", [5, 21, 24])
+def test_kernel_probe_band_on_cpu(w):
+    """--w=N: K4 past its ring (w > 19, its row form on the card) scores the
+    plain DP at that band, and the bound counts `dp_work` at it."""
+    argv = ["40", "3", "--v2"] + ([] if w == 5 else [f"--w={w}"])
+    B, iters, v, gate = kernel_probe.parse(argv)
+    assert (B, v, kernel_probe.band(argv)) == (40, 2, w)
+    x = kernel_probe.inputs(B, v, "cpu", w)
+    whole, _, (flops, _) = kernel_probe.calls(x, v, gate, w)
+    torch.testing.assert_close(whole(), fd.fused_dtw_batch_ref(
+        x["win"], x["means"], x["templates"], x["tnorms"], kernel_probe.LENS, w))
+    assert flops == B * sum(profiling.dp_work(n, w, 16, True) for n in kernel_probe.LENS)
+
+
+@pytest.mark.parametrize("argv", [["--w=1"], ["--w=x"], ["--w=3", "--w=4"], ["--w="]])
+def test_kernel_probe_refuses_a_bad_band(argv, capsys):
+    assert kernel_probe.main(argv) == 2
+    assert "usage" in capsys.readouterr().err

@@ -81,13 +81,16 @@ def test_training_on_card_matches_cpu(cuda_device):
 
 
 def _captures(monkeypatch):
-    """A list that gets a weak reference to each GraphedStep at its capture."""
+    """A list that gets a weak reference to each GraphedStep of the epochs
+    (`trainer.sgd_epochs`) at its capture; the MFCC extraction's graphs
+    (`mfcc/offline.py`, one per recording length) are not counted."""
     seen = []
     capture = graph.GraphedStep._capture
 
     def counted(self, *args):
         capture(self, *args)
-        seen.append(weakref.ref(self))
+        if self.fn is tr.sgd_epochs:
+            seen.append(weakref.ref(self))
 
     monkeypatch.setattr(graph.GraphedStep, "_capture", counted)
     return seen
