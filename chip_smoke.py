@@ -24,8 +24,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      and with the registers, spill bytes and shared memory that ptxas
      reports for their C = 8 and C = 16 builds and the warps per SM they
      allow (K2 is also held once at w = 9, where its ring passes 48 KB);
-     K4 in both of its forms, the ring form at w = 5 and 9 and the row form
-     at w = 21, with the form and the ptxas report of each build;
+     K4 in each of its forms, the ring form at w = 5 and 9, the column form
+     at w = 21, 24 (32 streams a block), 37 (16 streams) and 75 (one row
+     per step) at the unit shapes (B = 1, 33, 50; pairs of length 1 and 2
+     and pairs long enough to reuse every ring slot) and at the bench
+     shapes, with the plain version's time at 21, 24 and 75, and the row
+     form at w = 76, with the form and the ptxas report of each build (a
+     column-form build must not spill);
      then the fp32 probes V1-V6 (tools/fma_probe.py) against
      their plain versions at reps = 16 and in each timed run at reps = 2000,
      with the plain versions' time there; then the front-end kernel
@@ -58,7 +63,8 @@ Phases, each of which raises (non-zero exit) when it fails:
   5. tools phase (K5, V1-V6): the kernel tooling path with the counts reset
      before it: kernel_parity's seven checks at B=8192, kernel_probe in its
      five modes (--v1 K5, the time in K5's row; --v2 K4, --v4 K1, --k3 K3,
-     default K2) and K4's row form at the bands K4_ROW_BANDS (--v2 --w=N),
+     default K2) and K4's column form at the bands K4_WIDE_BANDS (--v2
+     --w=N),
      fma_probe timing
      V1-V6 at reps = 2000 (the measured fp32 FMA rate beside the data-sheet
      peak), V3's, V4's, V5's and V6's ptxas registers and spills at S = 8
@@ -80,7 +86,7 @@ Phases, each of which raises (non-zero exit) when it fails:
      and Rustpotter at B=64 on a 30-frame bench wakeword (each routes to K4,
      3 launches per chunk or frame and no other kernel; the cpu run's
      events), and at B=8192 on the bench wakeword through the graphed
-     make_step (K4's row form: 3 launches per chunk of the correctness pass,
+     make_step (K4's column form: 3 launches per chunk of the correctness pass,
      the host clock, the graph's device time and K4's by torch.profiler); the
      NN wakeword added to a live B=8192 DTW fleet after 10 chunks (the chunks
      after it give the cpu run's events at B=4); the memory of management
@@ -191,6 +197,7 @@ from rustpotter_tpu_torch.utils.profiling import (  # noqa: E402
     k1_executed,
     k1_work,
     k2_executed,
+    k4_column_executed,
     k4_executed,
     linear_bytes,
     loop_facts,
@@ -217,6 +224,9 @@ BENCH_STREAMS = 8192  # bench.py's B
 TIMED_CHUNKS = 34  # bench.py's T: ~1 s of audio per stream
 TIMED_WINDOWS = 5
 PROFILED_CHUNKS = 5
+# replays_run's profiles per side: the median of 3 outvotes one profile that
+# dropped a replay's records (12 of 15 K4 launches read from 5 replays on an H100)
+REPLAY_READINGS = 3
 PROFILE_ROWS = 20
 REPLAY_PROFILES = {"paths": 0, "s": 0.0}  # replays_run's calls and host seconds
 # kernel sources built per MFCC size (C = 8 for the unit shapes, 16 for the
@@ -225,11 +235,14 @@ SOURCES_C = ("fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu", "fused_dtw
 K3_BANDS = (2, 5, 6, 8)  # K3's tile is sized from the band: bit-exact at each
 # wider bands, held once at C = 16: K5's rings and K1's, K2's and K4's rings
 # grow with w (K2's passes 48 KB of shared memory from w = 9, K4's from 8); K4
-# takes its row form past w = 19, K5 one row per step at w = 37
+# takes its column form past w = 19 (32 streams a block, 16 from 37, one row
+# per step at 75) and its row form past 75, K5 one row per step at 37
 WIDE = (("fused_dtw_v1.cu", 8), ("fused_dtw_v1.cu", 37), ("fused_dtw_v4.cu", 8),
         ("fused_dtw_v3.cu", 9), ("fused_dtw_v2.cu", 9), ("fused_dtw_v2.cu", 21),
-        ("fused_dtw_v2.cu", 24))
-K4_ROW_BANDS = (21, 24)  # F1's bands: K4's row form, timed at the bench's B
+        ("fused_dtw_v2.cu", 24), ("fused_dtw_v2.cu", 37), ("fused_dtw_v2.cu", 75),
+        ("fused_dtw_v2.cu", 76))
+K4_ROW_BANDS = (21, 24)  # F1's bands: K4's column form on the graphed make_step
+K4_WIDE_BANDS = (21, 24, 75)  # K4's column form and its plain version timed at the bench's B
 
 
 def log(*a):
@@ -495,7 +508,7 @@ def k2_phase(dev, record):
 
 
 def k4_phase(dev, record):
-    """K4 (fused_dtw_batch, variant 2) against fused_dtw_batch_ref, in both
+    """K4 (fused_dtw_batch, variant 2) against fused_dtw_batch_ref, in each
     of its forms."""
     from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import fused_dtw as fd
@@ -511,6 +524,24 @@ def k4_phase(dev, record):
         worst = max(worst, compare(fd.fused_dtw_batch(*args), fd.fused_dtw_batch_ref(*args),
                                    "K4", ATOL_V2))
         log(f"K4 unit shapes B={B}: ok")
+    wide = [wb for src, wb in WIDE if src == "fused_dtw_v2.cu"]
+    # the wider forms at unit shapes, C = 16: pairs of length 1 and 2, and
+    # pairs long enough that the column form reuses every ring slot at
+    # every place of a step (n > its slots x rows per step, 196 at w = 21)
+    worst_col = 0.0
+    Lm16 = 200
+    lens16 = (Lm16, 2, 1, Lm16 - 1, Lm16 // 2, 9)
+    for wb in (wb for wb in wide if fd.k4_form(wb, 16) != "ring"):
+        for B in (50, 33, 1):
+            x = v3_inputs(rng, B, Lm16, Lm16, 16, len(lens16), 1.0, dev)
+            args = (x["win"].permute(2, 0, 1), x["means"].permute(2, 0, 1), x["templates"],
+                    x["tnorms"], lens16, wb)
+            err = compare(fd.fused_dtw_batch(*args), fd.fused_dtw_batch_ref(*args), "K4", ATOL_V2)
+            worst = max(worst, err)
+            if fd.k4_form(wb, 16) == "column":
+                worst_col = max(worst_col, err)
+        log(f"K4 unit shapes at w={wb}, C=16 ({fd.k4_form(wb, 16)} form, "
+            f"{fd.k4_column_plan(wb, 16) or 'no'} (streams, rows per step)), B=50, 33, 1: ok")
 
     B, Lm, C, w = BENCH_STREAMS, 100, 16, 5
     lens = (100, 98, 96, 94, 92, 100)
@@ -521,34 +552,66 @@ def k4_phase(dev, record):
     err = compare(fd.fused_dtw_batch(*args), fd.fused_dtw_batch_ref(*args), "K4", ATOL_V2)
     worst = max(worst, err)
     log(f"K4 bench shapes: max|d| {err:.3e}")
-    # the wider builds: the ring form past 48 KB (w = 9), the row form (w = 21)
-    for wide in (wb for src, wb in WIDE if src == "fused_dtw_v2.cu"):
-        argsw = (*args[:5], wide)
+    # the wider builds: the ring form past 48 KB (w = 9), the column form
+    # (w = 21, 24; 16 streams a block at 37, one row per step at 75), the row
+    # form (76)
+    plain_wide = {}
+    for wb in wide:
+        argsw = (*args[:5], wb)
         errw = compare(fd.fused_dtw_batch(*argsw), fd.fused_dtw_batch_ref(*argsw), "K4",
                        ATOL_V2)
         worst = max(worst, errw)
-        log(f"K4 bench shapes at w={wide} ({fd.k4_form(wide)} form): max|d| {errw:.3e}")
+        if fd.k4_form(wb, C) == "column":
+            worst_col = max(worst_col, errw)
+        if wb in K4_WIDE_BANDS:
+            plain_wide[wb] = time_cuda(lambda: fd.fused_dtw_batch_ref(*argsw), samples=3, per=1,
+                                       warmup=0)
+        log(f"K4 bench shapes at w={wb} ({fd.k4_form(wb, C)} form): max|d| {errw:.3e}"
+            + (f"; plain version {plain_wide[wb]:.3f} ms" if wb in plain_wide else ""))
     tset = fd.prepare_templates(x["templates"], x["tnorms"], lens, w)
     ms = time_cuda(lambda: fd.score_linear(x["win"], x["means"], tset))
     plain_ms = time_cuda(lambda: fd.fused_dtw_batch_ref(*args), samples=5, per=1, warmup=1)
     flops = B * sum(dp_work(n, w, C, True) for n in lens)
     nbytes = linear_bytes(Lm, C, B, P)
-    if fd.k4_form(w) == "ring":
-        executed = k4_executed(lens, w, C, B)
-        log(f"K4 bench: its design executes {executed / 1e9:.4f} GFLOP (counted by "
-            f"k4_executed, not measured; {flops / 1e9:.4f} needed), {executed / ms / 1e9:.3f} "
-            "TFLOP/s at that count")
-    for c, wb in [(8, w), (16, w)] + [(16, wb) for src, wb in WIDE if src == "fused_dtw_v2.cu"]:
+    executed = k4_executed(lens, w, C, B)
+    log(f"K4 bench: its design executes {executed / 1e9:.4f} GFLOP (counted by "
+        f"k4_executed, not measured; {flops / 1e9:.4f} needed), {executed / ms / 1e9:.3f} "
+        "TFLOP/s at that count")
+    for c, wb in [(8, w), (16, w)] + [(16, wb) for wb in wide]:
         r = ptxas_resources(_build.build_log("fused_dtw_v2.cu", {"RP_C": c, "RP_W": wb}))
-        form = fd.k4_form(wb)
-        threads = 32 * (fd.K4_PRODUCERS + 1) if form == "ring" else 32 * min(P, fd.MAX_JOBS)
+        form = fd.k4_form(wb, c)
+        plan = fd.k4_column_plan(wb, c) if form == "column" else None
+        threads = (32 * (fd.K4_PRODUCERS + 1) if form == "ring"
+                   else (plan[0] if plan else 32) * min(P, fd.MAX_JOBS))
         smem = r["static_smem"] + fd.k4_smem_bytes(wb, c)
-        log(f"K4 build C={c} w={wb} ({form} form, ptxas): {r['registers']} registers, "
-            f"{r['spill_bytes']} bytes of spill stores, {smem} bytes of shared memory per block "
-            f"of {threads} threads: {resident_warps(r['registers'], threads, smem)} warps per SM")
+        log(f"K4 build C={c} w={wb} ({form} form"
+            + (f", {plan[0]} streams a block, {plan[1]} rows per step" if plan else "")
+            + f", ptxas): {r['registers']} registers, {r['spill_bytes']} bytes of spill stores, "
+            f"{smem} bytes of shared memory per block of {threads} threads: "
+            f"{resident_warps(r['registers'], threads, smem)} warps per SM")
+        if form == "column" and r["spill_bytes"]:
+            raise AssertionError(f"K4's column form spills at C={c} w={wb}")
     record["fused_dtw_v2"] = kernel_row("fused_dtw_v2", "fused_dtw_v2.cu",
                                         "rustpotter_tpu/ops/fused_dtw.py:167", worst, ms,
                                         plain_ms, flops, nbytes)
+    # the column form at F1's first band, w = 21: its launches are read on
+    # the graphed make_step at that band (nn_phase), its time also by
+    # kernel_probe at K4_WIDE_BANDS (tools_phase)
+    wc = K4_ROW_BANDS[0]
+    tset_c = fd.prepare_templates(x["templates"], x["tnorms"], lens, wc)
+    ms_c = time_cuda(lambda: fd.score_linear(x["win"], x["means"], tset_c))
+    flops_c = B * sum(dp_work(n, wc, C, True) for n in lens)
+    rows = fd.k4_column_plan(wc, C)[1]
+    executed = k4_column_executed(lens, wc, C, B, rows)
+    log(f"K4 column form bench at w={wc}: its design executes {executed / 1e9:.4f} GFLOP "
+        f"(counted by k4_column_executed, not measured; {flops_c / 1e9:.4f} needed), "
+        f"{executed / ms_c / 1e9:.3f} TFLOP/s at that count")
+    record["fused_dtw_v2_column"] = kernel_row(
+        "fused_dtw_v2_column", "fused_dtw_v2.cu",
+        "rustpotter_tpu/ops/fused_dtw.py:167 (bands w > 19)", worst_col, ms_c, plain_wide[wc],
+        flops_c, nbytes)
+    record["fused_dtw_v2_column"]["band"] = wc
+    record["fused_dtw_v2_column"]["plain_ms_by_band"] = plain_wide
 
 
 def k3_phase(dev, record):
@@ -755,15 +818,15 @@ def tools_phase(dev, record):
             log(f"kernel_probe {' '.join(argv) or '(default)'}: {line}")
     log(f"tools: K5 {probes[1]['ms']:.4f} ms beside K4 {probes[2]['ms']:.4f} ms on the same "
         "inputs")
-    k4_row = {}
-    for w in K4_ROW_BANDS:  # K4's row form at F1's bands (--v2 --w=N)
+    k4_wide = {}
+    for w in K4_WIDE_BANDS:  # K4's column form at F1's bands and at 75 (--v2 --w=N)
         argv = [str(BENCH_STREAMS), "20", "--v2", f"--w={w}"]
         B, iters, variant, gate = kernel_probe.parse(argv)
         r = kernel_probe.measure(B, iters, variant, gate, dev, kernel_probe.band(argv))
         for line in kernel_probe.report(r):
             log(f"kernel_probe --v2 --w={w}: {line}")
-        k4_row[w] = dict(ms=r["ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                         flops=r["flops"])
+        k4_wide[w] = dict(ms=r["ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                          flops=r["flops"])
     rows, chip = fma_probe.measure(dev)
     loops = fma_probe.rep_loop_facts(fma_probe.sass_listing())
     probe_log = _build.build_log(fma_probe.SOURCE, {})
@@ -811,7 +874,8 @@ def tools_phase(dev, record):
         bound_ms, bound_by = bound(r["flops"], r["bytes"])
         record[f"fma_probe_{name}"].update(launches=launches[name], ms=r["ms"],
                                            bound_ms=bound_ms, bound_by=bound_by)
-    return {"fp32_fma_tflops_measured": chip.fp32_fma_tflops_measured, "k4_row_probe": k4_row}
+    return {"fp32_fma_tflops_measured": chip.fp32_fma_tflops_measured,
+            "k4_column_probe": k4_wide}
 
 
 # ---------------------------------------------------------------- slice
@@ -960,14 +1024,14 @@ def replays_run(what, graphed, eager, launches, n):
     does, and the kernels that the wrappers' counts (`launches` over n
     calls, derived from the capture) name: the graph holds the kernels it
     is counted for. K1 and K2 launch twice per wrapper call when a chunk
-    holds both ungated and gated templates. Each side is one
-    profile of PROFILED_CHUNKS calls, rounded to whole launches per call
-    (`profiled_launches`); the totals count the device kernels and copies,
-    the graphed call's copies outside the graph among them.
+    holds both ungated and gated templates. Each side is the median of
+    REPLAY_READINGS profiles of PROFILED_CHUNKS calls, rounded to whole
+    launches per call (`profiled_launches`); the totals count the device
+    kernels and copies, the graphed call's copies outside the graph among them.
     Returns the totals per replay and per eager call."""
     t0 = time.perf_counter()
-    got, total_g = profiled_launches(graphed, PROFILED_CHUNKS, readings=1)
-    want, total_e = profiled_launches(eager, PROFILED_CHUNKS, readings=1)
+    got, total_g = profiled_launches(graphed, PROFILED_CHUNKS, readings=REPLAY_READINGS)
+    want, total_e = profiled_launches(eager, PROFILED_CHUNKS, readings=REPLAY_READINGS)
     REPLAY_PROFILES["paths"] += 1
     REPLAY_PROFILES["s"] += time.perf_counter() - t0
     counted = {k: v / n for k, v in launches.items() if v}
@@ -1497,7 +1561,7 @@ def nn_cell(dev, card, name, correct_ww, timed_ww, stream0_np, noise_np, cfg):
                                            "graph_bit_equal": same}.items()}
 
 
-def nn_phase(dev, card):
+def nn_phase(dev, card, record):
     """NN wakewords, the F1 bands and wakeword management on the card (see
     the module docstring, phase 6)."""
     import copy
@@ -1506,6 +1570,7 @@ def nn_phase(dev, card):
     import torch
 
     from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+    from rustpotter_tpu_torch.ops import fused_dtw as fd
     from rustpotter_tpu_torch.runtime.batch import BatchedDetector
     from rustpotter_tpu_torch.runtime.bundle import build_bundle
     from rustpotter_tpu_torch.runtime.graph import GraphedStep
@@ -1594,7 +1659,7 @@ def nn_phase(dev, card):
         log(f"F1 w={band} Rustpotter: fired at frames {[i for i, _ in gpu_dets]} as the cpu run "
             f"(max|d score| {worst:.3e}); K4 launches {launches['fused_dtw_v2']} for {n} frames")
 
-    # (d') K4's row form at the bench's B, on the graphed make_step path: the
+    # (d') K4's column form at the bench's B, on the graphed make_step path: the
     # bench wakeword (Lm = 100) at F1's bands, the launches of the correctness
     # pass, the host clock and the graph's device time (one turn), and K4's
     # device time per chunk by torch.profiler over the eager step
@@ -1621,15 +1686,17 @@ def nn_phase(dev, card):
         rows = device_kernels(lambda: eager(params, states, noise_card), PROFILED_CHUNKS)
         k4_ms = sum(r[0] for r in rows if "score_pairs_v2" in r[2])
         k4_n = sum(r[1] for r in rows if "score_pairs_v2" in r[2])
-        log(f"F1 w={band} make_step at B={B} [{card}]: K4 (row form) launches "
+        if band == record["fused_dtw_v2_column"]["band"]:
+            record["fused_dtw_v2_column"]["launches"] = launches["fused_dtw_v2"]
+        log(f"F1 w={band} make_step at B={B} [{card}]: K4 ({fd.k4_form(band, 16)} form) launches "
             f"{launches['fused_dtw_v2']} in the {n}-chunk pass, stream 0 fired "
             f"{int(evs[0][:, 0].sum())}x; graphed {host_ms:.4f} ms per chunk host clock (median "
             f"of {TIMED_WINDOWS} windows of {TIMED_CHUNKS}), graph device {graph_ms:.4f} ms; "
             f"profiled eager: K4 {k4_ms:.4f} ms per chunk in {k4_n:.1f} launches "
             f"({k4_ms / max(k4_n, 1):.4f} ms per launch) of {sum(r[0] for r in rows):.4f} ms")
-        summary[f"k4_row_w{band}"] = dict(launches=launches["fused_dtw_v2"], chunks=n,
-                                          host_ms=host_ms, graph_device_ms=graph_ms,
-                                          k4_ms_per_chunk=k4_ms, k4_launches_per_chunk=k4_n)
+        summary[f"k4_column_w{band}"] = dict(launches=launches["fused_dtw_v2"], chunks=n,
+                                             host_ms=host_ms, graph_device_ms=graph_ms,
+                                             k4_ms_per_chunk=k4_ms, k4_launches_per_chunk=k4_n)
 
     # (e) M6b: the NN wakeword joins a live B=8192 DTW fleet mid-stream;
     # the same calls on the CPU at B=4
@@ -2880,13 +2947,15 @@ def main() -> int:
     summary.update(bq)
     summary.update(timed_phase(per_shift_phase, dev, record))
     summary.update(timed_phase(tools_phase, dev, record))
-    summary.update(timed_phase(nn_phase, dev, card))
+    summary.update(timed_phase(nn_phase, dev, card, record))
     summary.update(timed_phase(front_phase, dev, card, record))
     summary.update(timed_phase(train_phase, dev, card))
     summary.update(timed_phase(shard_phase, dev, card))
     log(f"replays_run: {REPLAY_PROFILES['paths']} graphed paths profiled in "
         f"{REPLAY_PROFILES['s']:.1f} s")
     log(json.dumps({"card": card, **summary}))
+    if not record["fused_dtw_v2_column"]["launches"]:
+        raise AssertionError("the F1 make_step pass did not launch K4's column form")
     log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,7 +84,7 @@ def _check_band(band: int) -> None:
 
 # Shared memory of the kernels' rings, mirroring the .cu constants; a CUDA
 # launch whose ring passes the sm_90 opt-in raises ValueError before any build.
-LANES, MAX_JOBS = 32, 8  # streams per block; K5's pairs per block
+LANES, MAX_JOBS = 32, 8  # streams per block; K5's and K4's column form's pairs per block
 
 
 def k1_smem_bytes(band: int, C: int) -> int:
@@ -105,24 +105,52 @@ def k2_smem_bytes(band: int, C: int) -> int:
     return 4 * (2 * band + 2 * k2_producers(band) - 1) * (2 * band) * LANES
 
 
-K4_W_MAX = 19  # K4's ring form takes w <= 19, its row form the wider bands
+K4_W_MAX = 19  # K4's ring form takes w <= 19, its column form the wider bands
 K4_PRODUCERS = 4  # the ring form's producer warps (csrc/fused_dtw_v2.cu Q)
+K4_CF_REGS = 214  # the column form's registers for its arrays (CF_REGS)
+K4_CF_RS = 5  # the column form's most DP rows per step
 
 
-def k4_form(band: int) -> str:
-    """The form K4's build takes at this band (csrc/fused_dtw_v2.cu
-    RING_FORM, chosen from RP_W alone): "ring" up to K4_W_MAX, the largest
-    band whose shared rings fit the opt-in, "row" beyond."""
-    return "ring" if band <= K4_W_MAX else "row"
+def k4_column_plan(band: int, C: int):
+    """(streams per block, DP rows per step) of K4's column form
+    (csrc/fused_dtw_v2.cu CF_STREAMS, CF_RS), None where its registers allow
+    no row (the row form's bands). RS: 5, fewer where 2w + (RS + 3) C would
+    pass K4_CF_REGS; 32 streams while a ring of 2w + 2RS - 1 slots for them
+    fits the opt-in with 2 rows per step (1 where the registers allow 1),
+    fewer rows where it fits no more; else 16. (Floor division differs from
+    the .cu's truncation only where a count is negative: no row fits.)"""
+    regs = min((K4_CF_REGS - 2 * band) // C - 3, K4_CF_RS)
+    fit = {s: (_build.SMEM_OPTIN // (s * 4 * (C + MAX_JOBS)) - 2 * band + 1) // 2
+           for s in (32, 16)}
+    streams = 32 if fit[32] >= min(regs, 2) else 16
+    rows = min(regs, fit[streams])
+    return (streams, rows) if rows >= 1 else None
+
+
+def k4_form(band: int, C: int) -> str:
+    """The form K4's build takes at (band, C) (csrc/fused_dtw_v2.cu
+    RING_FORM, COLUMN_FORM, chosen from RP_W and RP_C alone): "ring" up to
+    K4_W_MAX, the largest band whose shared rings fit the opt-in; "column"
+    beyond, while `k4_column_plan` has a plan (w <= 75 at C = 16, 91 at
+    C = 8); "row" past that."""
+    if band <= K4_W_MAX:
+        return "ring"
+    return "column" if k4_column_plan(band, C) else "row"
 
 
 def k4_smem_bytes(band: int, C: int) -> int:
     """K4's shared memory (csrc/fused_dtw_v2.cu SMEM_BYTES): in the ring
     form the cost ring and the dotm ring, 2w + 2Q - 1 rows x (2w + 1) x
-    LANES floats, whatever C; none in the row form."""
-    if k4_form(band) == "row":
+    LANES floats, whatever C; in the column form the column ring and the rwn
+    ring, 2w + 2RS - 1 slots x (C + MAX_JOBS) floats per stream; none in the
+    row form."""
+    form = k4_form(band, C)
+    if form == "ring":
+        return 4 * (2 * band + 2 * K4_PRODUCERS - 1) * (2 * band + 1) * LANES
+    if form == "row":
         return 0
-    return 4 * (2 * band + 2 * K4_PRODUCERS - 1) * (2 * band + 1) * LANES
+    streams, rows = k4_column_plan(band, C)
+    return (2 * band + 2 * rows - 1) * 4 * (C + MAX_JOBS) * streams
 
 
 def k5_rows_per_step(band: int, C: int) -> int:

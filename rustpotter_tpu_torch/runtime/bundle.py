@@ -13,7 +13,7 @@ on the device; at 16 kHz the flag changes nothing, as in the JAX package.
 The DTW kernels are chosen here, from the band and the MFCC size: where the
 requested mode's kernels cannot take the band (K1's and K2's rings pass the
 shared-memory opt-in from w = 21, K3's tile from w = 76), the bundle takes
-K4, whose row form takes every band. The choice is static and the same on
+K4, whose column and row forms take every band past its ring form. The choice is static and the same on
 every device, so the CPU runs the same mode through K4's plain version.
 """
 from __future__ import annotations

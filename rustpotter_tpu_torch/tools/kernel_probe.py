@@ -10,8 +10,9 @@ shifts of a chunk), --k3 is K3 (`banded_dtw_kernel` over N = 6B DPs of the
 bench pair lengths, L = 100, costs drawn uniform in [0, 2)). --gate sets a
 gate bound that no random stream passes (K1 and K2 then score the avg pairs
 only; K3 has no gate and refuses it). --w=N sets the band (default 5): K4
-takes its row form past `fused_dtw.K4_W_MAX`, as the bundle routes a band
-past K1's and K2's rings (F1). It prints:
+takes its column form past `fused_dtw.K4_W_MAX` (its row form past w = 75 at
+C = 16: `fused_dtw.k4_form`), as the bundle routes a band past K1's and K2's
+rings (F1). It prints:
   - the launch alone, its template set and layouts prepared outside it:
     CUDA events, the median of 20 samples of 10 back-to-back launches (K1
     and K2 also with the gate closed);

@@ -10,7 +10,7 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
     `time_cuda`, `device_kernels`, `profiled_launches` (the port's kernels
     in a profile, by wrapper), the work and byte counts of the fused DTW
     kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `k2_executed`,
-    `k4_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
+    `k4_executed`, `k4_column_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
   - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
     shared memory from its build log, and the warps per SM they allow;
   - `sass_listing`, `sass_functions`, `sass_loops`, `innermost_loop`,
@@ -214,7 +214,7 @@ def device_kernels(fn, n: int):
 _WRAPPER_OF = (
     (re.compile(r"\bscore_pairs\b"), "fused_dtw_v4"),
     (re.compile(r"\bscore_pairs_v3\b"), "fused_dtw_v3"),
-    (re.compile(r"\bscore_pairs_v2(_rows)?\b"), "fused_dtw_v2"),
+    (re.compile(r"\bscore_pairs_v2(_cols|_rows)?\b"), "fused_dtw_v2"),
     (re.compile(r"\bscore_pairs_v1\b"), "fused_dtw_v1"),
     (re.compile(r"\bbanded_dp\b"), "banded_dtw"),
     (re.compile(r"\bfront_(bulk|simple)\b"), "biquad"),
@@ -359,6 +359,32 @@ def k4_executed(lens, w, C, B):
     row = 2 * (2 * w) + 2 * (2 * w - 1)
     prologue = (2 * w + 4 - 1) * 2 * C  # Q = 4 producer warps
     return B * sum(prologue + (n + w - 2) * col + (n - 1) * row for n in lens if n >= 2)
+
+
+def k4_column_executed(lens, w, C, B, rows):
+    """FLOPs that K4's column form (csrc/fused_dtw_v2.cu, `rows` = CF_RS DP
+    rows per step) executes, counted as `dp_work(..., dotm=True)` counts
+    them. A block row takes up to 8 pairs; its loop runs the steps of its
+    longest pair, nmax: ceil((nmax - 1) / rows). Every (stream, pair) of
+    it makes the rwn (3C + 1) of the 2w + rows - 1 columns of the first span
+    and of `rows` new columns per later step; and in each step in which its
+    own pair has rows left, the dotm of `rows` rows (2C each) and their 2w
+    band cells each, every cell computed (a dot, 2C, the mean correction, 3,
+    and the DP: add + min per slot, then the add + min chain), rows past
+    n - 1 in the pair's last step included."""
+    lens = list(lens)
+    jy = min(len(lens), 8)
+    cell = 2 * C + 3
+    row = 2 * C + 2 * w * cell + 2 * (2 * w) + 2 * (2 * w - 1)
+    total = 0
+    for g in range(0, len(lens), jy):
+        group = lens[g:g + jy]
+        nmax = max(group)
+        steps = len(range(1, nmax, rows))
+        columns = 2 * w + rows - 1 + rows * max(steps - 1, 0)
+        for n in group:
+            total += columns * (3 * C + 1) + len(range(1, n, rows)) * rows * row
+    return B * total
 
 
 def linear_bytes(Lm, C, B, P):

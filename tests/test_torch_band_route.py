@@ -2,7 +2,7 @@
 
 K1's and K2's rings and K3's tile grow with the band; where the requested
 mode's kernels cannot take it, `build_bundle` takes K4 (fused, variant 2),
-whose row form takes every band. The choice is static, so the CPU runs the
+whose column and row forms take every band past its ring form. The choice is static, so the CPU runs the
 mode it chose through K4's plain version, and the events are the JAX
 package's (which serves every band): BatchedDetector and make_step at band
 21 and 24 against JAX, events equal and scores at rtol 2e-5 / atol 2e-5 (the

@@ -14,7 +14,10 @@ band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
 W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 2, 5, 6, 8, 9,
 19, 20 and 37 at C = 16), with the ValueError past each limit. K4 takes every band: its ring
 form 2, 5, 6, 8, 9 and W_MAX = 19 at C = 16 (its rings pass 48 KB from 8),
-its row form 20, 21 and 24.
+its column form 20, 21 and 24, and, with pairs long enough to reuse every
+ring slot, 21, 36, 37 (16 streams a block), 44, 52, 60, 68 (each first
+band of fewer rows per step) and 75 at C = 16 and 91 at C = 8 (its last
+bands), its row form 76 at C = 16 and 92 at C = 8.
 
 Tolerances: sims rtol 3e-6 / atol 2e-4 for K1 and K2, atol 1e-4 for K4 and
 K5 (the JAX kernel tests' own); K3 is adds and mins only, so bit-exact; the
@@ -229,7 +232,7 @@ K4_LENS = (K4_LM, 2, 1, 71, 36, 9)
 @pytest.mark.parametrize("w", [2, 5, 6, 8, 9, fd.K4_W_MAX, 20, 21, 24])
 def test_k4_bands_at_c16_match_plain_version_on_card(cuda_device, w, nb):
     """K4 on both sides of its change of form (the ring form up to W_MAX =
-    19, whose rings pass 48 KB from 8; the row form beyond)."""
+    19, whose rings pass 48 KB from 8; the column form beyond)."""
     rng = np.random.default_rng(70 + w + nb)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
     c, p = 16, len(K4_LENS)
@@ -243,6 +246,38 @@ def test_k4_bands_at_c16_match_plain_version_on_card(cuda_device, w, nb):
     want = fd.fused_dtw_batch_ref(*args)
     np.testing.assert_array_equal(np.isinf(got.cpu().numpy()), np.isinf(want.cpu().numpy()))
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL_V2)
+
+
+# K4's column form and the row form past it: pairs of length 1 and 2, and
+# pairs long enough that a ring slot is reused at every place of a step
+K4_COL_LM = 200
+K4_COL_LENS = (K4_COL_LM, 2, 1, K4_COL_LM - 1, K4_COL_LM // 2, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,w", [(16, 21), (16, 36), (16, 37), (16, 44), (16, 52), (16, 60),
+                                 (16, 68), (16, 75), (16, 76), (8, 91), (8, 92)])
+def test_k4_wide_bands_match_plain_version_on_card(cuda_device, c, w):
+    """K4 past its ring form: the column form at each change of rows per
+    step or streams per block and at its last band, the row form beyond, on
+    33 streams (a short last block) and on 11 pairs (a second block row)."""
+    assert fd.k4_form(w, c) == ("row" if w in (76, 92) else "column")
+    rng = np.random.default_rng(90 + w + c)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    for nb, lm, lens in ((33, K4_COL_LM, K4_COL_LENS),
+                         (33, 60, tuple(60 - 5 * i for i in range(11)))):
+        p = len(lens)
+        templates = rng.normal(0, 1, (p, lm, c))
+        args = (t(rng.normal(0, 1, (nb, lm, c))), t(rng.normal(0, 0.2, (nb, p, c))),
+                t(templates), t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), lens, w)
+        before = fd.LAUNCHES["fused_dtw_v2"]
+        got = fd.fused_dtw_batch(*args)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES["fused_dtw_v2"] == before + 1
+        want = fd.fused_dtw_batch_ref(*args)
+        np.testing.assert_array_equal(np.isinf(got.cpu().numpy()), np.isinf(want.cpu().numpy()))
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL_V2)
 
 
 @pytest.mark.cuda

@@ -101,7 +101,7 @@ def test_kernel_probe_report_gives_the_gate_closed_time(variant, closed):
 
 @pytest.mark.parametrize("w", [5, 21, 24])
 def test_kernel_probe_band_on_cpu(w):
-    """--w=N: K4 past its ring (w > 19, its row form on the card) scores the
+    """--w=N: K4 past its ring (w > 19, its column form on the card) scores the
     plain DP at that band, and the bound counts `dp_work` at it."""
     argv = ["40", "3", "--v2"] + ([] if w == 5 else [f"--w={w}"])
     B, iters, v, gate = kernel_probe.parse(argv)
