@@ -44,9 +44,12 @@ shift's DP step from the ring. The column step is branch-free (clamped
 indices, predicated stores), so that its independent FMA chains overlap
 inside the warp. A block is 32 streams × 3 shifts of one pair; two launches,
 the avg pairs then the gated template pairs, and a block whose gates are all
-closed does no work. At the bench shapes it executes 4.0924 GFLOP per chunk
-by the design's count (`utils.profiling.k1_executed`, not a measurement) of
-the 3.8724 the function needs (`k1_work`).
+closed does no work. Given the card's tracing counters (tracing on), each
+block of the gated launch adds its open lanes, its lanes, 1 if it works and
+1 to them (`k1_gate_counts` is the count from the decisions). At the bench
+shapes it executes 4.0924 GFLOP per chunk by the design's count
+(`utils.profiling.k1_executed`, not a measurement) of the 3.8724 the
+function needs (`k1_work`).
 
 Precision: every product here is true fp32. dotm feeds
 cost = 1 - (dot - dotm)·rwn, and on a near-silent window |W - m| ~ 1e-4, so
@@ -63,6 +66,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils import tracing
 
 SOURCE = "fused_dtw_v4.cu"  # K1; K2, K4 and K5 name theirs beside their wrappers
 INF = float("inf")
@@ -287,9 +291,31 @@ def fused_dtw_chunk_v4_ref(
 
 
 def _plain(win, new, means3, tp, gate_bounds, lens, band, D, K, rot0):
-    """K1's function on T' (P, Lm, C). Returns (B, 3, P)."""
+    """K1's function on T' (P, Lm, C). Returns (B, 3, P). With tracing on it
+    adds K1's gate counts to the tracer's host counters, as the kernel adds
+    them on the card (`k1_gate_counts`)."""
     lin = virtual_windows(win, new, rot0, tp.shape[1])  # (3, Lm, C, B)
-    return _band_sims(lin, means3, tp, lens, band, (gate_bounds, D, K)).permute(2, 0, 1)
+    sims, gate_open = _gated(_band_sims(lin, means3, tp, lens, band), gate_bounds, D, K)
+    if tracing.enabled():
+        for name, n in zip(tracing.DEVICE_COUNTERS, k1_gate_counts(gate_open, lens[:D * K])):
+            tracing.count(name, n)
+    return sims.permute(2, 0, 1)
+
+
+def k1_gate_counts(gate_open: torch.Tensor, lens) -> tuple:
+    """K1's counts of its gated launch from the gate decisions gate_open
+    (3, D·K, B) of the template pairs of lengths `lens`: the lanes (stream,
+    shift, pair) whose gate is open, the lanes decided, the blocks that do
+    the work (a block is 32 streams x 3 shifts of one pair; it works if a
+    lane is open and the pair is 2 rows or longer) and the blocks launched."""
+    S, DK, B = gate_open.shape
+    nb = -(-B // 32)
+    padded = torch.zeros((S, DK, nb * 32), dtype=torch.bool, device=gate_open.device)
+    padded[:, :, :B] = gate_open
+    works = padded.reshape(S, DK, nb, 32).any(dim=3).any(dim=0)  # (D·K, nb)
+    long_enough = torch.tensor([int(n) >= 2 for n in lens], device=gate_open.device)
+    return (int(gate_open.sum()), S * DK * B, int((works & long_enough[:, None]).sum()),
+            DK * nb)
 
 
 def _band_sims(lin, means, tp, lens, band, gate=None):
@@ -328,17 +354,23 @@ def _band_sims(lin, means, tp, lens, band, gate=None):
         prev = cur
     if gate is None:
         return result
-    gate_bounds, D, K = gate
+    return _gated(result, *gate)[0]
+
+
+def _gated(result, gate_bounds, D, K):
+    """The gate on sims (S, P, B): each wakeword's template pairs are +inf
+    where its avg pair's sim is above gate_bounds[d] or NaN. Returns the
+    gated sims and the gate decisions (S, D·K, B)."""
     avg = result[:, D * K:]  # (S, D, B)
     gate_open = (avg <= gate_bounds[None, :, None]).repeat_interleave(K, dim=1)
-    return torch.cat([torch.where(gate_open, result[:, : D * K], INF), avg], dim=1)
+    return torch.cat([torch.where(gate_open, result[:, : D * K], INF), avg], dim=1), gate_open
 
 
 @lru_cache(maxsize=None)
 def _library(C: int, band: int) -> ctypes.CDLL:
     lib = _build.load(SOURCE, {"RP_C": C, "RP_W": band})
     fn = lib.rp_fused_dtw_v4
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
     return lib
 
@@ -356,7 +388,10 @@ def score_chunk(
     """K1 on a prepared template set (see `fused_dtw_chunk_v4` for the
     arguments). CPU tensors run the plain version; CUDA tensors launch the
     kernel (a failed build or launch raises). The serving chunk calls this
-    with a TemplateSet built once per parameter set."""
+    with a TemplateSet built once per parameter set. With tracing on, the
+    kernel adds its gate counts to the card's counters (`utils/tracing.py`),
+    and the plain version to the host's; off, it is given no counter and
+    executes no atomic."""
     _check_args(win, new, means3, tset.tp, gate_bounds, tset.lens, tset.band, D, K, rot0)
     if win.device.type == "cpu":
         return _plain(win, new, means3, tset.tp, gate_bounds, tset.lens, tset.band, D, K, rot0)
@@ -375,11 +410,12 @@ def score_chunk(
     rot = rot0.to(torch.int32)  # a no-op for the stream state's int32 cursor
     out = torch.empty((3, P, B), dtype=torch.float32, device=dev)
     lib = _library(C, tset.band)
+    counts = tracing.device_counters(dev).data_ptr() if tracing.enabled() else None
     with torch.cuda.device(dev):  # a library launches on the current card
         err = lib.rp_fused_dtw_v4(
             win.data_ptr(), new.data_ptr(), means3.data_ptr(), tset.padded.data_ptr(),
             tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, B, F, Lm, D, K,
+            out.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream, B, F, Lm, D, K,
         )
     if err != 0:
         raise RuntimeError(f"fused_dtw_v4 kernel launch failed: CUDA error {err}")

@@ -56,6 +56,16 @@ Differences from the JAX runtime: `process_chunk` updates the states in place
 host between replays: the frames' conversion (`torch.as_tensor`), the
 capture key, and the management calls; migration is a host-side step outside
 the chunk that reads the shared cursor once.
+
+Spans on the host path (`utils/tracing.py`; recorded with tracing on, and
+in any torch.profiler profile): `rustpotter.process_chunk` or
+`rustpotter.process_sequence` is the root of a call's spans, with the
+chunk id of its first chunk (the detector's count of chunks handed over,
+kept across rebuilds); inside it `rustpotter.feed` (the frames' conversion,
+a synchronous copy to the card) and the chunk's `GraphedStep` spans
+(`rustpotter.graph` and its children, `runtime/graph.py`), a sequence's
+per-chunk spans with their own chunk's id. Whether tracing is on is part of
+the capture key: toggling it captures the chunk again at the next call.
 """
 from __future__ import annotations
 
@@ -68,6 +78,7 @@ import torch
 from ..config import DetectorConfig, FiltersConfig, RustpotterConfig
 from ..device import DeviceLike, resolve_device
 from ..parallel.mesh import StreamSharding
+from ..utils import tracing
 from ..wakewords.files import load_wakeword
 from .bundle import StepParams, StepStatic, Wakeword, build_bundle
 from .graph import GraphedStep
@@ -191,6 +202,7 @@ class BatchedDetector:
         # the streams this process holds: all B, or this rank's block
         self.local_batch = sharding.local_size(batch_size) if sharding else batch_size
         self._in_graph_resample = in_graph_resample
+        self._handed = 0  # chunks handed over: the tracer's chunk ids
         self._install(list(wakewords), self.config)
 
     # ------------------------------------------------------------- build
@@ -277,7 +289,8 @@ class BatchedDetector:
         return init_state(self.static, self.local_batch, self.device)
 
     def _frames(self, frames) -> torch.Tensor:
-        x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+        with tracing.span("rustpotter.feed"):
+            x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         n = self.static.input_samples
         if x.shape[-2:] != (self.local_batch, n):
             raise ValueError(
@@ -292,13 +305,19 @@ class BatchedDetector:
         `static.input_samples` raw samples at the input rate with
         `in_graph_resample` (1440 at 48 kHz). `states` is updated in place
         and returned with the Event (B,)."""
-        return self._chunk(params, states, self._frames(frames))
+        with tracing.span("rustpotter.process_chunk", chunk=self._handed):
+            x = self._frames(frames)
+            self._handed += 1
+            return self._chunk(params, states, x)
 
     def process_sequence(self, params: StepParams, states: StreamState,
                          frames) -> Tuple[StreamState, Event]:
         """frames (T, B, input_samples): T chunks in order. Returns the
         states and the Events stacked on a leading (T,) axis."""
-        return self._chunk.sequence(params, states, self._frames(frames))
+        with tracing.span("rustpotter.process_sequence", chunk=self._handed):
+            xs = self._frames(frames)
+            self._handed += xs.shape[0]
+            return self._chunk.sequence(params, states, xs)
 
     def reset_streams(self, states: StreamState, mask) -> StreamState:
         """Clear streams where mask (B,) is True, in place (so the chunk's

@@ -34,11 +34,24 @@ T inputs (`batch.py:155-162,211`, `detector.py:105-112`).
 
 The capture key (`capture_key`) is the identity of `params` (an immutable
 object, held while its graph lives), the address, shape, strides and dtype
-of every state tensor, and x's shape and dtype. A graph reads and writes the
-addresses it captured: a new state set (a second `init_states()`, the fresh
-tensors of `batch.migrate_states`) is captured again, an in-place reset is
-not. One graph is kept: a call with another key drops it and captures anew,
-so two state sets used in turns stay correct and capture at every turn.
+of every state tensor, x's shape and dtype, and whether tracing is on
+(`utils/tracing.py`): with tracing on, K1 is launched with a pointer to the
+card's counters, and a graph bakes its launches' arguments in, so turning
+tracing on or off captures again at the next call. A graph reads and writes
+the addresses it captured: a new state set (a second `init_states()`, the
+fresh tensors of `batch.migrate_states`) is captured again, an in-place reset
+is not. One graph is kept: a call with another key drops it and captures
+anew, so two state sets used in turns stay correct and capture at every turn.
+
+Spans (`utils/tracing.py`): `rustpotter.graph` around each call, and in it
+`rustpotter.graph.key` (the key and its compare), `rustpotter.graph.replay`
+(the input copy and the replay, one per input), `rustpotter.graph.clone`
+(the Event's clones; a sequence's per-input copies), and at a new key
+`rustpotter.graph.eager` (the eager call) and `rustpotter.graph.capture`. On
+the CPU each call of fn is a `rustpotter.graph.eager` span. A sequence's
+per-input spans carry their input's chunk id (the parent's plus t). The
+replays and captures are counted from these spans; `captures` counts the
+graphs captured as before.
 
 The capture calls `CUDAGraph.capture_begin` and `capture_end` itself: the
 `torch.cuda.graph` context also synchronizes the device and empties the
@@ -61,6 +74,7 @@ from typing import Optional
 import torch
 
 from ..ops import banded_dtw, biquad, fused_dtw
+from ..utils import tracing
 
 # the launch counts of the kernel wrappers a step reaches
 _COUNTERS = (fused_dtw.LAUNCHES, banded_dtw.LAUNCHES, biquad.LAUNCHES)
@@ -87,6 +101,7 @@ def capture_key(params, states, x: torch.Tensor) -> tuple:
         tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in states),
         tuple(x.shape),
         x.dtype,
+        tracing.enabled(),
     )
 
 
@@ -102,43 +117,52 @@ class GraphedStep:
         self._launches = []
 
     def __call__(self, params, states, x: torch.Tensor):
-        if x.device.type != "cuda":
-            return self.fn(params, states, x)
-        with torch.cuda.device(x.device):
-            first = self._ready(params, states, x)
-            if first is not None:
-                return first
-            self._replay(x)
-            return states, type(self._out)(*[f.clone() for f in self._out])
+        with tracing.span("rustpotter.graph"):
+            if x.device.type != "cuda":
+                with tracing.span("rustpotter.graph.eager"):
+                    return self.fn(params, states, x)
+            with torch.cuda.device(x.device):
+                first = self._ready(params, states, x)
+                if first is not None:
+                    return first
+                self._replay(x)
+                with tracing.span("rustpotter.graph.clone"):
+                    return states, type(self._out)(*[f.clone() for f in self._out])
 
     def sequence(self, params, states, xs: torch.Tensor):
         """xs (T, ...): T calls in order. Returns the states and the Events
         stacked on a leading (T,) axis. On the card: one replay and one copy
         per Event field per input, nothing read on the host."""
-        if xs.device.type != "cuda":
-            events = []
-            for t in range(xs.shape[0]):
-                states, ev = self.fn(params, states, xs[t])
-                events.append(ev)
-            return states, type(events[0])(*[torch.stack(f) for f in zip(*events)])
-        with torch.cuda.device(xs.device):
-            first = self._ready(params, states, xs[0])
-            out = [torch.empty((xs.shape[0], *f.shape), dtype=f.dtype, device=f.device)
-                   for f in self._out]
-            if first is not None:
-                for dst, src in zip(out, first[1]):
-                    dst[0].copy_(src)
-            for t in range(0 if first is None else 1, xs.shape[0]):
-                self._replay(xs[t])
-                for dst, src in zip(out, self._out):
-                    dst[t].copy_(src)
-        return states, type(self._out)(*out)
+        with tracing.span("rustpotter.graph"):
+            if xs.device.type != "cuda":
+                events = []
+                for t in range(xs.shape[0]):
+                    with tracing.span("rustpotter.graph.eager", offset=t):
+                        states, ev = self.fn(params, states, xs[t])
+                    events.append(ev)
+                return states, type(events[0])(*[torch.stack(f) for f in zip(*events)])
+            with torch.cuda.device(xs.device):
+                first = self._ready(params, states, xs[0])
+                out = [torch.empty((xs.shape[0], *f.shape), dtype=f.dtype, device=f.device)
+                       for f in self._out]
+                if first is not None:
+                    with tracing.span("rustpotter.graph.clone"):
+                        for dst, src in zip(out, first[1]):
+                            dst[0].copy_(src)
+                for t in range(0 if first is None else 1, xs.shape[0]):
+                    self._replay(xs[t], t)
+                    with tracing.span("rustpotter.graph.clone", offset=t):
+                        for dst, src in zip(out, self._out):
+                            dst[t].copy_(src)
+            return states, type(self._out)(*out)
 
     def _ready(self, params, states, x) -> Optional[tuple]:
         """None if the graph holds this key; else the result of an eager call,
         after which the graph is captured for the key."""
-        key = capture_key(params, states, x)
-        if params is self._params and key == self._key:
+        with tracing.span("rustpotter.graph.key"):
+            key = capture_key(params, states, x)
+            held = params is self._params and key == self._key
+        if held:
             return None
         # drop the old graph (and its memory pool) before the new one
         self._params = self._key = self._graph = self._x = self._out = None
@@ -146,8 +170,10 @@ class GraphedStep:
         side.wait_stream(current)
         try:
             with torch.cuda.stream(side):
-                result = self.fn(params, states, x)
-                self._capture(params, states, x)
+                with tracing.span("rustpotter.graph.eager"):
+                    result = self.fn(params, states, x)
+                with tracing.span("rustpotter.graph.capture"):
+                    self._capture(params, states, x)
         finally:
             current.wait_stream(side)
         self._params, self._key = params, key
@@ -172,8 +198,10 @@ class GraphedStep:
         self.captures += 1
         self._graph, self._x, self._out, self._launches = graph, xbuf, out, launches
 
-    def _replay(self, x: torch.Tensor) -> None:
-        self._x.copy_(x)
-        self._graph.replay()
+    def _replay(self, x: torch.Tensor, t: int = 0) -> None:
+        """Replay on x, the sequence's input t (for its span's chunk id)."""
+        with tracing.span("rustpotter.graph.replay", offset=t):
+            self._x.copy_(x)
+            self._graph.replay()
         for counts, name, n in self._launches:
             counts[name] += n

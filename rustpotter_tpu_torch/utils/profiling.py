@@ -1,7 +1,9 @@
 """Profiling, timing and roofline accounting for the port on an NVIDIA H100.
 
 The counterpart of `rustpotter_tpu.utils.profiling`:
-  - `trace(log_dir)`: a torch.profiler context that writes a Chrome trace;
+  - `trace(log_dir)`: the port's exporter, a torch.profiler context with
+    tracing on that writes a Chrome trace and the tracer's spans and
+    counters;
   - `ChipSpec`: the card's data-sheet peaks, and a measured fp32 FMA rate
     (None until `tools/fma_probe.py` has run on the card);
   - `step_roofline(static)`: the JAX package's count of one detector step's
@@ -20,6 +22,7 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import re
 import subprocess
@@ -34,20 +37,42 @@ import torch
 from ..runtime.bundle import StepStatic
 from ..wakewords.files import ModelType
 from ..wakewords.nn import layer_sizes
+from . import tracing
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Profile the enclosed computation (host, and the card when there is
-    one) and write a Chrome trace to log_dir/trace.json. Yields the profiler."""
+    """The port's exporter. Traces the enclosed computation and profiles it
+    (host, and the card when there is one): tracing (`utils/tracing.py`) is
+    reset and turned on for it, and turned off after it unless it was on
+    before, so a `GraphedStep` captures again at its first call inside and
+    after. Writes log_dir/trace.json, the Chrome trace, which holds the
+    program's spans as `user_annotation` events on the card's clock, and
+    log_dir/spans.json: the tracer's snapshot (`spans`, `dropped`,
+    `counters`) and a copy of the kernel wrappers' `LAUNCHES` under
+    `launches`. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import banded_dtw, biquad, fused_dtw
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
+    was_on = tracing.enabled()
+    tracing.reset()
+    tracing.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+        snap = tracing.snapshot()
+    finally:
+        if not was_on:
+            tracing.disable()
+    snap["launches"] = {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES)
+                        for m in (fused_dtw, banded_dtw, biquad)}
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(snap, f)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
@@ -192,7 +217,9 @@ def host_ms_per_call(fn, samples: int = 20, per: int = 10, warmup: int = 2) -> f
 def device_kernels(fn, n: int):
     """torch.profiler over `n` calls of fn: [(ms per call, launches per call,
     kernel name)] of the device kernels, longest first. Empty when the
-    profiler records no device time."""
+    profiler records no device time. The device-side ranges of the program's
+    spans (`record_function` annotations, `utils/tracing.py`) are not
+    kernels and are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -204,7 +231,8 @@ def device_kernels(fn, n: int):
     return sorted(
         ((e.self_device_time_total / n / 1e3, e.count / n, e.key)
          for e in prof.key_averages()
-         if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
+         if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+         and not getattr(e, "is_user_annotation", False)),
         reverse=True,
     )
 

@@ -6,15 +6,17 @@ pairs, then gated template pairs), a block of 32 lanes x 3 shift threads of
 one pair, the walk over the extended sequence E, the unguarded column step
 (clamped rows and columns, predicated ring stores), the shared dot ring of
 2w+1 rows x 2w+2 diagonals, the register ring of rwn, the per-shift
-validity and harvest rules, and the gate (__syncthreads_or over the block,
-__any_sync over a shift's warp). Rings start as NaN (the kernel's zeros): a
+validity and harvest rules, and the gate (__syncthreads_count over the
+block, __any_sync over a shift's warp) with the gated launch's four tracing
+counts. Rings start as NaN (the kernel's zeros): a
 valid cell that read a slot never written would turn its similarity into
 NaN and fail the comparison. Between two barriers a thread takes the DP
 step of column k, then the step of column k+1; this runs in the worst order
 for the ring, every thread's writes of column k+1 before any thread's reads
 of column k, so a ring too short to hold a row until its last read fails
 here too. FLOPs are counted as the kernel executes them
-and held to `utils.profiling.k1_executed`.
+and held to `utils.profiling.k1_executed`; the gate counts are held to the
+plain version's with tracing on (`fused_dtw.k1_gate_counts`).
 
 Tolerance: rtol 3e-6 / atol 2e-4 with an equal +inf pattern (the JAX kernel
 tests'). The transcription rounds each product of a dot before adding it
@@ -25,7 +27,7 @@ import pytest
 import torch
 
 from rustpotter_tpu_torch.ops import fused_dtw as fd
-from rustpotter_tpu_torch.utils import profiling
+from rustpotter_tpu_torch.utils import profiling, tracing
 
 RTOL, ATOL = 3e-6, 2e-4
 LANES, SHIFTS = 32, 3
@@ -44,13 +46,15 @@ def _dot(t, x):
 
 
 def k1_schedule(win, newr, means, tpl, lens, gate, rot0, w, D, K):
-    """The kernel's sims (3, P, B) and the FLOPs it executed."""
+    """The kernel's sims (3, P, B), the FLOPs it executed and the gated
+    launch's counts (lanes open, lanes, blocks that work, blocks)."""
     F, Cn, Bn = win.shape
     P = D * K + D
     W2, U, R = 2 * w, 2 * w + 2, 2 * w + 1
     NR = (U + SHIFTS - 1) // SHIFTS
     out = np.full((3, P, Bn), np.nan, np.float32)
     flops = [0]
+    counts = [0, 0, 0, 0]
     inf = np.float32(np.inf)
 
     def block(bx, p, gated):
@@ -64,7 +68,11 @@ def k1_schedule(win, newr, means, tpl, lens, gate, rot0, w, D, K):
             d = p // K
             with np.errstate(invalid="ignore"):
                 opn = live & (out[:, D * K + d, bl] <= gate[d])  # NaN closes
-        if n < 2 or not opn.any():  # __syncthreads_or
+        nopen = int(opn.sum())  # __syncthreads_count
+        if gated:  # thread (0, 0)'s four atomics
+            for i, v in enumerate((nopen, SHIFTS * int(live.sum()), int(n >= 2 and nopen > 0), 1)):
+                counts[i] += v
+        if n < 2 or nopen == 0:
             out[:, p, b[live]] = inf
             return
         dp_warp = opn.any(axis=1)  # __any_sync over each shift's warp
@@ -167,7 +175,7 @@ def k1_schedule(win, newr, means, tpl, lens, gate, rot0, w, D, K):
     launch(D * K, D, False)
     if D * K:
         launch(0, D * K, True)
-    return out, flops[0]
+    return out, flops[0], tuple(counts)
 
 
 def _inputs(F, w, seed):
@@ -204,7 +212,7 @@ def test_schedule_matches_plain_version(F, w, gate):
     bounds = _gate(gate, avg)
     want = fd.fused_dtw_chunk_v4_ref(*args(bounds)).numpy()
     tset = fd.prepare_templates(x["templates"], x["tnorms"], LENS, w)
-    got, flops = k1_schedule(x["win"].numpy(), x["new"].numpy(), x["means3"].numpy(),
+    got, flops, _ = k1_schedule(x["win"].numpy(), x["new"].numpy(), x["means3"].numpy(),
                              tset.padded.numpy(), LENS, bounds.numpy(), F - 2, w, D, K)
     got = got.transpose(2, 0, 1)  # (B, 3, P), the wrapper's view
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
@@ -216,6 +224,35 @@ def test_schedule_matches_plain_version(F, w, gate):
     if gate == "closed":
         assert np.isinf(got[:, :, : D * K]).all() and flops == profiling.k1_executed(
             LENS[D * K:], w, C, B)
+
+
+@pytest.mark.parametrize("gate", ["open", "closed", "mixed"])
+def test_schedule_counts_the_gate_as_the_plain_version(gate):
+    """The gated launch's four counts, as the kernel adds them, equal what
+    the plain version counts with tracing on (one block per pair here; the
+    pair of length 1 never works)."""
+    F, w = LM + 2, 3
+    x = _inputs(F, w, seed=7)
+    rot0 = torch.tensor(F - 2, dtype=torch.int32)
+    args = lambda g: (x["win"], x["new"], x["means3"], x["templates"], x["tnorms"], g, LENS,
+                      w, D, K, rot0)
+    bounds = _gate(gate, fd.fused_dtw_chunk_v4_ref(*args(torch.full((D,), np.inf)))[:, :, D * K:])
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], LENS, w)
+    _, _, counts = k1_schedule(x["win"].numpy(), x["new"].numpy(), x["means3"].numpy(),
+                               tset.padded.numpy(), LENS, bounds.numpy(), F - 2, w, D, K)
+    tracing.reset()
+    tracing.enable()
+    try:
+        fd.fused_dtw_chunk_v4_ref(*args(bounds))
+        got = tracing.snapshot()["counters"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert tuple(got[k] for k in tracing.DEVICE_COUNTERS) == counts
+    lanes = 3 * D * K * B
+    assert counts[1:] == (lanes, {"open": 3, "closed": 0, "mixed": 3}[gate], D * K)
+    assert counts[0] == {"open": lanes, "closed": 0}.get(gate, counts[0])
+    assert gate != "mixed" or lanes / 2 <= counts[0] < lanes  # ww0 half open, ww1 open
 
 
 def test_executed_work_is_within_the_target_at_the_bench_shapes():

@@ -60,11 +60,33 @@ def test_chip_spec_is_the_data_sheet_until_measured():
 
 
 def test_trace_writes_a_chrome_trace_on_cpu(tmp_path):
+    """The exporter: trace.json with the program's spans as user
+    annotations, spans.json with the tracer's spans and counters and the
+    wrappers' launch counts; tracing on inside, off again after."""
+    from rustpotter_tpu_torch.ops import fused_dtw
+    from rustpotter_tpu_torch.runtime.graph import GraphedStep
+    from rustpotter_tpu_torch.utils import tracing
+
+    step = GraphedStep(lambda params, states, x: (states, x.cumsum(0)))
+    tracing.disable()
     with profiling.trace(str(tmp_path / "t")):
-        torch.ones(64).cumsum(0)
+        assert tracing.enabled()
+        step(None, (), torch.ones(64))
+        tracing.count("k1.lanes", 3)
+    assert not tracing.enabled()
     with open(os.path.join(tmp_path, "t", "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("cumsum" in e.get("name", "") for e in events)
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"rustpotter.graph", "rustpotter.graph.eager"} <= names
+    with open(os.path.join(tmp_path, "t", "spans.json")) as f:
+        spans = json.load(f)
+    assert [(s["name"], s["parent"]) for s in spans["spans"]] == [
+        ("rustpotter.graph", None), ("rustpotter.graph.eager", 0)]
+    assert spans["counters"] == {"k1.lanes": 3}
+    assert spans["launches"]["fused_dtw"] == fused_dtw.LAUNCHES
+    assert set(spans["launches"]) == {"fused_dtw", "banded_dtw", "biquad"}
+    tracing.reset()
 
 
 def test_dtw_work_counts():

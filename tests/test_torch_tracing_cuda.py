@@ -1,0 +1,176 @@
+"""The tracer on a card (`utils/tracing.py`): K1's device counters against
+the count from its gate decisions and against the plain version's; a
+detector's events and states bit-equal with tracing on and off; toggling
+tracing captures the chunk again exactly once; the launch counts and the
+kernels a replay runs unchanged with tracing on, the spans' annotations not
+among them. Every test needs a card (and nvcc, which builds K1 at first
+use); without one they skip. The file imports no JAX:
+
+    python -m pytest tests/test_torch_tracing_cuda.py -m cuda --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+from rustpotter_tpu_torch.ops import fused_dtw as fd
+from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+from rustpotter_tpu_torch.runtime.state import Event
+from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
+from rustpotter_tpu_torch.tools import kernel_probe
+from rustpotter_tpu_torch.utils import profiling, tracing
+
+B = 70  # three blocks of K1, the last of 6 streams
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 and CUDA graphs have no CPU build")
+    tracing.disable()
+    tracing.reset()
+    yield torch.device("cuda")
+    tracing.disable()
+    tracing.reset()
+
+
+def _k1_counts():
+    return [tracing.snapshot()["counters"].get(k, 0) for k in tracing.DEVICE_COUNTERS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["open", "closed", "mixed"])
+def test_k1_device_counts_equal_the_plain_count(cuda_device, gate):
+    """At the bench shapes (w = 5, C = 16, Lm = 100, 5 templates and their
+    avg) over 300 streams: K1's four counts on the card equal the count from
+    its own gate decisions and the plain version's on the CPU."""
+    Bn, LENS, D, K = 300, kernel_probe.LENS, 1, len(kernel_probe.LENS) - 1
+    x = kernel_probe.inputs(Bn, 4, cuda_device)
+    win = x["win"].permute(1, 2, 0).contiguous()
+    tset = fd.prepare_templates(x["templates"], x["tnorms"], LENS, kernel_probe.W)
+    rot0 = torch.tensor(kernel_probe.LM - 2, dtype=torch.int32, device=cuda_device)
+    run = lambda bounds: fd.score_chunk(win, x["new"], x["means3"], tset, bounds, D, K, rot0)
+    avg = run(torch.full((D,), np.inf, device=cuda_device))[:, :, D * K:]  # (B, 3, D)
+    v = avg.flatten().sort().values
+    i = v.numel() // 2
+    bounds = {"open": torch.full((D,), np.inf, device=cuda_device),
+              "closed": (v[:1] - 1.0),
+              "mixed": ((v[i - 1] + v[i]) / 2).reshape(1)}[gate]
+    assert _k1_counts() == [0, 0, 0, 0]  # tracing off: no counter given
+    tracing.enable()
+    sims = run(bounds)
+    got = _k1_counts()
+    gate_open = (sims[:, :, D * K:] <= bounds).repeat_interleave(K, dim=2).permute(1, 2, 0)
+    assert got == list(fd.k1_gate_counts(gate_open, LENS[:D * K]))
+    tracing.reset()
+    cpu = lambda t: t.cpu()
+    fd.score_chunk(cpu(win), cpu(x["new"]), cpu(x["means3"]),
+                   fd.prepare_templates(cpu(x["templates"]), cpu(x["tnorms"]), LENS,
+                                        kernel_probe.W),
+                   cpu(bounds), D, K, cpu(rot0))
+    assert _k1_counts() == got
+    nb = -(-Bn // 32)
+    assert got[1] == 3 * D * K * Bn and got[3] == D * K * nb
+    assert got[2] == {"open": D * K * nb, "closed": 0}.get(gate, got[2])
+    print(f"K1 counts, gate {gate}: {got}")
+
+
+def _detector(ww):
+    cfg = RustpotterConfig()
+    cfg.detector.score_mode = ScoreMode.MAX
+    cfg.detector.avg_threshold = 0.2
+    return BatchedDetector([("w", ww)], cfg, batch_size=B, device="cuda")
+
+
+def _frames(ww, utterance):
+    s0 = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
+    frames = np.random.default_rng(5).normal(0, 0.05, (len(s0), B, 480)).astype(np.float32)
+    frames[:, 0] = s0
+    return torch.tensor(frames, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def bench():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ww, utterance = build_bench_wakeword(device="cuda")
+    return ww, _frames(ww, utterance)
+
+
+def _run(det, frames, trace):
+    (tracing.enable if trace else tracing.disable)()
+    states, evs = det.init_states(), []
+    for t in range(frames.shape[0]):
+        states, ev = det.process_chunk(det.params, states, frames[t])
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return states, Event(*[torch.stack(f) for f in zip(*evs)])
+
+
+def _bits(a, b):
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_events_are_bit_equal_with_tracing_on_and_off(cuda_device, bench):
+    ww, frames = bench
+    s_off, ev_off = _run(_detector(ww), frames, trace=False)
+    s_on, ev_on = _run(_detector(ww), frames, trace=True)
+    assert bool(ev_off.fired[:, 0].any())
+    assert all(_bits(a, b) for a, b in zip(ev_on, ev_off))
+    assert all(_bits(a, b) for a, b in zip(s_on, s_off))
+    # every chunk's gated launch counted: 5 template pairs x 3 blocks each
+    lanes_open, lanes, blocks_run, blocks = _k1_counts()
+    T = frames.shape[0]
+    assert (lanes, blocks) == (T * 3 * 5 * B, T * 5 * 3) and 0 < lanes_open <= lanes
+    assert 0 < blocks_run <= blocks
+    names = [s["name"] for s in tracing.snapshot()["spans"]]
+    assert names.count("rustpotter.process_chunk") == T
+    assert names.count("rustpotter.graph.replay") == T - 1
+    assert names.count("rustpotter.graph.eager") == names.count("rustpotter.graph.capture") == 1
+
+
+@pytest.mark.cuda
+def test_toggling_tracing_captures_again_exactly_once(cuda_device, bench):
+    ww, frames = bench
+    det = _detector(ww)
+    states = det.init_states()
+    step = lambda s, t: det.process_chunk(det.params, s, frames[t])[0]
+    for t in range(3):
+        states = step(states, t)
+    assert det._chunk.captures == 1
+    tracing.enable()
+    for t in range(3, 6):
+        states = step(states, t)
+    assert det._chunk.captures == 2
+    names = [s["name"] for s in tracing.snapshot()["spans"]]
+    assert names.count("rustpotter.graph.capture") == 1
+    assert names.count("rustpotter.graph.replay") == 2
+    tracing.disable()
+    for t in range(6, 9):
+        states = step(states, t)
+    assert det._chunk.captures == 3
+
+
+@pytest.mark.cuda
+def test_launches_per_replay_are_unchanged_with_tracing_on(cuda_device, bench):
+    ww, frames = bench
+    det = _detector(ww)
+    states = det.init_states()
+    replay = lambda: det.process_chunk(det.params, states, frames[0])
+    seen = {}
+    for trace in (False, True):
+        (tracing.enable if trace else tracing.disable)()
+        replay()  # the capture for this state of the tracer
+        before = dict(fd.LAUNCHES)
+        for _ in range(4):
+            replay()
+        counted = {k: v - before[k] for k, v in fd.LAUNCHES.items() if v != before[k]}
+        seen[trace] = (counted, profiling.profiled_launches(replay, 3))
+    assert seen[True][0] == seen[False][0] == {"fused_dtw_v4": 4}
+    assert seen[True][1][0] == seen[False][1][0] == {"fused_dtw_v4": 2}
+    # the spans' device-side ranges are no kernels
+    assert not [r for r in profiling.device_kernels(replay, 3) if r[2].startswith("rustpotter.")]
+    print(f"a replay's device kernels and copies: {seen[False][1][1]} off, {seen[True][1][1]} on")
