@@ -73,11 +73,11 @@ from typing import Optional
 
 import torch
 
-from ..ops import banded_dtw, biquad, fused_dtw
+from ..ops import banded_dtw, biquad, frontend, fused_dtw
 from ..utils import tracing
 
 # the launch counts of the kernel wrappers a step reaches
-_COUNTERS = (fused_dtw.LAUNCHES, banded_dtw.LAUNCHES, biquad.LAUNCHES)
+_COUNTERS = (fused_dtw.LAUNCHES, banded_dtw.LAUNCHES, biquad.LAUNCHES, frontend.LAUNCHES)
 
 
 _capture_streams: dict = {}

@@ -37,13 +37,17 @@ physical frame order by an index on the device, so neither step reads the
 cursor on the host. The best candidate is chosen over the DTW wakewords
 first, then the NN ones (`_combine_batched`).
 
-Both steps start with `prepare_chunk`, the audio front-end of the JAX
-package's: the in-graph resampler (one fp32 GEMM, `audio.resampler`) where
-the bundle takes chunks at another rate, the rms level, the gain normalizer
-(a rolling-rms window per stream, summed in index order, the gain in steps of
-`ops.biquad.GAIN_STEP`) and the band-pass biquad, both in `ops.biquad.front`
-(on the card one launch per chunk of the hand-written kernel), then
-pre-emphasis.
+Both steps start with `filter_chunk`, the audio front-end of the JAX
+package's `prepare_chunk`: the in-graph resampler (one fp32 GEMM,
+`audio.resampler`) where the bundle takes chunks at another rate, and where a
+filter is on the rms level, the gain normalizer (a rolling-rms window per
+stream, summed in index order, the gain in steps of `ops.biquad.GAIN_STEP`)
+and the band-pass biquad, both in `ops.biquad.front` (on the card one launch
+per chunk of the hand-written kernel). The per-shift step then takes the rms
+and the pre-emphasis (`prepare_chunk`); the batched chunk takes them, the
+extractor buffer and the packed frames in `ops.frontend.prologue` (on the
+card one launch of csrc/mfcc_front.cu), and its MFCCs in the window's
+layout from `mfcc_from_frames`.
 """
 from __future__ import annotations
 
@@ -499,7 +503,9 @@ def vad_is_voice(static: StepStatic, state: StreamState, mfcc: torch.Tensor,
     state writes (the reference short-circuits is_voice when a partial is
     active). The reference's 50-slot ring is a shift register here: only the
     multiset of the last 50 values matters (min + over-threshold count)."""
-    value = torch.mean(torch.abs(mfcc), dim=-1)  # (B,)
+    # a (B, C) view of the window-layout rows is packed first: the mean of
+    # a strided row sums in another order
+    value = torch.mean(torch.abs(mfcc.contiguous()), dim=-1)  # (B,)
     vwin = torch.where(
         update[:, None],
         torch.cat([state.vad_win[:, 1:], value[:, None]], dim=1),
@@ -604,13 +610,18 @@ def detection_bookkeeping(static: StepStatic, params: StepParams,
     return state, event
 
 
-def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
-                  samples: torch.Tensor):
-    """Per-chunk front-end (parity: the JAX package's `prepare_chunk`):
-    resample, rms, gain normalizer (detector.rs:358-365), band-pass
-    (:366-371), then the 3 shifts with per-shift pre-emphasis reset
-    (extractor.rs:87-97). samples (B, input_samples) → (state, shifts
-    (B, 3, 160)). Nothing here reads a tensor on the host.
+def _filtered(static: StepStatic) -> bool:
+    return static.gain_enabled or static.bp_enabled
+
+
+def filter_chunk(static: StepStatic, params: StepParams, state: StreamState,
+                 samples: torch.Tensor):
+    """Per-chunk front-end up to the pre-emphasis (parity: the JAX package's
+    `prepare_chunk`): resample, then where a filter is on the rms of the
+    samples before it, the gain normalizer (detector.rs:358-365) and the
+    band-pass (:366-371). samples (B, input_samples) → (state, samples
+    (B, 480)). Nothing here reads a tensor on the host. Where no filter is
+    on, the rms is the caller's to take, of the samples returned.
 
     With a filter on, the filter's state (`gain_win`, `gain_count`, `gain`,
     `bp`) is written over the tensors of `state` in place, here and not in
@@ -622,9 +633,9 @@ def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
                                         samples.device)
         overlap, samples = resample(state.rs_overlap, samples)
         state = state._replace(rs_overlap=overlap)
-    rms = frontend.rms_level(samples)
-    state = state._replace(rms_level=rms)
-    if static.gain_enabled or static.bp_enabled:
+    if _filtered(static):
+        rms = frontend.rms_level(samples)
+        state = state._replace(rms_level=rms)
         gain = None
         if static.gain_enabled:
             gain = biquad.GainIn(rms, params.gain_ref_sqrt, static.gain_min, static.gain_max,
@@ -641,6 +652,19 @@ def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
             state = state._replace(gain_win=f.win, gain_count=f.count, gain=f.gain)
         if bp is not None:
             state = state._replace(bp=f.taps)
+    return state, samples
+
+
+def prepare_chunk(static: StepStatic, params: StepParams, state: StreamState,
+                  samples: torch.Tensor):
+    """Per-chunk front-end (parity: the JAX package's `prepare_chunk`):
+    `filter_chunk`, the rms where no filter ran, then the 3 shifts with
+    per-shift pre-emphasis reset (extractor.rs:87-97). samples (B,
+    input_samples) → (state, shifts (B, 3, 160)); the filters' state as
+    `filter_chunk` writes it."""
+    state, samples = filter_chunk(static, params, state, samples)
+    if not _filtered(static):
+        state = state._replace(rms_level=frontend.rms_level(samples))
     shifts = frontend.pre_emphasis(samples.reshape(-1, 3, SAMPLES_PER_SHIFT))
     return state, shifts
 
@@ -755,16 +779,16 @@ def make_batched_chunk(static: StepStatic):
     def chunk(params: StepParams, states: StreamState, frames: torch.Tensor):
         B = frames.shape[0]
         dev = frames.device
-        st, shifts = prepare_chunk(static, params, states, frames)  # (B, 3, 160)
+        st, samples = filter_chunk(static, params, states, frames)  # (B, 480)
         rot0 = states.rot
         slots = (rot0.long() + 1 + torch.arange(3, device=dev)) % F
         # extractor trajectory + all 3 MFCCs in one GEMM chain: the buffer
-        # advances unconditionally (warm-up masking lives in ext_count)
-        cat = torch.cat([st.ext_buf, shifts.reshape(B, 3 * SAMPLES_PER_SHIFT)], dim=1)
-        frames3 = cat.unfold(1, SAMPLES_PER_FRAME, SAMPLES_PER_SHIFT)[:, :3]  # (B, 3, 480)
-        mfcc3 = frontend.mfcc_from_frames(frames3, C + 1)  # (B, 3, C)
-        st = st._replace(ext_buf=cat[:, SAMPLES_PER_FRAME:])
-        new = mfcc3.permute(1, 2, 0).contiguous()  # (3, C, B)
+        # advances unconditionally (warm-up masking lives in ext_count); the
+        # prologue writes it in place, so the commit copies none of it
+        frames3, rms = frontend.prologue(samples, st.ext_buf, rms=not _filtered(static))
+        if rms is not None:
+            st = st._replace(rms_level=rms)
+        new = frontend.mfcc_from_frames(frames3, C + 1, window=True)  # (3, C, B)
 
         # whole-chunk scoring against the virtual windows
         det_outs = run_wakeword_detectors_chunk(
@@ -776,7 +800,7 @@ def make_batched_chunk(static: StepStatic):
         halted = torch.zeros((B,), dtype=torch.bool, device=dev)
         for s in range(3):
             active = ~halted
-            st, emit_b, should_run_b = shift_count_vad(static, st, mfcc3[:, s], active)
+            st, emit_b, should_run_b = shift_count_vad(static, st, new[s].T, active)
             win_count = torch.where(
                 emit_b, torch.clamp(st.win_count + 1, max=F), st.win_count
             ).to(torch.int32)

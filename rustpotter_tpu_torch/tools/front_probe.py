@@ -1,8 +1,9 @@
 """Time the audio front-end kernel (csrc/biquad.cu) of a checkout of the port
 at the serving chunk's shape: B = 8192 streams of 480 samples, the gain
-window of the bench wakeword (W = 33), the 80-400 Hz band-pass.
+window of the bench wakeword (W = 33), the 80-400 Hz band-pass; or with
+--mfcc the batched chunk's MFCC front-end.
 
-    python3 rustpotter_tpu_torch/tools/front_probe.py [--root DIR]   # needs a CUDA card
+    python3 rustpotter_tpu_torch/tools/front_probe.py [--root DIR] [--mfcc]   # needs a CUDA card
 
 DIR (default: the checkout that holds this file) is the root of the checkout
 whose `rustpotter_tpu_torch.ops.biquad` is timed: a copy of this tree with a
@@ -18,11 +19,24 @@ state, signal)`, which every checkout since the kernel's port has; the gain
 normalizer's forms through `front`, where the checkout has it, with the
 window, count, gain and taps written in place as the stream steps write
 them. The last line is one JSON object of these numbers.
+
+--mfcc times the batched chunk's MFCC front-end at B = 65536 and 8192 streams
+(16 coefficients): from the chunk's samples and the extractor buffer to the
+rms, the new buffer and the (3, 16, B) MFCCs in the window's layout. Where the
+checkout has csrc/mfcc_front.cu (`frontend.prologue`), that is the prologue,
+the windowed-DFT sgemm and the epilogue, each also timed alone, first held
+against their plain versions on a CPU copy at B = 8192 (frames and buffer bit
+for bit, MFCCs at rtol 1e-5 / atol 1e-4), with ptxas's registers and spills of
+both kernels; else the torch composition the batched chunk ran before them
+(rms, pre-emphasis, cat, unfold, mfcc_from_frames, the buffer's copy, the
+permute). Device time by CUDA graph as above, the chain's kernels by
+torch.profiler, and the byte bound of the kernels' work at 3.35 TB/s.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,10 +109,124 @@ def inputs(dev, seed: int = 3):
     return [torch.tensor(a, device=dev) for a in (rms, win, count, x)]
 
 
+C = 16  # MFCC coefficients of the --mfcc chain: the bench wakeword's
+HBM_BYTES_S = 3.35e12
+
+
+def mfcc_bytes(B: int) -> dict:
+    """Bytes the kernels' work reads and writes once: the prologue's samples,
+    buffer in and out, packed frames and rms; the epilogue's spectrum and
+    MFCCs."""
+    pro = B * 4 * (480 + 480 + 3 * 480 + 480 + 1)
+    epi = 3 * B * 4 * (480 + C)
+    return {"prologue": pro, "epilogue": epi, "both": pro + epi}
+
+
+def ptxas(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    `-Xptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(mfcc_\w+?)ILb([01])E", m.group(1))
+            name = f"{k.group(1)}<{'true' if k.group(2) == '1' else 'false'}>" if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def mfcc_main(root: Path, card: str) -> int:
+    from rustpotter_tpu_torch import _build
+    from rustpotter_tpu_torch.ops import frontend
+    from rustpotter_tpu_torch.utils.profiling import device_kernels
+
+    dev = torch.device("cuda")
+    kernels = hasattr(frontend, "prologue")
+    n = C + 1
+
+    def inputs(B, seed=7):
+        rng = np.random.default_rng(seed)
+        return [torch.tensor(rng.normal(0, 0.3, (B, 480)).astype(np.float32), device=dev)
+                for _ in range(2)]
+
+    if kernels:  # held against the plain versions on a CPU copy first
+        x, buf = inputs(8192)
+        buf_p = buf.cpu()
+        frames, _ = frontend.prologue(x, buf, True)
+        want, _ = frontend.prologue_plain(x.cpu(), buf_p, True)
+        got = frontend.mfcc_from_frames(frames, n, window=True)
+        if not (torch.equal(frames.cpu(), want) and torch.equal(buf.cpu(), buf_p)):
+            raise AssertionError("mfcc_prologue differs from its plain version")
+        torch.testing.assert_close(got.cpu(), frontend.mfcc_from_frames(want, n, window=True),
+                                   rtol=1e-5, atol=1e-4)
+        print(f"front_probe {root.name}: the prologue is bit-equal to its plain version, the "
+              f"epilogue within rtol 1e-5 / atol 1e-4 of its", flush=True)
+    result = {}
+    for B in (65536, 8192):
+        x, buf = inputs(B)
+        dft = frontend.device_constants(n, dev).dft
+        if kernels:
+            def chain():
+                frames, rms = frontend.prologue(x, buf, True)
+                return frontend.mfcc_from_frames(frames, n, window=True), rms
+
+            frames, _ = frontend.prologue(x, buf.clone(), True)
+            spec = torch.matmul(frames, dft)
+            parts = {"prologue": lambda: frontend.prologue(x, buf, True),
+                     "dft": lambda: torch.matmul(frames, dft),
+                     "epilogue": lambda: frontend.epilogue(spec, n, True)}
+        else:
+            def chain():
+                rms = frontend.rms_level(x)
+                shifts = frontend.pre_emphasis(x.reshape(B, 3, 160))
+                cat = torch.cat([buf, shifts.reshape(B, 480)], dim=1)
+                mfcc3 = frontend.mfcc_from_frames(cat.unfold(1, 480, 160)[:, :3], n)
+                buf.copy_(cat[:, 480:])  # the chunk's commit
+                return mfcc3.permute(1, 2, 0).contiguous(), rms
+
+            frames = torch.empty(B, 3, 480, device=dev)
+            parts = {"dft": lambda: torch.matmul(frames, dft)}
+        r = {"chain_ms": graph_ms(chain), "parts_ms": {k: graph_ms(f) for k, f in parts.items()},
+             "chain_kernels": [(round(ms, 4), c, name[:90]) for ms, c, name
+                               in device_kernels(chain, 10)],
+             "bytes": mfcc_bytes(B)}
+        if kernels:
+            kern_ms = r["parts_ms"]["prologue"] + r["parts_ms"]["epilogue"]
+            r["bound_ms"] = {k: v / HBM_BYTES_S * 1e3 for k, v in r["bytes"].items()}
+            r["bound_share"] = {"prologue": r["bound_ms"]["prologue"] / r["parts_ms"]["prologue"],
+                                "epilogue": r["bound_ms"]["epilogue"] / r["parts_ms"]["epilogue"],
+                                "both": r["bound_ms"]["both"] / kern_ms}
+        out = chain()[0]
+        r["checksum"] = float(out.double().abs().sum())
+        result[B] = r
+        print(f"front_probe {root.name} mfcc at B = {B}: chain {r['chain_ms']:.4f} ms, parts "
+              f"{ {k: round(v, 4) for k, v in r['parts_ms'].items()} } ms on the device (CUDA "
+              f"graph); bound shares {r.get('bound_share')}; {len(r['chain_kernels'])} kernels "
+              f"[{card}]", flush=True)
+        for row in r["chain_kernels"]:
+            print(f"  {row}", flush=True)
+    regs = {}
+    if kernels:
+        for defines in ({}, {"RP_N": n}):
+            regs.update(ptxas(_build.build_log(frontend.SOURCE, defines)))
+        print(f"front_probe {root.name}: ptxas (registers, spill stores, spill loads) {regs}",
+              flush=True)
+    print(json.dumps({"root": str(root), "card": card, "mfcc": result, "ptxas": regs}),
+          flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="root of the checkout whose kernel is timed")
+    ap.add_argument("--mfcc", action="store_true",
+                    help="time the batched chunk's MFCC front-end instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("front_probe: no CUDA device", file=sys.stderr)
@@ -113,6 +241,8 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     card = card.strip().splitlines()[0] if card.strip() else "not read"
+    if args.mfcc:
+        return mfcc_main(root, card)
     dev = torch.device("cuda")
     coeffs = band_pass_coefficients(16000.0, 80.0, 400.0)
     forms = ("band_pass", "both", "gain") if hasattr(biquad, "front") else ("band_pass",)

@@ -53,7 +53,7 @@ def trace(log_dir: str):
     `launches`. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..ops import banded_dtw, biquad, fused_dtw
+    from ..ops import banded_dtw, biquad, frontend, fused_dtw
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
@@ -70,7 +70,7 @@ def trace(log_dir: str):
         if not was_on:
             tracing.disable()
     snap["launches"] = {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES)
-                        for m in (fused_dtw, banded_dtw, biquad)}
+                        for m in (fused_dtw, banded_dtw, biquad, frontend)}
     with open(os.path.join(log_dir, "spans.json"), "w") as f:
         json.dump(snap, f)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
@@ -246,6 +246,8 @@ _WRAPPER_OF = (
     (re.compile(r"\bscore_pairs_v1\b"), "fused_dtw_v1"),
     (re.compile(r"\bbanded_dp\b"), "banded_dtw"),
     (re.compile(r"\bfront_(bulk|simple)\b"), "biquad"),
+    (re.compile(r"\bmfcc_prologue\b"), "mfcc_prologue"),
+    (re.compile(r"\bmfcc_epilogue\b"), "mfcc_epilogue"),
 )
 
 

@@ -31,7 +31,7 @@ import torch
 
 from rustpotter_tpu_torch import AudioFmt, Rustpotter, RustpotterConfig, SampleFormat, ScoreMode
 from rustpotter_tpu_torch.ops import banded_dtw as bd
-from rustpotter_tpu_torch.ops import biquad
+from rustpotter_tpu_torch.ops import biquad, frontend
 from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.runtime import graph
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector
@@ -89,7 +89,7 @@ def stream_frames(utterance, F, n=480, seed=0, device="cuda", b=B):
 
 
 def counts():
-    return {**fd.LAUNCHES, **bd.LAUNCHES, **biquad.LAUNCHES}
+    return {**fd.LAUNCHES, **bd.LAUNCHES, **biquad.LAUNCHES, **frontend.LAUNCHES}
 
 
 def run(process, states, frames):
@@ -199,7 +199,8 @@ def test_make_step_graph_equals_eager(cuda_device, words, mode):
     eager = make_step(static)
     sg, evg, lg = run(lambda s, x: step(params, s, x), init_state(static, B, "cuda"), frames)
     se, eve, le = run(lambda s, x: eager(params, s, x), init_state(static, B, "cuda"), frames)
-    assert lg == le == {kernel: 3 * frames.shape[0]}, (lg, le)
+    assert lg == le == {kernel: 3 * frames.shape[0], "mfcc_epilogue": 3 * frames.shape[0]}, (
+        lg, le)
     assert step.captures == 1 and bool(evg.fired[:, 0].any())
     held(evg, eve, f"make_step {mode}", EV_TOL, sg, se)
     replays_run(lambda: step(params, sg, frames[-1]), lambda: eager(params, se, frames[-1]),
@@ -271,7 +272,9 @@ def test_a_detector_on_another_card_than_the_current_one(cuda_device, words):
     sg, evg, lg = run(lambda s, x: det.process_chunk(det.params, s, x), det.init_states(), frames)
     se, eve, le = run(lambda s, x: eager(det.params, s, x), det.init_states(), frames)
     assert torch.cuda.current_device() == 0 and det._chunk.captures == 1
-    assert lg == le == {"fused_dtw_v4": frames.shape[0]} and bool(evg.fired[:, 0].any())
+    T = frames.shape[0]
+    assert lg == le == {"fused_dtw_v4": T, "mfcc_prologue": T, "mfcc_epilogue": T}
+    assert bool(evg.fired[:, 0].any())
     held(evg, eve, "cuda:1 batched", EV_TOL, sg, se)
     ss, evs = det.process_sequence(det.params, det.init_states(), frames)
     held(evs, evg, "cuda:1 process_sequence", EV_TOL, ss, sg)

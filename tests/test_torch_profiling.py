@@ -85,7 +85,7 @@ def test_trace_writes_a_chrome_trace_on_cpu(tmp_path):
         ("rustpotter.graph", None), ("rustpotter.graph.eager", 0)]
     assert spans["counters"] == {"k1.lanes": 3}
     assert spans["launches"]["fused_dtw"] == fused_dtw.LAUNCHES
-    assert set(spans["launches"]) == {"fused_dtw", "banded_dtw", "biquad"}
+    assert set(spans["launches"]) == {"fused_dtw", "banded_dtw", "biquad", "frontend"}
     tracing.reset()
 
 
@@ -218,14 +218,16 @@ def test_sass_loop_facts_of_a_row_loop(body, blocks, branches, lds):
 
 
 @pytest.mark.parametrize("source", ["fused_dtw_v4.cu", "fused_dtw_v3.cu", "fused_dtw_v2.cu",
-                                    "fused_dtw_v1.cu", "banded_dtw.cu", "biquad.cu"])
+                                    "fused_dtw_v1.cu", "banded_dtw.cu", "biquad.cu",
+                                    "mfcc_front.cu"])
 def test_profiled_launches_keys_each_kernel_by_its_wrapper(source):
     """Every `__global__` function of a wrapped kernel's source maps to the
     one launch count its wrapper keeps (`profiled_launches` names a graph's
     replayed kernels by it), and that count exists."""
-    from rustpotter_tpu_torch.ops import banded_dtw, biquad, fused_dtw
+    from rustpotter_tpu_torch.ops import banded_dtw, biquad, frontend, fused_dtw
 
-    counts = {**fused_dtw.LAUNCHES, **banded_dtw.LAUNCHES, **biquad.LAUNCHES}
+    counts = {**fused_dtw.LAUNCHES, **banded_dtw.LAUNCHES, **biquad.LAUNCHES,
+              **frontend.LAUNCHES}
     path = os.path.join(os.path.dirname(profiling.__file__), "..", "csrc", source)
     text = open(path).read()
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text)

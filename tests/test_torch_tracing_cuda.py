@@ -170,7 +170,8 @@ def test_launches_per_replay_are_unchanged_with_tracing_on(cuda_device, bench):
         counted = {k: v - before[k] for k, v in fd.LAUNCHES.items() if v != before[k]}
         seen[trace] = (counted, profiling.profiled_launches(replay, 3))
     assert seen[True][0] == seen[False][0] == {"fused_dtw_v4": 4}
-    assert seen[True][1][0] == seen[False][1][0] == {"fused_dtw_v4": 2}
+    assert seen[True][1][0] == seen[False][1][0] == {"fused_dtw_v4": 2, "mfcc_prologue": 1,
+                                                     "mfcc_epilogue": 1}
     # the spans' device-side ranges are no kernels
     assert not [r for r in profiling.device_kernels(replay, 3) if r[2].startswith("rustpotter.")]
     print(f"a replay's device kernels and copies: {seen[False][1][1]} off, {seen[True][1][1]} on")
