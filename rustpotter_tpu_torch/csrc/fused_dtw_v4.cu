@@ -83,12 +83,14 @@
 //     (tests/test_torch_k1_schedule.py runs every column's writes before the
 //     previous column's reads; 2w rows fail it).
 //   - the gate counters: given a pointer `counts` to four int64 counters
-//     (the port's tracing on; null otherwise), thread (0, 0) of each block
-//     of the gated launch adds the block's open lanes, its lanes (32 streams
-//     or fewer x 3 shifts), 1 if the block works (a lane open and n >= 2)
-//     and 1, by four atomics; the open lanes are the barrier's count
-//     (__syncthreads_count, which replaced __syncthreads_or). With the
-//     pointer null no atomic runs and nothing else changes.
+//     and two per wakeword slot after them (the port's tracing on; null
+//     otherwise), thread (0, 0) of each block of the gated launch adds the
+//     block's open lanes, its lanes (32 streams or fewer x 3 shifts), 1 if
+//     the block works (a lane open and n >= 2) and 1, by four atomics; the
+//     open lanes are the barrier's count (__syncthreads_count, which
+//     replaced __syncthreads_or). For wakeword d = p / K below `wslots` it
+//     adds the open lanes and the 1 if it works again, at slots 4 + 2d and
+//     5 + 2d. With the pointer null no atomic runs and nothing else changes.
 //   - the column loop is unrolled by 2w, so that the rwn ring and the DP
 //     frontier have compile-time register indices; the shared ring takes
 //     run-time ones. C and w are compile-time: -DRP_C, -DRP_W. ptxas at
@@ -129,8 +131,12 @@ struct Args {
   const float* gate;
   const int* rot0;
   float* out;
-  unsigned long long* counts;  // the gated launch's four counters, or null
+  unsigned long long* counts;  // the gated launch's counters, or null
   int B, F, Lm, D, K, P;
+  // the wakewords 0 .. wslots - 1 counted on their own after the four (at
+  // most D); last, since placed before B it cost 4 bytes of spill at C = 16
+  // (ptxas 12.9)
+  int wslots;
 };
 
 // Element 0 of column k of the extended sequence E (shift 0's logical
@@ -183,17 +189,22 @@ __global__ void __launch_bounds__(LANES * SHIFTS)
   const size_t o = (size_t)(s * a.P + p) * a.B + b;
   const int n = a.lens[p];  // 1 <= n <= Lm
   bool open = live;
+  const int d = gated ? p / a.K : 0;  // the template pair's wakeword
   if (gated && live) {
     // a NaN avg similarity keeps the gate closed, as the TPU kernel's compare
-    const int d = p / a.K;
     open = a.out[(size_t)(s * a.P + a.D * a.K + d) * a.B + b] <= a.gate[d];
   }
   const int nopen = __syncthreads_count(open);
   if (gated && a.counts != nullptr && lane == 0 && s == 0) {
+    const bool works = n >= 2 && nopen > 0;
     atomicAdd(a.counts, (unsigned long long)nopen);
     atomicAdd(a.counts + 1, (unsigned long long)(SHIFTS * min(LANES, a.B - (int)blockIdx.x * LANES)));
-    if (n >= 2 && nopen > 0) atomicAdd(a.counts + 2, 1ull);
+    if (works) atomicAdd(a.counts + 2, 1ull);
     atomicAdd(a.counts + 3, 1ull);
+    if (d < a.wslots) {
+      atomicAdd(a.counts + 4 + 2 * d, (unsigned long long)nopen);
+      if (works) atomicAdd(a.counts + 5 + 2 * d, 1ull);
+    }
   }
   if (n < 2 || nopen == 0) {
     if (live) a.out[o] = INFINITY;
@@ -302,19 +313,21 @@ cudaError_t launch(const Args& a, int pair0, int npairs, bool gated, cudaStream_
 // Launch K1 on `stream`. Returns cudaGetLastError() after the launches: a
 // refused launch (bad grid, too many resources) never runs, so the caller
 // must check this value.
-// `counts`: four int64 counters on the card that the gated launch adds to
-// (see the design above), or null.
+// `counts`: 4 + 2 * wslots int64 counters on the card that the gated launch
+// adds to (see the design above), or null; `wslots`: the wakewords it counts
+// on their own, 0 .. min(D, wslots) - 1.
 extern "C" int rp_fused_dtw_v4(const void* win, const void* newr,
                                const void* means, const void* tpl,
                                const void* lens, const void* gate,
                                const void* rot0, void* out, void* counts,
-                               void* stream, int B, int F, int Lm, int D, int K) {
+                               void* stream, int wslots, int B, int F, int Lm, int D,
+                               int K) {
   const Args a{static_cast<const float*>(win),  static_cast<const float*>(newr),
                static_cast<const float*>(means), static_cast<const float*>(tpl),
                static_cast<const int*>(lens),    static_cast<const float*>(gate),
                static_cast<const int*>(rot0),    static_cast<float*>(out),
                static_cast<unsigned long long*>(counts),
-               B, F, Lm, D, K, D * K + D};
+               B, F, Lm, D, K, D * K + D, wslots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch(a, D * K, D, false, st);
   if (err != cudaSuccess || D * K == 0) return (int)err;

@@ -46,7 +46,8 @@ inside the warp. A block is 32 streams × 3 shifts of one pair; two launches,
 the avg pairs then the gated template pairs, and a block whose gates are all
 closed does no work. Given the card's tracing counters (tracing on), each
 block of the gated launch adds its open lanes, its lanes, 1 if it works and
-1 to them (`k1_gate_counts` is the count from the decisions). At the bench
+1 to them, and its open lanes and the 1 if it works to its wakeword's two
+counters (`k1_gate_counts` is the count from the decisions). At the bench
 shapes it executes 4.0924 GFLOP per chunk by the design's count
 (`utils.profiling.k1_executed`, not a measurement) of the 3.8724 the
 function needs (`k1_work`).
@@ -299,6 +300,8 @@ def _plain(win, new, means3, tp, gate_bounds, lens, band, D, K, rot0):
     if tracing.enabled():
         for name, n in zip(tracing.DEVICE_COUNTERS, k1_gate_counts(gate_open, lens[:D * K])):
             tracing.count(name, n)
+        for name, n in k1_wakeword_counts(gate_open, lens[:D * K], K).items():
+            tracing.count(name, n)
     return sims.permute(2, 0, 1)
 
 
@@ -316,6 +319,18 @@ def k1_gate_counts(gate_open: torch.Tensor, lens) -> tuple:
     long_enough = torch.tensor([int(n) >= 2 for n in lens], device=gate_open.device)
     return (int(gate_open.sum()), S * DK * B, int((works & long_enough[:, None]).sum()),
             DK * nb)
+
+
+def k1_wakeword_counts(gate_open: torch.Tensor, lens, K: int) -> dict:
+    """K1's open lanes and blocks that work of each wakeword d below
+    `tracing.K1_WAKEWORDS` (its K template pairs d·K ... d·K + K - 1), by
+    the tracer's names (`tracing.k1_wakeword_names`)."""
+    out = {}
+    for d in range(min(gate_open.shape[1] // K, tracing.K1_WAKEWORDS)):
+        pairs = slice(d * K, (d + 1) * K)
+        lanes_open, _, blocks_run, _ = k1_gate_counts(gate_open[:, pairs], lens[pairs])
+        out.update(zip(tracing.k1_wakeword_names(d), (lanes_open, blocks_run)))
+    return out
 
 
 def _band_sims(lin, means, tp, lens, band, gate=None):
@@ -370,7 +385,7 @@ def _gated(result, gate_bounds, D, K):
 def _library(C: int, band: int) -> ctypes.CDLL:
     lib = _build.load(SOURCE, {"RP_C": C, "RP_W": band})
     fn = lib.rp_fused_dtw_v4
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
     return lib
 
@@ -410,12 +425,13 @@ def score_chunk(
     rot = rot0.to(torch.int32)  # a no-op for the stream state's int32 cursor
     out = torch.empty((3, P, B), dtype=torch.float32, device=dev)
     lib = _library(C, tset.band)
-    counts = tracing.device_counters(dev).data_ptr() if tracing.enabled() else None
+    counts = tracing.device_counters(dev, D).data_ptr() if tracing.enabled() else None
     with torch.cuda.device(dev):  # a library launches on the current card
         err = lib.rp_fused_dtw_v4(
             win.data_ptr(), new.data_ptr(), means3.data_ptr(), tset.padded.data_ptr(),
             tset.lens_t.data_ptr(), gate_bounds.data_ptr(), rot.data_ptr(),
-            out.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream, B, F, Lm, D, K,
+            out.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream,
+            min(D, tracing.K1_WAKEWORDS), B, F, Lm, D, K,
         )
     if err != 0:
         raise RuntimeError(f"fused_dtw_v4 kernel launch failed: CUDA error {err}")

@@ -64,8 +64,10 @@ chunk id of its first chunk (the detector's count of chunks handed over,
 kept across rebuilds); inside it `rustpotter.feed` (the frames' conversion,
 a synchronous copy to the card) and the chunk's `GraphedStep` spans
 (`rustpotter.graph` and its children, `runtime/graph.py`), a sequence's
-per-chunk spans with their own chunk's id. Whether tracing is on is part of
-the capture key: toggling it captures the chunk again at the next call.
+per-chunk spans with their own chunk's id. `rustpotter.bundle` is the
+bundle build of `_install`, at set-up and at every rebuild (a root span, no
+chunk id). Whether tracing is on is part of the capture key: toggling it
+captures the chunk again at the next call.
 """
 from __future__ import annotations
 
@@ -211,8 +213,9 @@ class BatchedDetector:
                  config: RustpotterConfig) -> None:
         """Build the bundle and the chunk for `wakewords` under `config`,
         and only then adopt them: a build that raises changes nothing."""
-        static, params = build_bundle(wakewords, config, self.device,
-                                      self._in_graph_resample)
+        with tracing.span("rustpotter.bundle"):
+            static, params = build_bundle(wakewords, config, self.device,
+                                          self._in_graph_resample)
         chunk = GraphedStep(make_batched_chunk(static))
         reset = GraphedStep(make_reset(static, self.device))
         self._wakewords, self.config = wakewords, config

@@ -29,6 +29,8 @@ window calls `reset()` at its start and `snapshot()` before the ring fills.
 The spans, by layer (the layers of PERF.md §3):
   - `rustpotter.process_chunk`, `rustpotter.process_sequence`: the API
     (`BatchedDetector`), the root of a chunk's spans;
+  - `rustpotter.bundle`: a `BatchedDetector`'s bundle build, at set-up and
+    at every rebuild (`add_wakeword`, `remove_wakeword`, `update_*config`);
   - `rustpotter.feed`: the frames' conversion to a device tensor
     (`BatchedDetector._frames`, a synchronous host-to-device copy);
   - `rustpotter.graph`: a `GraphedStep` call, around the five below;
@@ -49,7 +51,13 @@ them, one read per card, and adds the host counters of the same names
 (the plain versions count there). K1's gated launch counts, over its blocks
 of 32 streams x 3 shifts of one template pair: the lanes whose avg gate is
 open, the lanes decided, the blocks that did the work (a lane open) and the
-blocks launched.
+blocks launched; and the first two of these by DTW wakeword d, for d below
+`K1_WAKEWORDS`: `k1.lanes_open.w<d>` and `k1.blocks_run.w<d>`, which add
+up to `k1.lanes_open` and `k1.blocks_run`. Beside each card's tensor
+the tracer keeps the most wakewords a K1 launch there has counted on their
+own (set by `device_counters`), and `snapshot` names that card's
+per-wakeword slots up to it. Neither `enable` nor `reset` clears it: a
+captured graph adds to those slots with no call to `device_counters`.
 """
 from __future__ import annotations
 
@@ -60,8 +68,16 @@ from typing import Deque, Dict, List, Optional
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-# the slots of each card's counter tensor, in order
+# the first slots of each card's counter tensor, in order; then two per
+# wakeword (`k1_wakeword_names`) for K1_WAKEWORDS wakewords
 DEVICE_COUNTERS = ("k1.lanes_open", "k1.lanes", "k1.blocks_run", "k1.blocks")
+K1_WAKEWORDS = 32
+
+
+def k1_wakeword_names(d: int) -> tuple:
+    """The names of DTW wakeword d's two K1 counters, in slot order."""
+    return f"k1.lanes_open.w{d}", f"k1.blocks_run.w{d}"
+
 
 MAX_SPANS = 1 << 18  # the ring's length; read at each reset()
 
@@ -71,7 +87,9 @@ _spans: Deque[list] = deque(maxlen=MAX_SPANS)  # [name, start_ns, end_ns or None
 _opened = 0  # spans recorded since the last reset, the dropped ones included
 _stack: List[list] = []  # the open spans' records, innermost last
 _host: Dict[str, int] = {}
-_device: Dict[int, torch.Tensor] = {}  # card index -> (len(DEVICE_COUNTERS),) int64
+_device: Dict[int, torch.Tensor] = {}  # card index -> (SLOTS,) int64
+_k1_wakewords: Dict[int, int] = {}  # card index -> the most wakewords K1 counted there
+SLOTS = len(DEVICE_COUNTERS) + 2 * K1_WAKEWORDS
 
 
 class _NoSpan:
@@ -162,18 +180,21 @@ def count(name: str, n: int) -> None:
         _host[name] = _host.get(name, 0) + int(n)
 
 
-def device_counters(device: torch.device) -> torch.Tensor:
-    """The (len(DEVICE_COUNTERS),) int64 counter tensor of `device`'s card,
-    made at its first use. It is never made during a capture: a graph must
-    read an address that outlives it, and the eager call before every
-    capture makes it first."""
+def device_counters(device: torch.device, k1_wakewords: int) -> torch.Tensor:
+    """The (SLOTS,) int64 counter tensor of `device`'s card, made at its
+    first use, for a K1 launch of `k1_wakewords` DTW wakewords. It is never
+    made during a capture: a graph must read an address that outlives it,
+    and the eager call before every capture makes it first. K1 counts
+    min(k1_wakewords, K1_WAKEWORDS) wakewords on their own."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     t = _device.get(index)
     if t is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the device counters are made before a capture, not inside one")
-        t = _device[index] = torch.zeros(len(DEVICE_COUNTERS), dtype=torch.int64,
+        t = _device[index] = torch.zeros(SLOTS, dtype=torch.int64,
                                          device=torch.device("cuda", index))
+        _k1_wakewords[index] = 0
+    _k1_wakewords[index] = max(_k1_wakewords[index], min(k1_wakewords, K1_WAKEWORDS))
     return t
 
 
@@ -197,8 +218,10 @@ def snapshot() -> dict:
     for s, kids in zip(spans, child_ns):
         s["self_ns"] = None if s["end_ns"] is None else s["end_ns"] - s["start_ns"] - kids
     counters = dict(_host)
-    for t in _device.values():
-        for name, v in zip(DEVICE_COUNTERS, t.tolist()):
+    for index, t in _device.items():
+        names = DEVICE_COUNTERS + tuple(
+            n for d in range(_k1_wakewords[index]) for n in k1_wakeword_names(d))
+        for name, v in zip(names, t.tolist()):
             counters[name] = counters.get(name, 0) + v
     return {"spans": spans, "dropped": _opened - len(_spans), "counters": counters}
 

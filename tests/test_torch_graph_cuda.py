@@ -2,7 +2,9 @@
 each graphed entry point against the eager function on the same audio,
 over the correctness stream of the bench wakeword (stream 0 the utterance,
 the rest seeded noise): `BatchedDetector` (the DTW chunk, `nn_medium`,
-`mixed`, the filters, 48 kHz in-graph resampling; `process_sequence`; a live
+`mixed`, the benchmark's `mixed` deployment at B = 8192 (three DTW
+wakewords of 8 templates and a LARGE NN wakeword, 168 frames), the filters,
+48 kHz in-graph resampling; `process_sequence`; a live
 `add_wakeword`, `reset_streams`, `update_filters_config`; two state sets in
 turns), `make_step` in its K2, K4 and K3 modes, and `Rustpotter`
 (`process_audio`, `process_audio_sequence`, held to `make_step`'s events);
@@ -147,7 +149,25 @@ def replays_run(graphed, eager, launches, n, what, device="cuda"):
     print(f"{what}: a replay runs {total_g} device kernels, an eager call {total_e}")
 
 
+def mixed_fleet_case():
+    """The benchmark's `mixed` deployment (portbench/configs/mixed.json) at
+    B = 8192, its wakewords made by the benchmark from a seed, and the
+    frames of its first utterance."""
+    from portbench import harness, synth
+    from portbench import wakewords as bench_ww
+
+    conf = harness.load_json(harness.ROOT, "portbench", "configs", "mixed.json")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    objs, cfg = bench_ww.for_program(bench_ww.build(conf, gen, torch.device("cuda")), conf)
+    det = BatchedDetector(objs, cfg, batch_size=8192, device="cuda")
+    utt = synth.utterances(conf["wakewords"][0]["utterances"])[0]
+    return det, stream_frames(utt, det.static.max_mfcc_frames, b=8192), NN_TOL
+
+
 def batched_case(words, case):
+    if case == "mixed_fleet":
+        return mixed_fleet_case()
     ww, firing, utterance = words
     dtw = [("w", ww)]
     cases = {
@@ -165,7 +185,7 @@ def batched_case(words, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dtw", "nn_medium", "mixed", "filtered", "48k"])
+@pytest.mark.parametrize("case", ["dtw", "nn_medium", "mixed", "mixed_fleet", "filtered", "48k"])
 def test_batched_chunk_graph_equals_eager(cuda_device, words, case):
     det, frames, tol = batched_case(words, case)
     eager = make_batched_chunk(det.static)

@@ -7,8 +7,8 @@ one pair, the walk over the extended sequence E, the unguarded column step
 (clamped rows and columns, predicated ring stores), the shared dot ring of
 2w+1 rows x 2w+2 diagonals, the register ring of rwn, the per-shift
 validity and harvest rules, and the gate (__syncthreads_count over the
-block, __any_sync over a shift's warp) with the gated launch's four tracing
-counts. Rings start as NaN (the kernel's zeros): a
+block, __any_sync over a shift's warp) with the gated launch's tracing
+counts, the four totals and two per wakeword. Rings start as NaN (the kernel's zeros): a
 valid cell that read a slot never written would turn its similarity into
 NaN and fail the comparison. Between two barriers a thread takes the DP
 step of column k, then the step of column k+1; this runs in the worst order
@@ -47,14 +47,15 @@ def _dot(t, x):
 
 def k1_schedule(win, newr, means, tpl, lens, gate, rot0, w, D, K):
     """The kernel's sims (3, P, B), the FLOPs it executed and the gated
-    launch's counts (lanes open, lanes, blocks that work, blocks)."""
+    launch's counts (lanes open, lanes, blocks that work, blocks, then lanes
+    open and blocks that work of each wakeword)."""
     F, Cn, Bn = win.shape
     P = D * K + D
     W2, U, R = 2 * w, 2 * w + 2, 2 * w + 1
     NR = (U + SHIFTS - 1) // SHIFTS
     out = np.full((3, P, Bn), np.nan, np.float32)
     flops = [0]
-    counts = [0, 0, 0, 0]
+    counts = [0] * (4 + 2 * D)
     inf = np.float32(np.inf)
 
     def block(bx, p, gated):
@@ -69,9 +70,12 @@ def k1_schedule(win, newr, means, tpl, lens, gate, rot0, w, D, K):
             with np.errstate(invalid="ignore"):
                 opn = live & (out[:, D * K + d, bl] <= gate[d])  # NaN closes
         nopen = int(opn.sum())  # __syncthreads_count
-        if gated:  # thread (0, 0)'s four atomics
-            for i, v in enumerate((nopen, SHIFTS * int(live.sum()), int(n >= 2 and nopen > 0), 1)):
+        if gated:  # thread (0, 0)'s atomics: four, then two at its wakeword's slots
+            works = int(n >= 2 and nopen > 0)
+            for i, v in enumerate((nopen, SHIFTS * int(live.sum()), works, 1)):
                 counts[i] += v
+            counts[4 + 2 * d] += nopen
+            counts[5 + 2 * d] += works
         if n < 2 or nopen == 0:
             out[:, p, b[live]] = inf
             return
@@ -228,9 +232,10 @@ def test_schedule_matches_plain_version(F, w, gate):
 
 @pytest.mark.parametrize("gate", ["open", "closed", "mixed"])
 def test_schedule_counts_the_gate_as_the_plain_version(gate):
-    """The gated launch's four counts, as the kernel adds them, equal what
-    the plain version counts with tracing on (one block per pair here; the
-    pair of length 1 never works)."""
+    """The gated launch's counts, as the kernel adds them, equal what the
+    plain version counts with tracing on, the four totals and each
+    wakeword's two (one block per pair here; the pair of length 1 never
+    works)."""
     F, w = LM + 2, 3
     x = _inputs(F, w, seed=7)
     rot0 = torch.tensor(F - 2, dtype=torch.int32)
@@ -248,7 +253,10 @@ def test_schedule_counts_the_gate_as_the_plain_version(gate):
     finally:
         tracing.disable()
         tracing.reset()
-    assert tuple(got[k] for k in tracing.DEVICE_COUNTERS) == counts
+    names = tracing.DEVICE_COUNTERS + sum((tracing.k1_wakeword_names(d) for d in range(D)), ())
+    assert tuple(got[k] for k in names) == counts
+    assert sum(counts[4::2]) == counts[0] and sum(counts[5::2]) == counts[2]
+    counts = counts[:4]
     lanes = 3 * D * K * B
     assert counts[1:] == (lanes, {"open": 3, "closed": 0, "mixed": 3}[gate], D * K)
     assert counts[0] == {"open": lanes, "closed": 0}.get(gate, counts[0])

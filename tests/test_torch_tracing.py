@@ -2,7 +2,8 @@
 context and nothing recorded; on, the spans of `BatchedDetector`'s
 `process_chunk` and `process_sequence` with their parents and chunk ids;
 self time; the tracer's state in the capture key; the plain K1's gate
-counts against a direct count of the gate decisions; and the spans in a
+counts, whole and by wakeword, against a direct count of the gate
+decisions; the bundle build's span; and the spans in a
 torch.profiler trace with tracing off. The card's side (K1's device
 counters, graphs with tracing on): tests/test_torch_tracing_cuda.py.
 
@@ -205,6 +206,7 @@ def test_plain_k1_counts_equal_a_direct_count_of_its_gate_decisions():
     # shifts of one pair
     avg_h, bounds_h = avg.numpy(), bounds.numpy()
     lanes_open = lanes = blocks_run = blocks = 0
+    per_ww = [[0, 0] for _ in range(D)]  # open lanes, blocks that work
     for p in range(D * K):
         d = p // K
         for b0 in range(0, Bn, 32):
@@ -214,8 +216,31 @@ def test_plain_k1_counts_equal_a_direct_count_of_its_gate_decisions():
             lanes += len(opened)
             blocks_run += any(opened) and lens[p] >= 2
             blocks += 1
+            per_ww[d][0] += sum(opened)
+            per_ww[d][1] += any(opened) and lens[p] >= 2
     assert blocks == D * K * 3 and 0 < blocks_run < blocks and 0 < lanes_open < lanes
     assert [got[k] for k in tracing.DEVICE_COUNTERS] == [lanes_open, lanes, blocks_run, blocks]
+    # by wakeword: ww0's gate half open, ww1's closed; each set adds up
+    assert [[got[k] for k in tracing.k1_wakeword_names(d)] for d in range(D)] == per_ww
+    assert per_ww[0][0] > 0 and per_ww[1] == [0, 0]
+    for i, total in ((0, "k1.lanes_open"), (1, "k1.blocks_run")):
+        assert sum(got[tracing.k1_wakeword_names(d)[i]] for d in range(D)) == got[total]
+
+
+def test_the_bundle_build_is_one_span_per_build(detector_parts):
+    """`rustpotter.bundle`: a root span at set-up and at every rebuild."""
+    ww, frames = detector_parts
+    tracing.enable()
+    det = _detector(ww)
+    states = det.init_states()
+    states = det.add_wakeword("v", ww, states)
+    states, _ = det.process_chunk(det.params, states, frames[0])
+    states = det.remove_wakeword("v", states)
+    det.update_detector_config(det.config.detector, states)
+    spans = tracing.snapshot()["spans"]
+    bundles = [s for s in spans if s["name"] == "rustpotter.bundle"]
+    assert len(bundles) == 4
+    assert all(s["parent"] is None and s["chunk"] is None and s["self_ns"] >= 0 for s in bundles)
 
 
 def test_a_profile_holds_the_spans_with_tracing_off(tmp_path):

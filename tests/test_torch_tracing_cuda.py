@@ -1,5 +1,8 @@
-"""The tracer on a card (`utils/tracing.py`): K1's device counters against
-the count from its gate decisions and against the plain version's; a
+"""The tracer on a card (`utils/tracing.py`): K1's device counters, whole
+and by wakeword, against the count from its gate decisions and against the
+plain version's (one wakeword at the bench shapes, three of two templates
+each); a captured launch's counters still named by wakeword after tracing
+is turned on again and reset; a
 detector's events and states bit-equal with tracing on and off; toggling
 tracing captures the chunk again exactly once; the launch counts and the
 kernels a replay runs unchanged with tracing on, the spans' annotations not
@@ -62,6 +65,9 @@ def test_k1_device_counts_equal_the_plain_count(cuda_device, gate):
     got = _k1_counts()
     gate_open = (sims[:, :, D * K:] <= bounds).repeat_interleave(K, dim=2).permute(1, 2, 0)
     assert got == list(fd.k1_gate_counts(gate_open, LENS[:D * K]))
+    on_card = tracing.snapshot()["counters"]
+    assert {k: on_card[k] for k in tracing.k1_wakeword_names(0)} == \
+        fd.k1_wakeword_counts(gate_open, LENS[:D * K], K)
     tracing.reset()
     cpu = lambda t: t.cpu()
     fd.score_chunk(cpu(win), cpu(x["new"]), cpu(x["means3"]),
@@ -69,10 +75,89 @@ def test_k1_device_counts_equal_the_plain_count(cuda_device, gate):
                                         kernel_probe.W),
                    cpu(bounds), D, K, cpu(rot0))
     assert _k1_counts() == got
+    assert tracing.snapshot()["counters"] == on_card
     nb = -(-Bn // 32)
     assert got[1] == 3 * D * K * Bn and got[3] == D * K * nb
     assert got[2] == {"open": D * K * nb, "closed": 0}.get(gate, got[2])
     print(f"K1 counts, gate {gate}: {got}")
+
+
+def _three_wakewords(cuda_device):
+    """K1 of three wakewords of two templates (w = 5, C = 16, pairs of 100,
+    80 and 60 rows in a 168-frame window) over 300 streams: `run(device)`
+    on that device's copy of the operands, and gate bounds with ww0's gate
+    half open, ww1's open, ww2's closed."""
+    D, K, C, F, Bn, w = 3, 2, 16, 168, 300, 5
+    lens = (100, 96, 80, 76, 60, 56, 100, 80, 60)
+    g = torch.Generator().manual_seed(8)
+    tpl = torch.randn((len(lens), 100, C), generator=g)
+    x = dict(win=torch.randn((F, C, Bn), generator=g), new=torch.randn((3, C, Bn), generator=g),
+             means3=0.2 * torch.randn((3, len(lens), C, Bn), generator=g),
+             rot0=torch.tensor(F - 2, dtype=torch.int32))
+    on = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        d = {k: v.to(dev) for k, v in x.items()}
+        d["tset"] = fd.prepare_templates(tpl.to(dev), (tpl * tpl).sum(-1).to(dev), lens, w)
+        on[dev.type] = d
+    run = lambda dev, bounds: fd.score_chunk(
+        on[dev.type]["win"], on[dev.type]["new"], on[dev.type]["means3"], on[dev.type]["tset"],
+        bounds.to(dev), D, K, on[dev.type]["rot0"])
+    avg = run(cuda_device, torch.full((D,), np.inf))[:, :, D * K:].cpu()  # (B, 3, D)
+    bounds = torch.tensor([float(avg[:, :, 0].flatten().median()), np.inf, -np.inf])
+    return run, bounds, (D, K, Bn)
+
+
+@pytest.mark.cuda
+def test_k1_device_counts_by_wakeword_add_up(cuda_device):
+    """Three wakewords (`_three_wakewords`): each wakeword's two counts on
+    the card equal the plain version's on the CPU, and each set adds up to
+    its total."""
+    run, bounds, (D, K, Bn) = _three_wakewords(cuda_device)
+    tracing.enable()
+    run(cuda_device, bounds)
+    card = tracing.snapshot()["counters"]
+    tracing.reset()
+    run(torch.device("cpu"), bounds)
+    plain = tracing.snapshot()["counters"]
+    names = [n for d in range(D) for n in tracing.k1_wakeword_names(d)]
+    assert set(card) == set(plain) == set(tracing.DEVICE_COUNTERS) | set(names)
+    assert card == plain
+    for i, total in ((0, "k1.lanes_open"), (1, "k1.blocks_run")):
+        assert sum(card[tracing.k1_wakeword_names(d)[i]] for d in range(D)) == card[total]
+    lanes = 3 * K * Bn
+    opened = [card[tracing.k1_wakeword_names(d)[0]] for d in range(D)]
+    assert 0 < opened[0] < lanes and opened[1] == lanes and opened[2] == 0
+    print(f"K1 counts by wakeword: {card}")
+
+
+@pytest.mark.cuda
+def test_k1_counts_by_wakeword_outlive_enable_and_reset(cuda_device):
+    """A captured K1 launch of three wakewords, replayed after tracing is
+    turned on again and reset with no eager launch between, still has its
+    counters named by wakeword: the width is kept with the card's counter
+    tensor. Two replays count twice one replay, and each set adds up to its
+    total."""
+    run, bounds, (D, K, _) = _three_wakewords(cuda_device)
+    bounds = bounds.to(cuda_device)
+    tracing.enable()
+    run(cuda_device, bounds)  # makes the counters before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(cuda_device, bounds)
+    tracing.reset()
+    graph.replay()
+    once = tracing.snapshot()["counters"]
+    tracing.enable()
+    tracing.reset()
+    graph.replay()
+    graph.replay()
+    twice = tracing.snapshot()["counters"]
+    names = [n for d in range(D) for n in tracing.k1_wakeword_names(d)]
+    assert set(once) == set(twice) == set(tracing.DEVICE_COUNTERS) | set(names)
+    assert twice == {k: 2 * v for k, v in once.items()}
+    for i, total in ((0, "k1.lanes_open"), (1, "k1.blocks_run")):
+        assert sum(twice[tracing.k1_wakeword_names(d)[i]] for d in range(D)) == twice[total] > 0
 
 
 def _detector(ww):
