@@ -384,10 +384,9 @@ def kernel_phase(dev, record):
         f"TFLOP/s) and {nbytes / 1e6:.2f} MB ({t_bytes:.4f} ms at {H100.hbm_gbps / 1e3:.2f} "
         f"TB/s); its design executes {executed / 1e9:.4f} GFLOP (counted by k1_executed, not "
         f"measured), {executed / ms / 1e9:.3f} TFLOP/s at that count")
-    ring = 4 * (2 * w + 1) * (2 * w + 2) * 32  # the .cu's RING_BYTES, dynamic shared memory
     for c in (8, 16):
         r = ptxas_resources(_build.build_log(fd.SOURCE, {"RP_C": c, "RP_W": w}))
-        smem = r["static_smem"] + ring
+        smem = r["static_smem"] + fd.k1_smem_bytes(w, c)  # the .cu's RING_BYTES, dynamic
         log(f"K1 build C={c} w={w} (ptxas): {r['registers']} registers, {r['spill_bytes']} "
             f"bytes of spill stores, {smem} bytes of shared memory per block of 96 threads: "
             f"{resident_warps(r['registers'], 96, smem)} warps per SM")

@@ -35,20 +35,26 @@ K1's design (csrc/fused_dtw_v4.cu; its header has the details and the
 bound): the three virtual windows are slices of one extended sequence E of
 n+2 columns (shift s's logical column i is E[i+s]), and the dot T'[t]·E[k]
 does not depend on the CMN mean, so one pass over E serves all 3 shifts:
-each column is loaded once and dotted with the 2w+2 template rows that any
-shift's band holds, while rwn, dotm, the mean correction and the DP stay per
-shift. Three threads per (stream, pair), one per shift, share the column
-step: each computes a third of the dots into a ring in shared memory (2w+1
-rows × 2w+2 diagonals × 32 streams), one barrier, then each takes its
-shift's DP step from the ring. The column step is branch-free (clamped
-indices, predicated stores), so that its independent FMA chains overlap
-inside the warp. A block is 32 streams × 3 shifts of one pair; two launches,
-the avg pairs then the gated template pairs, and a block whose gates are all
-closed does no work. Given the card's tracing counters (tracing on), each
-block of the gated launch adds its open lanes, its lanes, 1 if it works and
-1 to them, and its open lanes and the 1 if it works to its wakeword's two
-counters (`k1_gate_counts` is the count from the decisions). At the bench
-shapes it executes 4.0924 GFLOP per chunk by the design's count
+each column is dotted once with the 2w+2 template rows that any shift's band
+holds, while rwn, dotm, the mean correction and the DP stay per shift. Three
+threads per (stream, pair), one per shift, share a step of two columns: each
+computes a third of the two columns' dots (each T' row loaded once for both)
+into a ring in shared memory (2w+2 columns × 2w+2 diagonals × 32 streams,
+its indices compile-time), one barrier, then each takes its shift's two DP
+steps from the ring. The shift warps stage E's columns and the pair's T'
+rows into shared memory a step ahead with cp.async, so the column loop loads
+nothing from device memory. Its shared memory grows with C: K1 takes w <= 20
+at C <= 8 and w <= 19 at C = 16 (`k1_smem_bytes`; the bundle routes wider
+bands to K4).
+The step before the barrier is branch-free (clamped indices, predicated
+stores), so that its independent FMA chains overlap inside the warp. A block
+is 32 streams × 3 shifts of one pair; two launches, the avg pairs then the
+gated template pairs, and a block whose gates are all closed does no work.
+Given the card's tracing counters (tracing on), each block of the gated
+launch adds its open lanes, its lanes, 1 if it works and 1 to them, and its
+open lanes and the 1 if it works to its wakeword's two counters
+(`k1_gate_counts` is the count from the decisions). At the bench shapes it
+executes 4.1233 GFLOP per chunk by the design's count
 (`utils.profiling.k1_executed`, not a measurement) of the 3.8724 the
 function needs (`k1_work`).
 
@@ -93,9 +99,12 @@ LANES, MAX_JOBS = 32, 8  # streams per block; K5's and K4's column form's pairs 
 
 
 def k1_smem_bytes(band: int, C: int) -> int:
-    """K1's dot ring (csrc/fused_dtw_v4.cu RING_BYTES): 2w+1 rows x 2w+2
-    diagonals x LANES floats, whatever C."""
-    return 4 * (2 * band + 1) * (2 * band + 2) * LANES
+    """K1's rings (csrc/fused_dtw_v4.cu RING_BYTES): the dot ring of 2w+2
+    columns x 2w+2 diagonals x LANES floats, E's two tiles of 2 columns x C
+    x LANES floats and the T' ring of 2w+5 rows and NR = ceil((2w+2)/3)
+    mirrored rows x C floats."""
+    nr = -(-(2 * band + 2) // 3)
+    return 4 * ((2 * band + 2) ** 2 * LANES + 2 * 2 * C * LANES + (2 * band + 5 + nr) * C)
 
 
 def k2_producers(band: int) -> int:

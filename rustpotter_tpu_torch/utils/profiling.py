@@ -333,15 +333,16 @@ def k1_work(lens, w, C, B):
 def k1_executed(lens, w, C, B):
     """FLOPs that K1's design (csrc/fused_dtw_v4.cu) executes with the gate
     open, counted as `k1_work` counts them. Per stream and pair of length n
-    >= 2, each of the 3 shift threads takes n+w column steps, and each step
-    is unguarded: the dotm chain (2C), rwn (3C+1) and NR = ceil((2w+2)/3)
-    dots (2C each); and per DP row (n-1 per shift) the mean correction of
-    all 2w band slots (the invalid ones are then replaced by +inf) and the
-    DP."""
+    >= 2, each of the 3 shift threads takes ceil((n+w)/2) steps of two
+    columns (an odd n+w computes one column past the end), and each step is
+    unguarded: two dotm chains (2C each), two rwn (3C+1 each) and 2 NR dots,
+    NR = ceil((2w+2)/3) (2C each); and per DP row (n-1 per shift) the mean
+    correction of all 2w band slots (the invalid ones are then replaced by
+    +inf) and the DP."""
     nr = (2 * w + 2 + 2) // 3
-    step = 2 * C + 3 * C + 1 + nr * 2 * C
+    step = 2 * (2 * C) + 2 * (3 * C + 1) + 2 * nr * 2 * C
     row = 3 * (2 * w) + 2 * (2 * w) + 2 * (2 * w - 1)
-    return B * sum(3 * ((n + w) * step + (n - 1) * row) for n in lens if n >= 2)
+    return B * sum(3 * (-(-(n + w) // 2) * step + (n - 1) * row) for n in lens if n >= 2)
 
 
 def k1_bytes(F, C, B, P, Lm):

@@ -43,14 +43,17 @@ def _k1_k2_fit(w, c):
 
 @pytest.mark.parametrize("c", [5, 8, 16, 40])
 def test_band_chooses_the_kernels_that_take_it(c):
-    # the limits as the byte functions give them: K1 and K2 to w = 20 at
-    # every C (their rings do not depend on C), K3 to w = 75
-    assert max(w for w in range(2, 200) if _k1_k2_fit(w, c)) == 20
+    # the limits as the byte functions give them: K2 to w = 20 at every C
+    # (its ring does not depend on C), K1 to w = 20 at C = 5 and 8, 19 at C
+    # = 16 and 18 at C = 40 (its staged E tiles and T' rows grow with C), K3
+    # to w = 75
+    limit = {5: 20, 8: 20, 16: 19, 40: 18}[c]
+    assert max(w for w in range(2, 200) if _k1_k2_fit(w, c)) == limit
     assert bd.W_MAX == 75
     for w in BANDS:
         k4 = (True, 2, True)
-        assert choose_dtw_kernels(w, c, None, 3) == ((None, 3, False) if w <= 20 else k4)
-        assert choose_dtw_kernels(w, c, True, 3) == ((True, 3, False) if w <= 20 else k4)
+        assert choose_dtw_kernels(w, c, None, 3) == ((None, 3, False) if w <= limit else k4)
+        assert choose_dtw_kernels(w, c, True, 3) == ((True, 3, False) if w <= limit else k4)
         assert choose_dtw_kernels(w, c, None, 2) == (None, 2, False)
         assert choose_dtw_kernels(w, c, False, 3) == ((False, 3, False) if w <= 75 else k4)
 

@@ -10,7 +10,8 @@ runs where only PyTorch is installed:
 
 Bands: w = 5 throughout, and where a kernel's shared memory grows with the
 band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
-6, 8, 9, 10 and 20, its ring passing 48 KB from 10; K2 2, 5, 6, 8, 9 and
+2, 5, 6, 8, 9, 10 and 20 at C = 8, its rings passing 48 KB from 9, and at
+ragged shapes 2, 5 and 20 with the window's wrap inside a staged tile; K2 2, 5, 6, 8, 9 and
 W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 2, 5, 6, 8, 9,
 19, 20 and 37 at C = 16), with the ValueError past each limit. K4 takes every band: its ring
 form 2, 5, 6, 8, 9 and W_MAX = 19 at C = 16 (its rings pass 48 KB from 8),
@@ -43,6 +44,7 @@ from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
 from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
 from rustpotter_tpu_torch.tools import fma_probe
+from rustpotter_tpu_torch.utils import tracing
 
 RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 D, K = 2, 2
@@ -94,15 +96,25 @@ def test_kernel_matches_plain_version_on_card(cuda_device, F):
 
 # K1 at ragged shapes: three wakewords of five templates (P = 18), pair
 # lengths 1 and 2 among them (an avg pair of length 1 is +inf: its gate
-# opens only at an infinite bound)
+# opens only at an infinite bound), n + w odd and even, B not a multiple of
+# 32, and gates that close every lane of a block
 D3, K5 = 3, 5
 LENS18 = (40, 1, 2, 37, 33) + (40, 39, 5, 2, 20) + (1, 12, 40, 3, 38) + (40, 2, 1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 33])
+@pytest.mark.parametrize("cursor", ["start", "tile"])
+@pytest.mark.parametrize("w", [2, 5, 20])
+@pytest.mark.parametrize("nb", [1, 33, 36])
 @pytest.mark.parametrize("F", [LM, LM + 2, LM + 9])
-def test_k1_ragged_shapes_match_plain_version_on_card(cuda_device, F, nb):
+def test_k1_ragged_shapes_match_plain_version_on_card(cuda_device, F, nb, w, cursor):
+    """Sims as the plain version's, and the gated launch's counters as
+    `k1_gate_counts` of the plain version's gate decisions. B = 36 takes
+    the 16-byte copies with a last block of 4 streams, 1 and 33 the 4-byte
+    ones. The cursor puts
+    the circular window's wrap before E's column 0 ("start") or between
+    columns 4 and 5, inside the tile that K1 stages for its third step
+    ("tile")."""
     rng = np.random.default_rng(100 + F + nb)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
     p = len(LENS18)
@@ -110,18 +122,31 @@ def test_k1_ragged_shapes_match_plain_version_on_card(cuda_device, F, nb):
     x = (t(rng.normal(0, 1, (F, C, nb))), t(rng.normal(0, 1, (3, C, nb))),
          t(rng.normal(0, 0.2, (3, p, C, nb))), t(templates),
          t(np.sum(templates.astype(np.float32) ** 2, axis=-1)))
-    rot0 = torch.tensor(F - 2, dtype=torch.int32, device=cuda_device)  # wraps around
-    args = lambda gate: (*x, t(gate), LENS18, W, D3, K5, rot0)
+    rot0 = torch.tensor(F - 2 if cursor == "start" else F - 7, dtype=torch.int32,
+                        device=cuda_device)
+    args = lambda gate: (*x, t(gate), LENS18, w, D3, K5, rot0)
     avg = fd.fused_dtw_chunk_v4_ref(*args((np.inf,) * D3))[:, :, D3 * K5:].cpu()
     v = avg[..., 0].flatten().sort().values
     mid = float((v[v.numel() // 2 - 1] + v[v.numel() // 2]) / 2)
     closed = [float(avg[..., d].min()) - 1.0 if d < 2 else -1.0 for d in range(D3)]
     for gate in ((np.inf,) * D3, closed, (mid, closed[1], np.inf)):
+        want = fd.fused_dtw_chunk_v4_ref(*args(gate))
         before = fd.LAUNCHES["fused_dtw_v4"]
-        got = fd.fused_dtw_chunk_v4(*args(gate))
+        tracing.reset()
+        tracing.enable()
+        try:
+            got = fd.fused_dtw_chunk_v4(*args(gate))
+            counts = tracing.snapshot()["counters"]
+        finally:
+            tracing.disable()
+            tracing.reset()
         torch.cuda.synchronize()
         assert fd.LAUNCHES["fused_dtw_v4"] == before + 1
-        _assert_sims_close(got, fd.fused_dtw_chunk_v4_ref(*args(gate)))
+        _assert_sims_close(got, want)
+        gate_open = (want[:, :, D3 * K5:].cpu() <= torch.tensor(gate, dtype=torch.float32))
+        gate_open = gate_open.repeat_interleave(K5, dim=2).permute(1, 2, 0)
+        assert [counts[k] for k in tracing.DEVICE_COUNTERS] == list(
+            fd.k1_gate_counts(gate_open, LENS18[:D3 * K5]))
 
 
 @pytest.mark.cuda
@@ -496,7 +521,7 @@ def test_k5_wide_bands_at_c16_match_plain_version_on_card(cuda_device, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [6, 8, 9, 10, 20])  # the ring passes 48 KB from w = 10
+@pytest.mark.parametrize("w", [2, 5, 6, 8, 9, 10, 20])  # the rings pass 48 KB from w = 9
 def test_k1_wide_bands_match_plain_version_on_card(cuda_device, w):
     args = list(_args(LM + 2, cuda_device))
     args[7] = w

@@ -217,7 +217,8 @@ def test_k3_smem_bytes_follow_the_cu_up_to_w_max():
 
 
 @pytest.mark.parametrize("kernel,source,name,C,limit", [
-    ("K1", fd.SOURCE, "RING_BYTES", 16, 20),
+    ("K1", fd.SOURCE, "RING_BYTES", 16, 19),
+    ("K1", fd.SOURCE, "RING_BYTES", 8, 20),
     ("K2", fd.SOURCE_V3, "RING_BYTES", 16, 20),
     ("K5", "fused_dtw_v1.cu", "SMEM_BYTES", 16, 37),
     ("K5", "fused_dtw_v1.cu", "SMEM_BYTES", 8, 56),

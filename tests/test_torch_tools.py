@@ -86,6 +86,29 @@ def test_kernel_probe_calls_and_bounds_on_cpu(variant):
 
 
 
+def test_kernel_probe_mixed_shapes_on_cpu():
+    """--mixed: K1 at the `mixed` cell's shapes (three wakewords of 8
+    templates, 100 ... 46 frames, and their avg pairs, P = 27, F = 168)
+    scores every pair, and with --gate only the avg pairs; it takes no other
+    kernel."""
+    B, iters, v, gate = kernel_probe.parse(["40", "3", "--mixed"])
+    assert (B, iters, v, gate) == (40, 3, 4, False)
+    at = kernel_probe.shapes(["40", "--mixed"])
+    assert at is kernel_probe.MIXED and kernel_probe.shapes([]) is kernel_probe.BENCH
+    assert (len(at.lens), at.D, at.K, at.F) == (27, 3, 8, 168)
+    assert (at.lens[0], at.lens[23], at.lens[24:]) == (100, 46, (100, 80, 60))
+    x = kernel_probe.inputs(B, 4, "cpu", 5, at)
+    whole, _, (flops, nbytes) = kernel_probe.calls(x, 4, False, 5, at)
+    sims = whole()
+    assert sims.shape == (B, 3, 27) and torch.isfinite(sims).all()
+    assert nbytes == profiling.k1_bytes(168, 16, B, 27, 100)
+    _, _, (gated, _) = kernel_probe.calls(x, 4, True, 5, at)
+    assert gated == sum(profiling.k1_work(at.lens[24:], 5, 16, B)) < flops
+    for argv in (["--mixed", "--v2"], ["--mixed", "--k3"]):
+        with pytest.raises(ValueError):
+            kernel_probe.parse(argv)
+
+
 @pytest.mark.parametrize("variant,closed", [(3, 0.0925), (4, 0.0956), (1, None)])
 def test_kernel_probe_report_gives_the_gate_closed_time(variant, closed):
     """K1 and K2 report their gate-closed launch beside the gate-open one."""
