@@ -46,8 +46,9 @@ from ..utils.wav import WavSpec, read_wav
 
 # keys kept by `GRAPHS`, each with its CUDA graph once called twice. One
 # graph's memory pool holds 4.0 MiB at 168 frames, the trainer's recordings
-# (reserved memory after `empty_cache` with the graph and without it,
-# chip_smoke.py `extraction_phase`; NVIDIA H100 80GB HBM3, 700.00 W)
+# (reserved memory after `empty_cache` with the graph and without it, on an
+# NVIDIA H100 80GB HBM3, 700.00 W; `tests/test_torch_lifecycle_cuda.py`
+# holds the captures and the eviction)
 MAX_GRAPHS = 8
 
 

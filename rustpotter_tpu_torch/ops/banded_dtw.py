@@ -58,7 +58,7 @@ def check_band(band: int) -> None:
 
 
 # Launch count of the kernel wrapper: one per launch, nowhere else
-# (chip_smoke.py resets and reads it).
+# (the card tests read it around a call).
 LAUNCHES = {"banded_dtw": 0}
 
 

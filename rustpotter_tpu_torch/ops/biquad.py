@@ -50,7 +50,7 @@ SOURCE = "biquad.cu"
 GAIN_STEP = float(np.float32(1) / np.float32(10))
 
 # Launch count of the kernel wrapper: one per launch, nowhere else
-# (chip_smoke.py resets and reads it).
+# (the card tests read it around a call).
 LAUNCHES = {"biquad": 0}
 
 

@@ -388,8 +388,9 @@ def mfcc_from_frames(frames: torch.Tensor, num_coefficients: int,
     (extractor.rs:84-85).
 
     Frames made by `unfold` overlap in memory; cuBLAS multiplies such a view
-    with a far slower fp32 kernel than a packed copy (chip_smoke.py's
-    profile names both), so the frames are packed first."""
+    with a far slower fp32 kernel than a packed copy (torch.profiler on an
+    H100 names both; `tools/front_probe.py --mfcc` lists the packed chain's
+    kernels), so the frames are packed first."""
     k = device_constants(num_coefficients, frames.device)
     spec = torch.matmul(frames.contiguous(), k.dft)
     return epilogue(spec, num_coefficients, window)

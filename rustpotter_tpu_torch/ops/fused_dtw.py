@@ -79,7 +79,7 @@ SOURCE = "fused_dtw_v4.cu"  # K1; K2, K4 and K5 name theirs beside their wrapper
 INF = float("inf")
 
 # Launch count of every kernel wrapper in this module: one per launch of the
-# kernel, nowhere else (chip_smoke.py resets and reads it).
+# kernel, nowhere else (the card tests read it around a call).
 LAUNCHES = {"fused_dtw_v4": 0, "fused_dtw_v3": 0, "fused_dtw_v2": 0, "fused_dtw_v1": 0}
 
 

@@ -64,8 +64,8 @@ Launch counts: the kernel wrappers count a launch in Python, which runs at
 capture and never at replay. The capture's increments are taken back, and
 added again at every replay: a count is derived from the capture, one per
 kernel the capture's Python launched. That the graph holds those kernels
-is measured by profiling replays (`chip_smoke.py`,
-`tests/test_torch_graph_cuda.py`).
+is measured by profiling replays (`tests/test_torch_graph_cuda.py`
+`replays_run`, `tests/test_torch_tracing_cuda.py`).
 """
 from __future__ import annotations
 

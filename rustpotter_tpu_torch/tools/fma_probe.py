@@ -72,7 +72,7 @@ RUNS = (
 )
 
 # Launch count of every probe kernel: one per launch, nowhere else
-# (chip_smoke.py resets and reads it).
+# (the card tests read it around a call).
 LAUNCHES = {name: 0 for name in KERNELS}
 
 

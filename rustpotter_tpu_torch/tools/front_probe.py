@@ -8,13 +8,17 @@ window of the bench wakeword (W = 33), the 80-400 Hz band-pass; or with
 DIR (default: the checkout that holds this file) is the root of the checkout
 whose `rustpotter_tpu_torch.ops.biquad` is timed: a copy of this tree with a
 variant of the kernel, or an earlier commit unpacked by `git archive`. Run
-it once per checkout, in turns, to compare two designs by the same code on
-one card; for that reason it imports nothing of the checkout that holds it.
+it once per checkout, in turns, to compare two designs on one card; it
+imports nothing of the checkout that holds it, and times with that
+checkout's `utils/profiling` timers. Two runs in turns are comparable only
+where those timers are the same: each run prints a digest of their source
+(`timers`), which must be equal across the runs compared.
 Per form it first holds the kernel bit for bit against the checkout's plain
 version on a CPU copy of the inputs, then prints the kernel's device time
-(launches back to back replayed from a CUDA graph), the time of a wrapper
-call (CUDA events around calls back to back: the host's enqueue is in it
-where it is the longer) and the host time of a wrapper call. The band-pass alone runs through `biquad(coeffs,
+(launches back to back replayed from a CUDA graph: `time_cuda_graph`), the
+time of a wrapper call (CUDA events around calls back to back, `time_cuda`:
+the host's enqueue is in it where it is the longer) and the host time of a
+wrapper call (`host_ms_per_call`). The band-pass alone runs through `biquad(coeffs,
 state, signal)`, which every checkout since the kernel's port has; the gain
 normalizer's forms through `front`, where the checkout has it, with the
 window, count, gain and taps written in place as the stream steps write
@@ -26,8 +30,9 @@ rms, the new buffer and the (3, 16, B) MFCCs in the window's layout. Where the
 checkout has csrc/mfcc_front.cu (`frontend.prologue`), that is the prologue,
 the windowed-DFT sgemm and the epilogue, each also timed alone, first held
 against their plain versions on a CPU copy at B = 8192 (frames and buffer bit
-for bit, MFCCs at rtol 1e-5 / atol 1e-4), with ptxas's registers and spills of
-both kernels; else the torch composition the batched chunk ran before them
+for bit, MFCCs at rtol 1e-5 / atol 1e-4), with ptxas's registers, spill
+stores and static shared memory of both kernels (`ptxas_resources`); else the
+torch composition the batched chunk ran before them
 (rms, pre-emphasis, cat, unfold, mfcc_from_frames, the buffer's copy, the
 permute). Device time by CUDA graph as above, the chain's kernels by
 torch.profiler, and the byte bound of the kernels' work at 3.35 TB/s.
@@ -35,65 +40,29 @@ torch.profiler, and the byte bound of the kernels' work at 3.35 TB/s.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
-import re
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 B, N, W = 8192, 480, 33
+TIMERS = ("time_cuda_graph", "time_cuda", "host_ms_per_call", "device_kernels",
+          "ptxas_resources")  # of the checkout's utils/profiling
 
 
-def graph_ms(fn, samples: int = 20, per: int = 10) -> float:
-    """ms per call of fn's device work: `per` calls captured in a CUDA graph,
-    the median over `samples` replays timed by CUDA events."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(samples):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per)
-    return float(np.median(times))
+def timers_digest() -> str:
+    """12 hex digits of the sha256 of the source of the checkout's TIMERS
+    (those it has)."""
+    from rustpotter_tpu_torch.utils import profiling
 
-
-def events_ms(fn, samples: int = 20, per: int = 10) -> float:
-    """ms per call by CUDA events around `per` calls back to back."""
-    times = []
-    for _ in range(samples):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per)
-    return float(np.median(times))
-
-
-def host_us(fn, samples: int = 20, per: int = 10) -> float:
-    """µs of the host's clock per call, `per` calls back to back unsynchronized."""
-    times = []
-    for _ in range(samples):
-        t0 = time.perf_counter()
-        for _ in range(per):
-            fn()
-        times.append((time.perf_counter() - t0) * 1e6 / per)
-        torch.cuda.synchronize()
-    return float(np.median(times))
+    src = "".join(inspect.getsource(getattr(profiling, n)) for n in TIMERS
+                  if hasattr(profiling, n))
+    return hashlib.sha256(src.encode()).hexdigest()[:12]
 
 
 def inputs(dev, seed: int = 3):
@@ -122,28 +91,14 @@ def mfcc_bytes(B: int) -> dict:
     return {"prologue": pro, "epilogue": epi, "both": pro + epi}
 
 
-def ptxas(log: str) -> dict:
-    """{kernel: (registers, spill store bytes, spill load bytes)} from a
-    `-Xptxas -v` report."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            k = re.search(r"(mfcc_\w+?)ILb([01])E", m.group(1))
-            name = f"{k.group(1)}<{'true' if k.group(2) == '1' else 'false'}>" if k else m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
-
-
-def mfcc_main(root: Path, card: str) -> int:
+def mfcc_main(root: Path, card: str, timers: str) -> int:
     from rustpotter_tpu_torch import _build
     from rustpotter_tpu_torch.ops import frontend
-    from rustpotter_tpu_torch.utils.profiling import device_kernels
+    from rustpotter_tpu_torch.utils.profiling import (
+        device_kernels,
+        ptxas_resources,
+        time_cuda_graph,
+    )
 
     dev = torch.device("cuda")
     kernels = hasattr(frontend, "prologue")
@@ -191,7 +146,8 @@ def mfcc_main(root: Path, card: str) -> int:
 
             frames = torch.empty(B, 3, 480, device=dev)
             parts = {"dft": lambda: torch.matmul(frames, dft)}
-        r = {"chain_ms": graph_ms(chain), "parts_ms": {k: graph_ms(f) for k, f in parts.items()},
+        r = {"chain_ms": time_cuda_graph(chain),
+             "parts_ms": {k: time_cuda_graph(f) for k, f in parts.items()},
              "chain_kernels": [(round(ms, 4), c, name[:90]) for ms, c, name
                                in device_kernels(chain, 10)],
              "bytes": mfcc_bytes(B)}
@@ -211,13 +167,14 @@ def mfcc_main(root: Path, card: str) -> int:
         for row in r["chain_kernels"]:
             print(f"  {row}", flush=True)
     regs = {}
-    if kernels:
-        for defines in ({}, {"RP_N": n}):
-            regs.update(ptxas(_build.build_log(frontend.SOURCE, defines)))
-        print(f"front_probe {root.name}: ptxas (registers, spill stores, spill loads) {regs}",
-              flush=True)
-    print(json.dumps({"root": str(root), "card": card, "mfcc": result, "ptxas": regs}),
-          flush=True)
+    if kernels:  # the prologue's build, and the epilogue's at n bands
+        for defines, kernel in (({}, "mfcc_prologue"), ({"RP_N": n}, "mfcc_epilogue")):
+            log = _build.build_log(frontend.SOURCE, defines)
+            for flag, bit in (("true", 1), ("false", 0)):  # the template's bool
+                regs[f"{kernel}<{flag}>"] = ptxas_resources(log, f"{kernel}ILb{bit}E")
+        print(f"front_probe {root.name}: ptxas {regs}", flush=True)
+    print(json.dumps({"root": str(root), "card": card, "timers": timers, "mfcc": result,
+                      "ptxas": regs}), flush=True)
     return 0
 
 
@@ -235,14 +192,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(root))
     from rustpotter_tpu_torch.audio.filters import band_pass_coefficients
     from rustpotter_tpu_torch.ops import biquad
+    from rustpotter_tpu_torch.utils.profiling import host_ms_per_call, time_cuda, time_cuda_graph
 
     if not Path(biquad.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {biquad.__file__}, not the checkout at {root}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     card = card.strip().splitlines()[0] if card.strip() else "not read"
+    timers = timers_digest()
+    print(f"front_probe {root.name}: timers {timers}", flush=True)
     if args.mfcc:
-        return mfcc_main(root, card)
+        return mfcc_main(root, card, timers)
     dev = torch.device("cuda")
     coeffs = band_pass_coefficients(16000.0, 80.0, 400.0)
     forms = ("band_pass", "both", "gain") if hasattr(biquad, "front") else ("band_pass",)
@@ -271,13 +231,14 @@ def main(argv=None) -> int:
             for form in forms}
     result = {}
     for form, fn in runs.items():
-        result[form] = {"graph_ms": graph_ms(fn), "events_ms": events_ms(fn),
-                        "host_us": host_us(fn)}
+        result[form] = {"graph_ms": time_cuda_graph(fn), "events_ms": time_cuda(fn),
+                        "host_us": 1e3 * host_ms_per_call(fn)}
         print(f"front_probe {root.name} {form} at {B} x {N}: "
               f"{result[form]['graph_ms']:.4f} ms on the device (CUDA graph), "
               f"{result[form]['events_ms']:.4f} ms a wrapper call (CUDA events), "
               f"{result[form]['host_us']:.2f} us of host time a call [{card}]", flush=True)
-    print(json.dumps({"root": str(root), "card": card, "forms": result}), flush=True)
+    print(json.dumps({"root": str(root), "card": card, "timers": timers, "forms": result}),
+          flush=True)
     return 0
 
 

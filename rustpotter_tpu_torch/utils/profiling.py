@@ -8,11 +8,12 @@ The counterpart of `rustpotter_tpu.utils.profiling`:
     (None until `tools/fma_probe.py` has run on the card);
   - `step_roofline(static)`: the JAX package's count of one detector step's
     FLOPs and bytes per stream, and `streams_speed_of_light`;
-  - the kernel timing and bound helpers of `chip_smoke.py` and the tools:
-    `time_cuda`, `device_kernels`, `profiled_launches` (the port's kernels
-    in a profile, by wrapper), the work and byte counts of the fused DTW
-    kernels (`k1_work`, `k1_executed`, `k1_bytes`, `dp_work`, `k2_executed`,
-    `k4_executed`, `k4_column_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
+  - the kernel timing and bound helpers of the tools and the card tests:
+    `time_cuda`, `time_cuda_graph`, `host_ms_per_call`, `device_kernels`,
+    `profiled_launches` (the port's kernels in a profile, by wrapper), the
+    work and byte counts of the fused DTW kernels (`k1_work`, `k1_executed`,
+    `k1_bytes`, `dp_work`, `k2_executed`, `k4_executed`,
+    `k4_column_executed`, `linear_bytes`, `shift_bytes`) and `bound`;
   - `ptxas_resources` and `resident_warps`: a kernel's registers, spills and
     shared memory from its build log, and the warps per SM they allow;
   - `sass_listing`, `sass_functions`, `sass_loops`, `innermost_loop`,

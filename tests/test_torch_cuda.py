@@ -2,7 +2,10 @@
 K3 (banded_dtw.cu), K4 (fused_dtw_v2.cu), K5 (fused_dtw_v1.cu) and the probe
 kernels V1-V6 (fma_probe.cu) against their plain versions, and the batched
 detector and the single-stream Rustpotter on the card against the same on
-the CPU. Every test here needs a card (and nvcc, which builds the
+the CPU; `tools/kernel_parity.py`'s seven checks at B = 8192; and what the
+builds must hold: no spills in K4's column form, no guard per band cell in
+K5's row loop, no memory load in V3's to V6's rep loops but V5's shared
+loads of s. Every test here needs a card (and nvcc, which builds the
 kernels at first use); without one they skip. The file imports no JAX, so it
 runs where only PyTorch is installed:
 
@@ -10,7 +13,7 @@ runs where only PyTorch is installed:
 
 Bands: w = 5 throughout, and where a kernel's shared memory grows with the
 band, w up to each kernel's stated limit (K3 2, 6, 8, 20 and W_MAX = 75; K1
-2, 5, 6, 8, 9, 10 and 20 at C = 8, its rings passing 48 KB from 9, and at
+2, 5, 6, 8, 9, 10 and 20 at C = 8, its rings passing 48 KB from 9, and 8 at C = 16, and at
 ragged shapes 2, 5 and 20 with the window's wrap inside a staged tile; K2 2, 5, 6, 8, 9 and
 W_MAX = 20 at C = 16, its ring passing 48 KB from 9; K5 2, 5, 6, 8, 9,
 19, 20 and 37 at C = 16), with the ValueError past each limit. K4 takes every band: its ring
@@ -43,8 +46,15 @@ from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.ops.dtw import banded_dtw_batch
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
 from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream
-from rustpotter_tpu_torch.tools import fma_probe
+from rustpotter_tpu_torch.tools import fma_probe, kernel_parity
 from rustpotter_tpu_torch.utils import tracing
+from rustpotter_tpu_torch.utils.profiling import (
+    innermost_loop,
+    loop_facts,
+    ptxas_resources,
+    sass_functions,
+    sass_listing,
+)
 
 RTOL, ATOL, ATOL_V2 = 3e-6, 2e-4, 1e-4
 D, K = 2, 2
@@ -60,13 +70,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _args(F: int, device, gate=(np.inf, np.inf)):
+def _args(F: int, device, gate=(np.inf, np.inf), c=C):
     rng = np.random.default_rng(6 + F)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    templates = rng.normal(0, 1, (P, LM, C))
+    templates = rng.normal(0, 1, (P, LM, c))
     return (
-        t(rng.normal(0, 1, (F, C, B))), t(rng.normal(0, 1, (3, C, B))),
-        t(rng.normal(0, 0.2, (3, P, C, B))), t(templates),
+        t(rng.normal(0, 1, (F, c, B))), t(rng.normal(0, 1, (3, c, B))),
+        t(rng.normal(0, 0.2, (3, P, c, B))), t(templates),
         t(np.sum(templates.astype(np.float32) ** 2, axis=-1)), t(gate), LENS, W, D, K,
         torch.tensor(F - 2, dtype=torch.int32, device=device),
     )
@@ -389,17 +399,38 @@ def test_k5_matches_k4_on_card(cuda_device, w, nb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("streams", [8, 32])
-@pytest.mark.parametrize("name", list(fma_probe.KERNELS))
-def test_probe_kernel_matches_plain_version_on_card(cuda_device, name, streams):
+# every probe at reps 16, and each run that fma_probe times at reps 2000
+@pytest.mark.parametrize("name,streams,reps",
+                         [(name, S, 16) for name in fma_probe.KERNELS for S in (8, 32)]
+                         + [(name, S, fma_probe.REPS) for _, name, S in fma_probe.RUNS])
+def test_probe_kernel_matches_plain_version_on_card(cuda_device, name, streams, reps):
+    """V1-V4 add exact halves in the plain version's order: bit-exact. V5
+    and V6 fuse a product that the plain version rounds first:
+    fma_probe.PROBE_RTOL."""
     x, s = fma_probe.inputs(cuda_device)
     before = fma_probe.LAUNCHES[name]
-    got = fma_probe.probe(name, x, s, 16, streams, tiles=132)
+    got = fma_probe.probe(name, x, s, reps, streams, tiles=132)
     torch.cuda.synchronize()
     assert fma_probe.LAUNCHES[name] == before + 1
-    want = fma_probe.plain(name, x, s, 16, streams)
-    np.testing.assert_allclose(got.cpu().numpy(), want.expand(132, 8, 128).cpu().numpy(),
-                               rtol=1e-6)
+    want = fma_probe.plain(name, x, s, reps, streams)
+    rtol = fma_probe.PROBE_RTOL[reps, streams] if name in ("sload", "smemload") else 0.0
+    torch.testing.assert_close(got, want.expand_as(got), rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [8, 32])
+@pytest.mark.parametrize("name", ["dynload", "dynload_cheap", "sload", "smemload"])
+def test_v3_to_v6_rep_loops_load_nothing_but_v5s_shared_rows(cuda_device, name, streams):
+    """The SASS rep loops of V3, V4 and V6 hold no LDG, LDL, LDS or LDC (x in
+    registers, V6's s in the constant bank as operands); V5's no LDG, LDL
+    or LDC, and each of its shared loads of s feeds
+    `fma_probe.sload_ffma_per_load(S)` FFMAs."""
+    ops = fma_probe.rep_loop_facts(fma_probe.sass_listing())[name, streams]["ops"]
+    banned = ("LDG", "LDL", "LDC") + (() if name == "sload" else ("LDS",))
+    assert not any(ops[op] for op in banned), dict(ops)
+    if name == "sload":
+        assert ops["LDS"] and ops["FFMA"] == fma_probe.sload_ffma_per_load(streams) * ops["LDS"], (
+            dict(ops))
 
 
 @pytest.mark.cuda
@@ -468,10 +499,9 @@ def test_v6_is_bit_equal_to_v5_on_card(cuda_device, streams, reps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 33, 300])
-def test_k3_is_bit_exact_against_plain_version_on_card(cuda_device, n):
+@pytest.mark.parametrize("n,L", [(1, 60), (33, 60), (300, 60), (1, 2)])  # L = 2 < w
+def test_k3_is_bit_exact_against_plain_version_on_card(cuda_device, n, L):
     rng = np.random.default_rng(n)
-    L = 60
     costs = torch.tensor(rng.uniform(0, 2, (n, L, 2 * W)).astype(np.float32), device=cuda_device)
     lens = torch.tensor(rng.integers(1, L + 1, n).astype(np.int32), device=cuda_device)
     before = bd.LAUNCHES["banded_dtw"]
@@ -521,15 +551,54 @@ def test_k5_wide_bands_at_c16_match_plain_version_on_card(cuda_device, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [2, 5, 6, 8, 9, 10, 20])  # the rings pass 48 KB from w = 9
-def test_k1_wide_bands_match_plain_version_on_card(cuda_device, w):
-    args = list(_args(LM + 2, cuda_device))
+# the rings pass 48 KB from w = 9 at C = 8; at C = 16, w = 8 passes w = 5's
+# ring 2.2 times
+@pytest.mark.parametrize("c,w", [(C, w) for w in (2, 5, 6, 8, 9, 10, 20)] + [(16, 8)])
+def test_k1_wide_bands_match_plain_version_on_card(cuda_device, c, w):
+    args = list(_args(LM + 2, cuda_device, c=c))
     args[7] = w
     before = fd.LAUNCHES["fused_dtw_v4"]
     got = fd.fused_dtw_chunk_v4(*args)
     torch.cuda.synchronize()
     assert fd.LAUNCHES["fused_dtw_v4"] == before + 1
     _assert_sims_close(got, fd.fused_dtw_chunk_v4_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [21, 24, 37, 75])
+def test_k4_column_form_builds_do_not_spill(cuda_device, w):
+    """ptxas's report of K4's column-form builds at C = 16: 32 streams a
+    block at 21 and 24, 16 at 37, one row a step at 75."""
+    from rustpotter_tpu_torch import _build
+
+    assert fd.k4_form(w, 16) == "column"
+    defines = {"RP_C": 16, "RP_W": w}
+    _build.build("fused_dtw_v2.cu", defines)
+    log = _build.build_log("fused_dtw_v2.cu", defines)
+    assert ptxas_resources(log)["spill_bytes"] == 0, log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,w", [(8, 5), (16, 5), (16, 8), (16, 37)])
+def test_k5_row_loop_holds_no_guard_per_band_cell(cuda_device, c, w):
+    """K5's cells are branch-free: its SASS row loop (the innermost loop
+    with a barrier) holds fewer conditional branches than the 2w band cells
+    of each of its rows per step; a guard per cell would add one each."""
+    from rustpotter_tpu_torch import _build
+
+    lib = _build.build("fused_dtw_v1.cu", {"RP_C": c, "RP_W": w})
+    insns = next(i for f, i in sass_functions(sass_listing(lib, _build.nvcc())).items()
+                 if "score_pairs_v1" in f)
+    loop = loop_facts(insns, *innermost_loop(insns, ("BAR",)))
+    assert loop["conditional_branches"] < 2 * w * fd.k5_rows_per_step(w, c), loop
+
+
+@pytest.mark.cuda
+def test_kernel_parity_at_the_bench_streams_on_card(cuda_device):
+    """`tools/kernel_parity.py` at B = 8192: K3 bit-exact against the DP,
+    K4 and K2 against its own oracle, K2's gate, K1's whole chunk at P = 6,
+    11 and 18 against the oracle on each shift's virtual window."""
+    assert len(kernel_parity.run(8192, cuda_device)) == len(kernel_parity.CHECKS)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The audio front-end of the port on a CUDA card: the front-end kernel
 (csrc/biquad.cu: the gain normalizer and the band-pass biquad, in each of
 its three forms) against its plain version run on a CPU copy of the inputs,
-and the filtered and the 48 kHz `BatchedDetector` on the card against the
-same on the CPU. Every test here needs a card (and nvcc, which builds the
-kernel at first use); without one they skip. The file imports no JAX:
+the filtered and the 48 kHz `BatchedDetector` on the card against the
+same on the CPU, and the launches the filters add to a chunk. Every test here
+needs a card (and nvcc, which builds the kernel at first use); without one
+they skip. The file imports no JAX:
 
     python -m pytest tests/test_torch_front_cuda.py -m cuda --noconftest -q
 
@@ -23,11 +24,15 @@ from rustpotter_tpu_torch.ops import biquad
 from rustpotter_tpu_torch.ops.biquad import GAIN_STEP
 from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
+from rustpotter_tpu_torch.runtime.bundle import build_bundle
+from rustpotter_tpu_torch.runtime.state import init_state
+from rustpotter_tpu_torch.runtime.stream_step import make_batched_chunk, make_step
 from rustpotter_tpu_torch.synthetic import (
     bench_utterances,
     build_bench_wakeword,
     correctness_stream,
 )
+from rustpotter_tpu_torch.utils.profiling import device_kernels
 
 
 @pytest.fixture
@@ -243,3 +248,44 @@ def test_48k_batched_detector_on_card_matches_cpu(cuda_device):
     frames[:, 0] = stream0
     launches, _ = _card_and_cpu(cuda_device, _config(48000), frames, in_graph_resample=True)
     assert launches == (0, len(frames))
+
+
+RMS_LAUNCHES = 3  # frontend.rms_level: square, mean, sqrt
+PROFILED_CHUNKS = 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["BatchedDetector", "make_step"])
+def test_the_filters_add_one_launch_a_chunk(cuda_device, path):
+    """The eager chunk at B = 8192 with the gain normalizer and the band-pass
+    on launches at most one kernel more than the same path with them off (the
+    front-end kernel: no torch kernel of the filters is left), and the
+    batched chunk also the rms's launches, which its MFCC prologue takes
+    where no filter ran (with a filter on, the rms is of the samples before
+    it). Each side is the median of 5 torch.profiler readings taken in turns:
+    a profile may drop records, or take in some that the one before it left."""
+    ww, _ = build_bench_wakeword(device="cpu")
+    noise = torch.tensor(np.random.default_rng(0).normal(0, 0.05, (8192, 480)).astype(
+        np.float32), device=cuda_device)
+
+    def chunk(filters):
+        cfg = _config()
+        cfg.filters.gain_normalizer.enabled = cfg.filters.band_pass.enabled = filters
+        if path == "BatchedDetector":
+            det = BatchedDetector([("w", ww)], cfg, batch_size=8192, device=cuda_device)
+            fn, params, states = make_batched_chunk(det.static), det.params, det.init_states()
+        else:
+            static, params = build_bundle([("w", ww)], cfg, cuda_device)
+            fn, states = make_step(static), init_state(static, 8192, cuda_device)
+        return lambda: fn(params, states, noise)
+
+    def launches(fn):  # in PROFILED_CHUNKS chunks, a whole number
+        rows = device_kernels(fn, PROFILED_CHUNKS)
+        return round(PROFILED_CHUNKS * sum(count for _, count, _ in rows))
+
+    on, off = chunk(True), chunk(False)
+    got, ref = zip(*[(launches(on), launches(off)) for _ in range(5)])
+    extra = 1 + (RMS_LAUNCHES if path == "BatchedDetector" else 0)
+    print(f"{path}: launches in {PROFILED_CHUNKS} chunks with the filters {got}, without {ref}")
+    assert min(ref) > 0, "the profiler recorded no device kernels"
+    assert np.median(got) <= np.median(ref) + extra * PROFILED_CHUNKS, (got, ref)

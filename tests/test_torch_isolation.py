@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing `rustpotter_tpu_torch` loads
 neither JAX nor the JAX package, and no source file of the port (or
-chip_smoke.py, which drives it on the card) imports either."""
+chip_smoke.py, which runs its card tests) imports either."""
 import ast
 import json
 import os

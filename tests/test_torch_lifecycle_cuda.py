@@ -11,11 +11,14 @@ skip. The file imports no JAX:
     call, the capture, replays, new samples); 80 recordings of one length
     capture once and 5 of 5 lengths never; the bench wakeword built from WAV
     bytes (4 lengths, one repeated) captures once and equals the eager
-    pipeline; the cache drops the least recently used key past its bound;
+    pipeline's build bit for bit (templates, average, rms) and the CPU's
+    build at the MFCC tolerance (rtol 1e-5 / atol 1e-4); the cache drops the
+    least recently used key past its bound;
   - `BatchedDetector.reset_streams` (a CUDA graph of `make_reset`): bit for
     bit the eager reset on every field, with a mixed, an all-true and an
-    all-false mask, at its capture and at replays; the chunk after it
-    replays without a capture and gives the eager chunk's events;
+    all-false mask, at its capture and at replays, at B = 64 and 8192; the
+    chunk after it replays without a capture and gives the eager chunk's
+    events;
   - ten management calls at B = 8192 (`add_wakeword` of an NN wakeword, then
     `remove_wakeword`, in turns), each followed by a graphed chunk, which
     captures: the memory allocated, and the memory reserved after
@@ -45,8 +48,9 @@ from rustpotter_tpu_torch.utils.wav import wav_bytes
 from rustpotter_tpu_torch.wakewords.builder import build_wakeword_ref_from_buffers
 
 B = 64
-FLEET = 8192  # the bench's B, for the memory of management calls
-MASKS = {"mixed": [i % 3 == 0 for i in range(B)], "all": [True] * B, "none": [False] * B}
+FLEET = 8192  # the bench's B
+MASKS = {"mixed": lambda b: np.arange(b) % 3 == 0, "all": lambda b: np.ones(b, bool),
+         "none": lambda b: np.zeros(b, bool)}  # of the streams, at B = b
 
 
 @pytest.fixture
@@ -118,7 +122,7 @@ def test_80_equal_lengths_capture_once_and_5_distinct_lengths_never(cuda_device,
 
 
 @pytest.mark.cuda
-def test_the_bench_templates_built_from_wavs_equal_eager(cuda_device, graphs):
+def test_the_bench_templates_built_from_wavs_equal_eager(cuda_device, graphs, monkeypatch):
     """The 5 bench utterances as WAV bytes: the host encoder keeps whole 30 ms
     chunks, so their 103/101/99/97/95 shifts give 99/96/96/93/90 frames, and
     the second 96-frame file is its key's second call: one capture."""
@@ -131,6 +135,15 @@ def test_the_bench_templates_built_from_wavs_equal_eager(cuda_device, graphs):
         samples, _ = offline.encode_wav(buf)
         np.testing.assert_array_equal(_bits(ww.samples_features[key]),
                                       _bits(_eager(samples, 17, cuda_device)))
+    cpu = build_wakeword_ref_from_buffers("bench", buffers, 16, device="cpu")
+    monkeypatch.setattr(offline, "mfcc_pipeline", lambda x, n, device=None: _eager(x, n, device))
+    eager = build_wakeword_ref_from_buffers("bench", buffers, 16, device=cuda_device)
+    np.testing.assert_array_equal(_bits(ww.avg_features), _bits(eager.avg_features))
+    for key in buffers:
+        np.testing.assert_allclose(ww.samples_features[key], cpu.samples_features[key],
+                                   rtol=1e-5, atol=1e-4, err_msg=key)
+    np.testing.assert_allclose(ww.avg_features, cpu.avg_features, rtol=1e-5, atol=1e-4)
+    assert ww.rms_level == eager.rms_level == cpu.rms_level
 
 
 @pytest.mark.cuda
@@ -154,12 +167,13 @@ def test_the_least_recently_used_graph_is_dropped_on_the_card(cuda_device, graph
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [B, FLEET])
 @pytest.mark.parametrize("mask", list(MASKS))
-def test_graphed_reset_equals_eager_and_keeps_the_chunks_graph(cuda_device, mask):
+def test_graphed_reset_equals_eager_and_keeps_the_chunks_graph(cuda_device, mask, b):
     ww, utterance = build_bench_wakeword(device="cpu", longest=30)
-    det = BatchedDetector([("w", ww)], _config(), batch_size=B, device=cuda_device)
+    det = BatchedDetector([("w", ww)], _config(), batch_size=b, device=cuda_device)
     stream0 = correctness_stream(det.static.max_mfcc_frames, utterance)
-    frames = np.random.default_rng(2).normal(0, 0.05, (len(stream0), B, 480)).astype(np.float32)
+    frames = np.random.default_rng(2).normal(0, 0.05, (len(stream0), b, 480)).astype(np.float32)
     frames[:, 0] = stream0
     frames = torch.tensor(frames, device=cuda_device)
     states = det.init_states()
@@ -168,7 +182,7 @@ def test_graphed_reset_equals_eager_and_keeps_the_chunks_graph(cuda_device, mask
     base = [t.clone() for t in states]
     ptrs = [t.data_ptr() for t in states]
     eager_reset, eager_chunk = make_reset(det.static, cuda_device), make_batched_chunk(det.static)
-    m = torch.tensor(MASKS[mask], device=cuda_device)
+    m = torch.tensor(MASKS[mask](b), device=cuda_device)
     chunk_captures = det._chunk.captures
     for call in range(3):  # the eager call and the capture, then replays
         for t, b in zip(states, base):
@@ -181,7 +195,7 @@ def test_graphed_reset_equals_eager_and_keeps_the_chunks_graph(cuda_device, mask
     assert det._reset.captures == 1 and [t.data_ptr() for t in states] == ptrs
     changed = [f for f, a, b in zip(StreamState._fields, states, base)
                if not np.array_equal(_bits(a), _bits(b))]
-    assert bool(changed) == any(MASKS[mask]), changed
+    assert bool(changed) == bool(m.any()), changed
     for t in range(20, 24):  # the chunk's graph reads the reset states in place
         states, ev = det.process_chunk(det.params, states, frames[t])
         want, ev_e = eager_chunk(det.params, want, frames[t])

@@ -12,8 +12,8 @@ torch's reduction (rtol 2e-6). The epilogue's mel and DCT sums run in
 another order than cuBLAS may (rtol 1e-5 / atol 1e-5); on a silent frame,
 where cuBLAS's DCT sums cancel to rounding noise, the kernel writes the
 exact value rounded once. The detectors' scores as tests/test_torch_nn_cuda.py
-holds them; the windows at chip_smoke.py's MFCC tolerance (rtol 1e-5 / atol
-1e-4).
+holds them; the windows at tests/test_torch_frontend.py's MFCC tolerance (rtol
+1e-5 / atol 1e-4). The shapes reach the backlog cells' B = 65536.
 """
 import math
 
@@ -50,10 +50,13 @@ def chunk(B, dev, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 7, 8192])
+@pytest.mark.parametrize("B", [1, 7, 8192, 65536])
 @pytest.mark.parametrize("rms", [True, False])
 def test_prologue_bit_equal_to_plain(cuda_device, B, rms):
+    """Stream 0 silent where B > 1."""
     x, buf = chunk(B, cuda_device, B)
+    if B > 1:
+        x[0], buf[0] = 0.0, 0.0
     buf_p = buf.cpu()
     want_frames, want_rms = fe.prologue_plain(x.cpu(), buf_p, rms)
     before = fe.LAUNCHES["mfcc_prologue"]
@@ -77,7 +80,7 @@ def spectrum(lead, dev, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead, window", [((8192,), False), ((4096, 3), False),
                                           ((4096, 3), True), ((1,), False), ((), False),
-                                          ((5, 3), True)])
+                                          ((5, 3), True), ((65536, 3), True)])
 @pytest.mark.parametrize("n", [6, 17])
 def test_epilogue_matches_the_composition(cuda_device, lead, window, n):
     """Against the torch composition on the card (cuBLAS's mel and DCT)."""

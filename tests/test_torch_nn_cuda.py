@@ -9,9 +9,11 @@ imports no JAX:
     DTW wakeword beside it): BatchedDetector chunks at B = 64 on the card,
     streams 0-3 against a B = 4 run on the CPU; K1 launches once per chunk
     with the DTW wakeword and never without it;
-  - bands 21 and 24, past K1's and K2's shared-memory rings: BatchedDetector,
-    make_step and Rustpotter on the card route to K4 (3 launches per chunk
-    or frame, no K1 or K2) and give the CPU run's events.
+  - bands 21 and 24, past K1's and K2's shared-memory rings (K4's column
+    form): BatchedDetector, make_step and Rustpotter on the card, each
+    graphed, route to K4 (3 launches per chunk or frame, no K1 or K2) and
+    give the CPU run's events (B = 64 on a 30-frame bench wakeword, and
+    make_step at the bench's B = 8192 on the 100-frame one).
 
 Events equal (fired, ww, counter); scores rtol 1e-4 / atol 1e-3 with an NN
 wakeword (its logits), rtol 2e-5 / atol 2e-5 for DTW alone.
@@ -25,6 +27,7 @@ import torch
 from rustpotter_tpu_torch import Rustpotter, RustpotterConfig, ScoreMode
 from rustpotter_tpu_torch.ops import fused_dtw as fd
 from rustpotter_tpu_torch.runtime.batch import BatchedDetector
+from rustpotter_tpu_torch.runtime.graph import GraphedStep
 from rustpotter_tpu_torch.runtime.state import init_state
 from rustpotter_tpu_torch.runtime.stream_step import make_step
 from rustpotter_tpu_torch.synthetic import (
@@ -36,6 +39,7 @@ from rustpotter_tpu_torch.synthetic import (
 NN_TOL = dict(rtol=1e-4, atol=1e-3)
 DTW_TOL = dict(rtol=2e-5, atol=2e-5)
 B_CARD = 64
+BENCH_B = 8192  # the bench's streams
 
 
 @pytest.fixture
@@ -97,14 +101,17 @@ def test_nn_chunks_on_card_match_cpu(cuda_device, cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["BatchedDetector", "make_step", "Rustpotter"])
+@pytest.mark.parametrize("path, b", [pytest.param(p, B_CARD, id=p)
+                                     for p in ("BatchedDetector", "make_step", "Rustpotter")]
+                         + [pytest.param("make_step", BENCH_B, id=f"make_step-{BENCH_B}")])
 @pytest.mark.parametrize("band", [21, 24])
-def test_wide_bands_route_to_k4_on_card(cuda_device, band, path):
-    ww, utterance = build_bench_wakeword(device="cpu", longest=30)
+def test_wide_bands_route_to_k4_on_card(cuda_device, band, path, b):
+    longest = 30 if b == B_CARD else 100
+    ww, utterance = build_bench_wakeword(device="cpu", longest=longest)
     cfg = _config(band)
-    stream0 = correctness_stream(30, utterance)
+    stream0 = correctness_stream(longest, utterance)
     results = {}
-    for dev, b in ((cuda_device, B_CARD), ("cpu", 4)):
+    for dev, b in ((cuda_device, b), ("cpu", 4)):
         before = dict(fd.LAUNCHES)
         if path == "Rustpotter":
             rp = Rustpotter(copy.deepcopy(cfg), device=dev)
@@ -117,7 +124,7 @@ def test_wide_bands_route_to_k4_on_card(cuda_device, band, path):
             assert det.static.dtw_k4_for_band and det.static.dtw_fused_variant == 2
             process = (lambda s, f: det.process_chunk(det.params, s, f)) \
                 if path == "BatchedDetector" else \
-                (lambda s, f, step=make_step(det.static): step(det.params, s, f))
+                (lambda s, f, step=GraphedStep(make_step(det.static)): step(det.params, s, f))
             results[str(dev)] = _run(process, det.static, b, dev, stream0)
         if dev != "cpu":
             torch.cuda.synchronize()

@@ -1,7 +1,7 @@
 """rustpotter_tpu_torch.utils.profiling against the JAX package's
 utils/profiling.py: the step roofline counts field by field for the same
 wakeword, the H100 chip spec, the trace context on the CPU, the work
-counts that chip_smoke.py and the tools divide by the peaks, and the kernel
+counts that the tools divide by the peaks, and the kernel
 names that `profiled_launches` keys by wrapper."""
 import json
 import os
@@ -201,7 +201,7 @@ EXIT
 def test_sass_loop_facts_of_a_row_loop(body, blocks, branches, lds):
     """The row loop is the innermost loop that holds the barrier; its basic
     blocks, conditional branches and loads by width, and the instructions
-    with the immediate 1, as chip_smoke.py reads them for K5."""
+    with the immediate 1, as tests/test_torch_cuda.py reads K5's on the card."""
     (name, insns), = profiling.sass_functions(_sass(body)).items()
     assert "score_pairs_v1" in name
     assert profiling.sass_loops(insns) == [(0x20, 0x30), (0x10, 0xb0)]

@@ -3,8 +3,9 @@ runs its seven checks at B = 33 (the wrappers run their plain versions on CPU
 tensors, which checks the tool's inputs, oracle and virtual-window
 bookkeeping), kernel_probe's modes (K3's against the plain DP, bit for bit)
 build their calls and bounds, and kernel_probe, kernel_parity and fma_probe refuse to run
-without a card or with arguments they do not take. On the card they run the
-kernels (chip_smoke.py's tools phase)."""
+without a card or with arguments they do not take. On the card kernel_parity
+runs at B = 8192 in tests/test_torch_cuda.py; kernel_probe and fma_probe time
+the kernels there."""
 import numpy as np
 import pytest
 import torch

@@ -5,11 +5,16 @@ JAX:
 
     python -m pytest tests/test_torch_train_cuda.py -m cuda --noconftest -q
 
-  - training on the card against training on the CPU (the synthetic set at
-    42 frames, MEDIUM, 60 epochs): the losses at
-    `tests/test_training_torch_crosscheck.py`'s tolerances (the first 10
+  - training on the card against training on the CPU (the synthetic set,
+    MEDIUM: at 42 frames over 60 epochs, and at the `nn_medium` width, 168
+    frames, 2688 -> 56 -> 28 -> 2, 64 + 16 files over 200 epochs): the losses
+    at `tests/test_training_torch_crosscheck.py`'s tolerances (the first 10
     epochs rtol 2e-4 / atol 2e-5, all rtol 5e-3 / atol 5e-4), the final
     weights at the late tolerance, the test accuracy equal;
+  - that model trained on the card at the `nn_medium` width (trained once
+    for both checks) comes back from `save_wakeword` / `load_wakeword` byte
+    for byte, and served at B = 4 it gives the CPU's events (scores rtol
+    1e-4 / atol 1e-3);
   - training graphed (on the card: a CUDA graph of test_epochs epochs
     replayed per chunk) against the eager epochs (the same call with
     `trainer.GraphedStep` substituted by the bare function), with
@@ -22,11 +27,14 @@ JAX:
     (torch.profiler, `utils/profiling.profiled_kernels`), and its copies
     plus two outside the graph, the input's and the output's clone (the
     graph's 4-byte loss writes run as `memcpy32_post` kernels);
-  - a BatchedDetector sharded over a world-1 NCCL group gives the unsharded
-    detector's events and scores on the card bit for bit (the same kernels
+  - a BatchedDetector sharded over a world-1 NCCL group, at B = 64 and at
+    the bench's B = 8192, gives the unsharded detector's events and scores
+    on the card bit for bit (the same kernels
     on the same shapes), K1 launching once per chunk, and the collectives
-    return the local values.
+    return the local values;
+  - `parallel.dryrun.dryrun_multigpu` over every card, one NCCL rank each.
 """
+import functools
 import gc
 import weakref
 
@@ -35,13 +43,20 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from rustpotter_tpu_torch import RustpotterConfig, ScoreMode
+from rustpotter_tpu_torch import RustpotterConfig, ScoreMode, load_wakeword, save_wakeword
 from rustpotter_tpu_torch.ops import fused_dtw as fd
+from rustpotter_tpu_torch.parallel import dryrun
 from rustpotter_tpu_torch.parallel.collectives import fleet_detection_count, gather_detections
 from rustpotter_tpu_torch.parallel.mesh import make_stream_group, multihost_initialize
 from rustpotter_tpu_torch.runtime import graph
-from rustpotter_tpu_torch.runtime.batch import BatchedDetector
-from rustpotter_tpu_torch.synthetic import build_bench_wakeword, correctness_stream, training_wavs
+from rustpotter_tpu_torch.runtime.batch import BatchedDetector, events_to_numpy
+from rustpotter_tpu_torch.synthetic import (
+    NN_TRAIN_SIZE,
+    bench_utterances,
+    build_bench_wakeword,
+    correctness_stream,
+    training_wavs,
+)
 from rustpotter_tpu_torch.utils.profiling import profiled_kernels, split_copies
 from rustpotter_tpu_torch.wakewords import trainer as tr
 from rustpotter_tpu_torch.wakewords.files import ModelType
@@ -50,7 +65,14 @@ from rustpotter_tpu_torch.wakewords.trainer import WakewordModelTrainOptions, tr
 
 EARLY = dict(rtol=2e-4, atol=2e-5)
 LATE = dict(rtol=5e-3, atol=5e-4)
+NN_TOL = dict(rtol=1e-4, atol=1e-3)
 B_CARD = 64
+BENCH_B = 8192  # the bench's streams
+# (training frames and files, test frames and files, epochs, the MEDIUM
+# model's weight shapes at that width)
+SIZES = {"small": ((42, 12), (45, 6), 60, [[14, 672], [7, 14], [2, 7]]),
+         "nn_medium": ((NN_TRAIN_SIZE, 64), (NN_TRAIN_SIZE, 16), 200,
+                       [[56, 2688], [28, 56], [2, 28]])}
 
 
 @pytest.fixture
@@ -60,24 +82,60 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@functools.cache
+def _trained(size, device):
+    """(the model, the loss history) of the synthetic set of SIZES[size]
+    trained on `device` ("cuda" or "cpu"); each trained once per process."""
+    (frames, files), (test_frames, test_files), epochs, _ = SIZES[size]
+    hist = {}
+    model = train_from_buffers(WakewordModelTrainOptions(epochs=epochs),
+                               training_wavs(frames, files, seed=0),
+                               training_wavs(test_frames, test_files, seed=1),
+                               device=device, verbose=False, history_out=hist)
+    return model, hist
+
+
 @pytest.mark.cuda
-def test_training_on_card_matches_cpu(cuda_device):
-    samples, tests = training_wavs(42, 12, seed=0), training_wavs(45, 6, seed=1)
-    opts = WakewordModelTrainOptions(epochs=60)
-    runs = {}
-    for dev in (cuda_device, "cpu"):
-        hist = {}
-        model = train_from_buffers(opts, samples, tests, device=dev, verbose=False,
-                                   history_out=hist)
-        runs[str(dev)] = (model, hist)
-    (mg, hg), (mc, hc) = runs["cuda"], runs["cpu"]
+@pytest.mark.parametrize("size", list(SIZES))
+def test_training_on_card_matches_cpu(cuda_device, size):
+    (mg, hg), (mc, hc) = _trained(size, "cuda"), _trained(size, "cpu")
+    dims = SIZES[size][3]
     assert mg.labels == mc.labels and mg.train_size == mc.train_size
+    assert [mg.weights[f"ln{i}.weight"].dims for i in (1, 2, 3)] == dims
     np.testing.assert_allclose(hg["loss"][:10], hc["loss"][:10], **EARLY)
     np.testing.assert_allclose(hg["loss"], hc["loss"], **LATE)
     assert hg["test_accuracy"] == hc["test_accuracy"]
     for k in mc.weights:
         np.testing.assert_allclose(mg.weights[k].to_numpy(), mc.weights[k].to_numpy(),
                                    **LATE, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_a_card_trained_model_round_trips_and_serves_as_on_the_cpu(cuda_device, tmp_path):
+    model, _ = _trained("nn_medium", "cuda")
+    assert model.train_size == NN_TRAIN_SIZE
+    path = str(tmp_path / "trained.rpw")
+    save_wakeword(model, path)
+    back = load_wakeword(path)
+    assert back.labels == model.labels and back.train_size == model.train_size
+    for k, v in model.weights.items():
+        assert back.weights[k].bytes == v.bytes and back.weights[k].dims == v.dims, k
+    stream0 = correctness_stream(NN_TRAIN_SIZE, bench_utterances(100)[0])
+    x = np.random.default_rng(0).normal(0, 0.05, (len(stream0), 4, 480)).astype(np.float32)
+    x[:, 0] = stream0
+    events = {}
+    for dev in (cuda_device, "cpu"):
+        det = BatchedDetector([("t", back)], RustpotterConfig(), batch_size=4, device=dev)
+        _, ev = det.process_sequence(det.params, det.init_states(), torch.tensor(x, device=dev))
+        events[str(dev)] = events_to_numpy(ev)
+    gpu, cpu = events["cuda"], events["cpu"]
+    for f in ("fired", "ww", "counter"):
+        np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f), err_msg=f)
+    for f in ("score", "avg_score", "scores"):
+        np.testing.assert_allclose(getattr(gpu, f)[cpu.fired], getattr(cpu, f)[cpu.fired],
+                                   **NN_TOL, err_msg=f)
+    print(f"the trained model served: stream 0 fired {int(cpu.fired[:, 0].sum())}x, streams "
+          f"1-3 {int(cpu.fired[:, 1:].sum())}x")
 
 
 def _captures(monkeypatch):
@@ -174,13 +232,14 @@ def test_a_replay_runs_the_eager_chunks_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-def test_world1_nccl_sharded_chunk_equals_unsharded(cuda_device, tmp_path):
+@pytest.mark.parametrize("b", [B_CARD, BENCH_B])
+def test_world1_nccl_sharded_chunk_equals_unsharded(cuda_device, tmp_path, b):
     ww, utterance = build_bench_wakeword(device="cpu", longest=30)
     cfg = RustpotterConfig()
     cfg.detector.score_mode = ScoreMode.MAX
     cfg.detector.avg_threshold = 0.2
     stream = correctness_stream(max(len(m) for m in ww.samples_features.values()), utterance)
-    frames = np.random.default_rng(0).normal(0, 0.05, (len(stream), B_CARD, 480))
+    frames = np.random.default_rng(0).normal(0, 0.05, (len(stream), b, 480))
     frames = torch.tensor(frames.astype(np.float32), device=cuda_device)
     frames[:, 0] = torch.tensor(stream, device=cuda_device)
     multihost_initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0, device=cuda_device)
@@ -188,7 +247,7 @@ def test_world1_nccl_sharded_chunk_equals_unsharded(cuda_device, tmp_path):
         sharding = make_stream_group()
         events = {}
         for name, sh in (("unsharded", None), ("sharded", sharding)):
-            det = BatchedDetector([("w", ww)], cfg, batch_size=B_CARD, device=cuda_device,
+            det = BatchedDetector([("w", ww)], cfg, batch_size=b, device=cuda_device,
                                   sharding=sh)
             states = det.init_states()
             before = fd.LAUNCHES["fused_dtw_v4"]
@@ -213,3 +272,14 @@ def test_world1_nccl_sharded_chunk_equals_unsharded(cuda_device, tmp_path):
         assert int(count) == 1
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dryrun_multigpu_over_every_card(cuda_device, tmp_path):
+    n = torch.cuda.device_count()
+    out = dryrun.dryrun_multigpu(n, "cuda", timeout_s=300, workdir=str(tmp_path))
+    assert [r["rank"] for r in out] == list(range(n))
+    for r in out:
+        assert r["world"] == n and r["local_batch"] == dryrun.STREAMS_PER_RANK
+        assert r["gathered"] == dryrun.STREAMS_PER_RANK * n
+        assert r["device"] == f"cuda:{r['rank']}"

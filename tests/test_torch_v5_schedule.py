@@ -130,5 +130,5 @@ def test_v5_loop_counts_two_flops_per_step(streams):
     ops = fma_probe.loop_opcodes(_listing(streams))[("sload", streams)]
     assert ops == Counter(FFMA=fma_probe.SLOAD_LANES * streams)
     assert fma_probe.flops_per_step(ops, streams) == 2
-    # chip_smoke.py pins this ratio in the compiled loop
+    # tests/test_torch_cuda.py pins this ratio in the compiled loop
     assert ops["FFMA"] == fma_probe.sload_ffma_per_load(streams) * loads
